@@ -1,0 +1,100 @@
+"""Builds the port's CUDA sources with `nvcc` at first use and loads
+them with ctypes.
+
+Each source under `csrc/` compiles on its own into a shared library
+with a plain `extern "C"` interface (no PyTorch headers, so a build
+takes seconds, not minutes).  Libraries land in `_build/` beside this
+file, named by a hash of every file under `csrc/` and the flags, so
+a changed source rebuilds and a fresh checkout builds on first use.
+`build_all()` starts one `nvcc` per missing library, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+# library name -> its source under csrc/
+SOURCES = {"paged_attention": "paged_attention.cu"}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """`$CUDA_HOME/bin/nvcc`, else `nvcc` on PATH, else the toolkit's
+    conventional install location; raises when none exists."""
+    home = os.environ.get("CUDA_HOME")
+    for cand in ((str(Path(home) / "bin" / "nvcc") if home else None),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's "
+        "CUDA kernels build from source on the machine with the card"
+    )
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        digest.update(f.name.encode())
+        digest.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every missing library in `names` (default: all), one
+    `nvcc` each, started together.  Returns {name: seconds} for the
+    libraries it built; raises with the compiler's output on failure."""
+    todo = {}
+    for name in (SOURCES if names is None else names):
+        target = library_path(name)
+        if not target.exists():
+            todo[name] = target
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, target in todo.items():
+        # build beside the target and rename: a concurrent build or
+        # loader never sees a half-written library
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT),
+                       tmp, target, time.perf_counter())
+    took, failed = {}, []
+    for name, (proc, tmp, target, t0) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n"
+                          f"{log.decode(errors='replace')}")
+            continue
+        os.replace(tmp, target)
+        took[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return took
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, built first if missing."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all([name])
+            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+        return lib

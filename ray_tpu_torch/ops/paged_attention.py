@@ -1,0 +1,315 @@
+"""Paged decode attention on Hopper: the KV append (K5) and the decode
+attention (K6) of the engine's fused decode route.
+
+The port of the JAX package's `ops/paged_attention.py`.  Decode
+attention reads the paged KV pool THROUGH the block tables instead of
+gathering every sequence's blocks into a dense view (vLLM's
+PagedAttention, Kwon et al. SOSP 2023, with the split-KV online
+softmax of Flash-Decoding, Dao et al. 2023).  Both kernels take the
+pool `[L, NB, BS, KV, hd]` whole with the layer index as a scalar, so
+the per-layer loop never slices (= copies) the pool.
+
+- `paged_kv_append`: writes each row's new K/V into its tail block, in
+  place (CUDA source: `csrc/paged_attention.cu`, K5).
+- `paged_decode_attention`: walks each row's blocks with an online
+  softmax (same source, K6).
+
+Each wrapper launches its kernel for CUDA tensors, or raises; it takes
+its plain PyTorch version (`*_reference`, same arguments, same
+numerics, dense over a gather) only for tensors on the CPU.  Each
+wrapper carries a plain integer `launches`, bumped once per kernel
+launch and nowhere else, so a run can show that it went through the
+kernels.
+
+Int8 KV rides the same kernels: int8 pools carry a per-row, per-kv-head
+f32 scale sidecar `[L, NB, BS, KV]`; the attention kernel dequantizes
+in-kernel ((int8 -> f32) * scale -> q dtype) and the append kernel
+writes the quantized row and its scale.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ray_tpu_torch.ops import _build
+
+_NEG_INF = -1e30
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_MAX_TILE_BYTES = 16 * 8 * 128  # kMaxVecs 16-byte vectors x 128 threads
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+# ----------------------------------------------------------------------
+# int8 helpers (shared with the engine's gather route + weight quant)
+# ----------------------------------------------------------------------
+def quantize_int8(x: torch.Tensor,
+                  axis: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-slice int8 quantization along `axis` in f32 math:
+    scale = max|x| / 127 (the max element maps to exactly ±127, so a
+    dequant -> requant round trip is idempotent), zero slices get scale
+    0 and payload 0.  `torch.round` is round-half-to-even, as
+    `jnp.round`.  Returns (q int8, scale f32 with `axis` removed)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=axis, keepdim=True) / 127.0
+    q = torch.round(xf / torch.where(scale == 0.0, 1.0, scale))
+    q = q.clamp(-127.0, 127.0).to(torch.int8)
+    return q, scale.squeeze(axis)
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, dtype,
+                    axis: int = -1) -> torch.Tensor:
+    """Inverse of `quantize_int8`: f32 multiply, then cast to `dtype`."""
+    return (q.float() * scale.unsqueeze(axis)).to(dtype)
+
+
+# ----------------------------------------------------------------------
+# plain PyTorch versions (the CPU path, and the kernels' yardstick)
+# ----------------------------------------------------------------------
+def paged_kv_append_reference(k_pool, v_pool, k_new, v_new, tables, pos,
+                              layer, *, k_scale=None, v_scale=None,
+                              k_new_scale=None, v_new_scale=None):
+    """`paged_kv_append` in plain PyTorch: one indexed write per pool.
+    A position past the table's reach (pos >= W * BS) must write
+    nothing; here it is sent to the scratch block instead, whose
+    content is garbage by contract, so the write needs no host sync."""
+    BS = k_pool.shape[2]
+    W = tables.shape[1]
+    rows = torch.arange(tables.shape[0], device=tables.device)
+    p = pos.long()
+    ok = (p >= 0) & (p < W * BS)
+    w = torch.where(ok, p // BS, 0)
+    blk = torch.where(ok, tables[rows, w].long(), 0)
+    off = torch.where(ok, p % BS, 0)
+    k_pool[layer, blk, off] = k_new
+    v_pool[layer, blk, off] = v_new
+    if k_scale is None:
+        return k_pool, v_pool
+    k_scale[layer, blk, off] = k_new_scale
+    v_scale[layer, blk, off] = v_new_scale
+    return k_pool, v_pool, k_scale, v_scale
+
+
+def paged_decode_attention_reference(q, k_pool, v_pool, tables, pos, layer,
+                                     *, k_scale=None, v_scale=None):
+    """`paged_decode_attention` in plain PyTorch: gather each row's W
+    blocks into a dense `[B, W*BS, KV, hd]` view, then
+    `decode_step_vec`'s attention: f32 scores times hd**-0.5, columns
+    > pos at -1e30, f32 softmax, weights cast to q's dtype, f32 P.V."""
+    _, _, BS, KV, HD = k_pool.shape
+    B, W = tables.shape
+    H = q.shape[1]
+    t = tables.long()
+    k = k_pool[layer][t].reshape(B, W * BS, KV, HD)
+    v = v_pool[layer][t].reshape(B, W * BS, KV, HD)
+    if k_scale is not None:
+        k = dequantize_int8(k, k_scale[layer][t].reshape(B, W * BS, KV),
+                            q.dtype)
+        v = dequantize_int8(v, v_scale[layer][t].reshape(B, W * BS, KV),
+                            q.dtype)
+    qg = q.reshape(B, KV, H // KV, HD).float()
+    s = torch.einsum("bkgd,bmkd->bkgm", qg, k.float()) * HD ** -0.5
+    cols = torch.arange(W * BS, device=q.device)
+    valid = (cols[None, :] <= pos[:, None].long())[:, None, None, :]
+    s = torch.where(valid, s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgm,bmkd->bkgd", p.to(q.dtype).float(), v.float())
+    return o.reshape(B, H, HD).to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# kernel wrappers
+# ----------------------------------------------------------------------
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("paged_attention")
+    if not getattr(lib, "_rt_typed", False):
+        lib.rt_paged_kv_append.argtypes = [_P] * 10 + [_I] * 8 + [_P]
+        lib.rt_paged_kv_append.restype = _I
+        lib.rt_paged_decode_attention.argtypes = (
+            [_P] * 8 + [_I] * 8 + [ctypes.c_float, _I, _I, _P])
+        lib.rt_paged_decode_attention.restype = _I
+        lib._rt_typed = True
+    return lib
+
+
+def _check_cuda(device: torch.device, **tensors) -> None:
+    if device.type != "cuda":
+        raise ValueError(
+            f"the paged kernels run on CUDA tensors (got {device}); "
+            "CPU tensors take the plain version"
+        )
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_scales(quantized: bool, pool_dtype, **scales) -> None:
+    given = [s is not None for s in scales.values()]
+    if quantized != (pool_dtype == torch.int8) or (any(given)
+                                                    and not all(given)):
+        raise ValueError(
+            "int8 pools need every f32 scale tensor; model-dtype pools "
+            "take none"
+        )
+    for name, s in scales.items():
+        if s is not None and s.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {s.dtype}")
+
+
+def _check_index(tables, pos, B: int) -> None:
+    if tables.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise ValueError("tables and pos must be int32")
+    if tables.dim() != 2 or tuple(pos.shape) != (B,):
+        raise ValueError(f"tables {tuple(tables.shape)} / pos "
+                         f"{tuple(pos.shape)} do not match B={B}")
+
+
+def _vec_bytes(row_bytes: int, *tensors) -> int:
+    """Widest copy unit dividing the row and every pointer."""
+    for v in (16, 8, 4, 2):
+        if row_bytes % v == 0 and all(t.data_ptr() % v == 0
+                                      for t in tensors):
+            return v
+    return 1
+
+
+def paged_kv_append(k_pool, v_pool, k_new, v_new, tables, pos, layer, *,
+                    k_scale=None, v_scale=None, k_new_scale=None,
+                    v_new_scale=None):
+    """Write each row's new KV into its tail pool block, IN PLACE.
+
+    k_pool/v_pool [L, NB, BS, KV, hd]; k_new/v_new [B, KV, hd] (pool
+    dtype); tables [B, W] int32; pos [B] int32 (the position being
+    written; positions >= W*BS write nothing); layer: int.  With the
+    int8 sidecar (`k_scale`/`v_scale` [L, NB, BS, KV] f32 + per-row
+    `k_new_scale`/`v_new_scale` [B, KV]) returns (k_pool, v_pool,
+    k_scale, v_scale), else (k_pool, v_pool): the same tensors, updated
+    in place (the JAX version returns donated buffers instead)."""
+    if k_pool.device.type == "cpu":
+        return paged_kv_append_reference(
+            k_pool, v_pool, k_new, v_new, tables, pos, layer,
+            k_scale=k_scale, v_scale=v_scale, k_new_scale=k_new_scale,
+            v_new_scale=v_new_scale,
+        )
+    L, NB, BS, KV, HD = k_pool.shape
+    B = k_new.shape[0]
+    quantized = k_scale is not None
+    _check_cuda(k_pool.device, k_pool=k_pool, v_pool=v_pool, k_new=k_new,
+                v_new=v_new, tables=tables, pos=pos, k_scale=k_scale,
+                v_scale=v_scale, k_new_scale=k_new_scale,
+                v_new_scale=v_new_scale)
+    if k_pool.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"pool dtype {k_pool.dtype} not supported")
+    if not (v_pool.dtype == k_new.dtype == v_new.dtype == k_pool.dtype):
+        raise ValueError("k_pool, v_pool, k_new and v_new must share a dtype")
+    if (v_pool.shape != k_pool.shape or k_new.shape != (B, KV, HD)
+            or v_new.shape != (B, KV, HD)):
+        raise ValueError("pool / new-row shapes disagree")
+    _check_scales(quantized, k_pool.dtype, k_scale=k_scale, v_scale=v_scale,
+                  k_new_scale=k_new_scale, v_new_scale=v_new_scale)
+    if quantized and (k_scale.shape != (L, NB, BS, KV)
+                      or v_scale.shape != (L, NB, BS, KV)
+                      or k_new_scale.shape != (B, KV)
+                      or v_new_scale.shape != (B, KV)):
+        raise ValueError("scale shapes disagree with the pool")
+    _check_index(tables, pos, B)
+    layer = int(layer)
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range [0, {L})")
+    row_bytes = HD * k_pool.element_size()
+    rc = _lib().rt_paged_kv_append(
+        k_pool.data_ptr(), v_pool.data_ptr(), k_new.data_ptr(),
+        v_new.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        k_new_scale.data_ptr() if quantized else None,
+        v_new_scale.data_ptr() if quantized else None,
+        tables.data_ptr(), pos.data_ptr(), layer, NB, BS, KV, row_bytes, B,
+        tables.shape[1],
+        _vec_bytes(row_bytes, k_pool, v_pool, k_new, v_new),
+        torch.cuda.current_stream(k_pool.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"paged_kv_append kernel launch failed: "
+                           f"CUDA error {rc}")
+    paged_kv_append.launches += 1
+    if quantized:
+        return k_pool, v_pool, k_scale, v_scale
+    return k_pool, v_pool
+
+
+paged_kv_append.launches = 0
+
+
+def paged_decode_attention(q, k_pool, v_pool, tables, pos, layer, *,
+                           k_scale=None, v_scale=None):
+    """One step of decode attention straight off the paged pool.
+
+    q [B, H, hd] (post-RoPE, current positions); k_pool/v_pool
+    [L, NB, BS, KV, hd]; tables [B, W] int32 block tables (pad with the
+    scratch block); pos [B] int32 per-row positions — attention covers
+    columns 0..pos[b] inclusive, so the current row must already be
+    written (`paged_kv_append` first).  `layer` selects the pool layer.
+    GQA: query head h attends through kv head h // (H // KV).  Returns
+    o [B, H, hd] in q's dtype."""
+    if k_pool.device.type == "cpu":
+        return paged_decode_attention_reference(
+            q, k_pool, v_pool, tables, pos, layer,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+    L, NB, BS, KV, HD = k_pool.shape
+    B, H = q.shape[0], q.shape[1]
+    quantized = k_scale is not None
+    _check_cuda(k_pool.device, q=q, k_pool=k_pool, v_pool=v_pool,
+                tables=tables, pos=pos, k_scale=k_scale, v_scale=v_scale)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q dtype {q.dtype} not supported")
+    if v_pool.dtype != k_pool.dtype or k_pool.dtype not in (q.dtype,
+                                                            torch.int8):
+        raise ValueError(f"pool dtype {k_pool.dtype} does not serve q "
+                         f"dtype {q.dtype}")
+    if (v_pool.shape != k_pool.shape or q.dim() != 3 or q.shape[2] != HD
+            or H % KV):
+        raise ValueError("q / pool shapes disagree")
+    _check_scales(quantized, k_pool.dtype, k_scale=k_scale, v_scale=v_scale)
+    if quantized and (k_scale.shape != (L, NB, BS, KV)
+                      or v_scale.shape != (L, NB, BS, KV)):
+        raise ValueError("scale shapes disagree with the pool")
+    _check_index(tables, pos, B)
+    # the kernel moves K/V tiles as 16-byte vectors, at most 16 KB a tile
+    row_bytes = HD * k_pool.element_size()
+    if (row_bytes % 16 or BS * row_bytes > _MAX_TILE_BYTES
+            or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16):
+        raise ValueError(
+            f"pool rows of {row_bytes} B (block of {BS}) are not 16-byte "
+            f"vectors of a tile <= {_MAX_TILE_BYTES} B at 16-byte aligned "
+            "addresses"
+        )
+    layer = int(layer)
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range [0, {L})")
+    out = torch.empty_like(q)
+    rc = _lib().rt_paged_decode_attention(
+        out.data_ptr(), q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        tables.data_ptr(), pos.data_ptr(), layer, NB, BS, KV, HD, H, B,
+        tables.shape[1], float(HD ** -0.5), _KERNEL_DTYPES[q.dtype],
+        _KERNEL_DTYPES[k_pool.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
+                           f"CUDA error {rc}")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

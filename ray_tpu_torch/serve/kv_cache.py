@@ -1,0 +1,228 @@
+"""Paged KV-cache bookkeeping: block pool + radix prefix cache.
+
+A copy of the JAX package's `serve/kv_cache.py` (it has no JAX in it,
+and the port imports nothing of that package).  The vLLM/SGLang
+serving levers (Kwon et al., SOSP 2023 PagedAttention; Zheng et al.,
+2024 RadixAttention), host-side: the device holds one fixed block pool
+(`[L, num_blocks, block_size, KV, hd]`, allocated once), and these
+classes decide which pool blocks each sequence's block table points at.
+
+- `BlockPool`: free-list allocator over pool block ids.  Block 0 is a
+  reserved scratch block: idle slots and block-table padding point at
+  it, so gathers/scatters of inactive rows land somewhere harmless
+  without any dynamic shapes.
+- `RadixCache`: a token trie at BLOCK granularity whose nodes pin pool
+  blocks holding the KV of one block's worth of prompt prefix.  A
+  request whose prompt walks k nodes reuses k*block_size tokens of KV
+  and skips prefill for them.  Only FULL prompt blocks are ever
+  shared: a partially-filled tail block is also the block decode
+  appends into, and sharing it would let one sequence's appends
+  clobber another's reads.  Matching pins the path (refcounts);
+  unpinned nodes are LRU-evicted when the pool runs low.
+
+Everything here is plain host Python mutated only by the engine's
+single scheduler thread — no locks, no device calls.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+SCRATCH_BLOCK = 0
+
+
+KV_DTYPES = ("model", "int8")
+
+
+class BlockPool:
+    """Free-list allocator over device KV-pool block ids.
+
+    `num_blocks` counts ALL blocks including the reserved scratch block
+    0, which is never handed out.
+
+    `kv_dtype` declares the DEVICE pool's element type: "model" stores
+    K/V in the model's compute dtype; "int8" stores a symmetric
+    per-row-per-kv-head int8 payload (half of bf16 per element) with an
+    f32 scale sidecar `[L, num_blocks, block_size, KV]` living beside
+    the pool — the engine allocates both and the kernels in
+    `ops/paged_attention.py` fuse the dequant.  Pure bookkeeping here
+    (block ids are dtype-blind); the pool carries the declaration so
+    every consumer sizes and interprets the device tensors the same
+    way."""
+
+    def __init__(self, num_blocks: int, kv_dtype: str = "model"):
+        if num_blocks < 2:
+            raise ValueError("block pool needs >= 2 blocks (1 is scratch)")
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype={kv_dtype!r} not in {KV_DTYPES}"
+            )
+        self.num_blocks = num_blocks
+        self.kv_dtype = kv_dtype
+        # pop() from the tail hands out low ids first (stable layouts
+        # across runs -> deterministic tests)
+        self._free: List[int] = list(range(num_blocks - 1, 0, -1))
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def capacity(self) -> int:
+        """Allocatable blocks (scratch excluded)."""
+        return self.num_blocks - 1
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """n blocks, or None if the pool can't cover them (caller
+        evicts from the radix cache and retries)."""
+        if n < 0:
+            raise ValueError(f"alloc({n})")
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        return out
+
+    def free(self, ids: Sequence[int]) -> None:
+        for b in ids:
+            if b == SCRATCH_BLOCK:
+                raise ValueError("freeing the scratch block")
+            self._free.append(b)
+
+
+class _Node:
+    __slots__ = ("children", "parent", "key", "block", "refs", "last_use")
+
+    def __init__(self, parent: Optional["_Node"], key: Optional[tuple],
+                 block: Optional[int]):
+        self.children: Dict[tuple, _Node] = {}
+        self.parent = parent
+        self.key = key
+        self.block = block
+        self.refs = 0
+        self.last_use = 0
+
+
+class RadixCache:
+    """Prefix trie over prompt token blocks; nodes own pool blocks.
+
+    Contract with the engine:
+    - `match(tokens)` walks full prompt blocks (capped at len-1 tokens
+      so at least one suffix token remains to produce logits), PINS the
+      matched path, and returns (block_ids, path).
+    - `insert(tokens, path, owned)` extends the matched path with the
+      request's remaining full prompt blocks, adopting ids from
+      `owned`; returns (full_path, adopted_ids).  The full path stays
+      pinned until `release`.
+    - `release(path)` unpins; blocks stay cached (refs 0 = evictable).
+    - `evict(need)` frees up to `need` blocks from unpinned LEAVES,
+      least-recently-matched first (a parent only becomes evictable
+      once its children are gone, so eviction never orphans a deeper
+      cached prefix).
+    """
+
+    def __init__(self, block_size: int, pool: BlockPool):
+        if block_size < 1:
+            raise ValueError(f"block_size={block_size}")
+        self.block_size = block_size
+        self._pool = pool
+        self._root = _Node(None, None, None)
+        # logical clock, not wall time: LRU order is deterministic
+        # under test replay
+        self._clock = 0
+        self.cached_blocks = 0
+        self.evicted_blocks = 0
+
+    # -- lookup -------------------------------------------------------
+    def _shareable_blocks(self, tokens: Sequence[int]) -> int:
+        """Full blocks of `tokens` eligible for sharing: at least one
+        token must stay un-shared (prefill needs >=1 position to emit
+        the continuation logit)."""
+        return max(0, (len(tokens) - 1) // self.block_size)
+
+    def match(self, tokens: Sequence[int]) -> Tuple[List[int], List[_Node]]:
+        bs = self.block_size
+        self._clock += 1
+        node = self._root
+        blocks: List[int] = []
+        path: List[_Node] = []
+        for i in range(self._shareable_blocks(tokens)):
+            child = node.children.get(tuple(tokens[i * bs:(i + 1) * bs]))
+            if child is None:
+                break
+            child.refs += 1
+            child.last_use = self._clock
+            blocks.append(child.block)
+            path.append(child)
+            node = child
+        return blocks, path
+
+    def release(self, path: Sequence[_Node]) -> None:
+        for n in path:
+            n.refs -= 1
+
+    # -- insertion ----------------------------------------------------
+    def insert(self, tokens: Sequence[int], path: List[_Node],
+               owned: Sequence[int]) -> Tuple[List[_Node], List[int]]:
+        """Donate this request's full-prompt blocks to the trie.
+
+        `path` is the pinned result of `match`; `owned` holds the
+        request's freshly-prefilled block ids in position order
+        starting at block index len(path).  Returns the extended
+        (pinned) path and the ids the trie adopted — the caller must
+        stop treating adopted ids as request-owned.  If a key already
+        exists (possible only after a partial eviction raced... it
+        cannot in the single-threaded engine, but stay defensive), the
+        existing node is pinned and the caller keeps its duplicate
+        block."""
+        bs = self.block_size
+        self._clock += 1
+        node = path[-1] if path else self._root
+        full_path = list(path)
+        adopted: List[int] = []
+        j = 0
+        for i in range(len(path), self._shareable_blocks(tokens)):
+            if j >= len(owned):
+                break
+            key = tuple(tokens[i * bs:(i + 1) * bs])
+            child = node.children.get(key)
+            if child is None:
+                child = _Node(node, key, owned[j])
+                node.children[key] = child
+                adopted.append(owned[j])
+                self.cached_blocks += 1
+            child.refs += 1
+            child.last_use = self._clock
+            full_path.append(child)
+            node = child
+            j += 1
+        return full_path, adopted
+
+    # -- eviction -----------------------------------------------------
+    def _leaves(self) -> List[_Node]:
+        out, stack = [], list(self._root.children.values())
+        while stack:
+            n = stack.pop()
+            if n.children:
+                stack.extend(n.children.values())
+            elif n.refs <= 0:
+                out.append(n)
+        return out
+
+    def evict(self, need: int) -> int:
+        """Free up to `need` blocks back to the pool; returns the count
+        actually freed.  LRU over unpinned leaves, repeated so a freed
+        leaf's parent becomes eligible within the same call."""
+        freed = 0
+        while freed < need:
+            leaves = sorted(self._leaves(), key=lambda n: n.last_use)
+            if not leaves:
+                break
+            for n in leaves:
+                if freed >= need:
+                    break
+                del n.parent.children[n.key]
+                self._pool.free([n.block])
+                self.cached_blocks -= 1
+                self.evicted_blocks += 1
+                freed += 1
+        return freed
