@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's serving path on one CUDA card.
+"""Drives the PyTorch/CUDA port's serving and training paths on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -22,7 +23,26 @@ exits non-zero:
    a mid-decode state; K5/K6 timed at the main path's shapes.
 6. tiny parity: a tiny f32 engine on the card gives `generate`'s greedy
    tokens exactly.
-7. the kernels line, the `nvidia-smi` line, and the final result line.
+7. K1-K4 (flash attention forward, fused backward, split dQ and dK/dV)
+   against their plain versions at the training shape (BH 32*12, T
+   1024, D 64) and at Llama's head width (BH 64, T 512, D 128), causal
+   and full, f32 and bf16, plus a ragged T of 1000 (bf16, causal):
+   element by element and by the relative norm of the difference.
+8. training main path: GPT-2 124M at full width and depth (bf16 compute,
+   f32 master weights, flash attention, full remat, bf16 logits),
+   batch 32 x 1024, through `make_train_step`: 2 warm-up steps, then 5
+   timed steps with the launch counts of exactly those steps (12 layers
+   x (forward + remat replay) K1 and 12 K2 a step, no K3/K4, no plain
+   dispatch); at full size, the step-0 loss and the gradients of the
+   attention weights on the flash and dense routes.
+9. split route: the flash op at the training shape with blocks of 256,
+   forward and backward, so K3 + K4 run (their launch counts are this
+   run's), against dense attention's autograd in f32.
+10. route parity: tiny GPT-2 in f32, 3 train steps on the flash kernels
+    against 3 on dense attention from the same params and tokens.
+11. K1-K4 timed at the training shape (bf16, causal), beside their
+    bounds, plain versions and `scaled_dot_product_attention`.
+12. the kernels line, the `nvidia-smi` line, and the final result line.
 
 Times are medians of CUDA-event timings of device work, with the 50 MB
 L2 flushed (a 1 GiB write) before each launch.  Bounds use the H100 SXM's published 3.35 TB/s of
@@ -33,6 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -43,19 +64,65 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.examples.serve_llm import _build_model
-from ray_tpu_torch.models import llama
+from ray_tpu_torch.models import gpt2, llama
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
+from ray_tpu_torch.parallel.ring_attention import plain_attention
+from ray_tpu_torch.scripts import train_gpt2
 from ray_tpu_torch.serve.llm_engine import LlamaEngine
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-SOURCE = "ray_tpu_torch/ops/csrc/paged_attention.cu"
+PAGED_SRC = "ray_tpu_torch/ops/csrc/paged_attention.cu"
+FLASH_SRC = "ray_tpu_torch/ops/csrc/attention.cu"
+SOURCES = {"paged_kv_append": PAGED_SRC, "paged_decode_attention": PAGED_SRC,
+           "flash_fwd": FLASH_SRC, "flash_bwd_fused": FLASH_SRC,
+           "flash_bwd_dq": FLASH_SRC, "flash_bwd_dkv": FLASH_SRC}
 REPLACES = {"paged_kv_append": "ray_tpu/ops/paged_attention.py:93",
-            "paged_decode_attention": "ray_tpu/ops/paged_attention.py:247"}
+            "paged_decode_attention": "ray_tpu/ops/paged_attention.py:247",
+            "flash_fwd": "ray_tpu/ops/attention.py:61",
+            "flash_bwd_fused": "ray_tpu/ops/attention.py:202",
+            "flash_bwd_dq": "ray_tpu/ops/attention.py:143",
+            "flash_bwd_dkv": "ray_tpu/ops/attention.py:253"}
+FLASH = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
 # K6 tolerances: f32 to rounding; bf16 / int8 the reference's own
 # (tests/test_paged_attention.py:78-79)
 ATTN_TOL = {"f32": 1e-5, "bf16": 2e-2, "int8": 2e-2}
+# K1-K4 against their plain versions, two measures per output: element
+# by element, |kernel - plain| <= atol + rtol |plain| (as
+# torch.testing.assert_close), and the norm of the difference over the
+# plain version's norm, which a kernel wrong on a share of its rows
+# cannot pass however small those rows' values are.  f32: tiled online
+# softmax and tiled sums in another order, K2's dQ summed by f32 atomics
+# in an order that changes from run to run.  bf16: P and dS rounded to
+# bf16 at other running maxima, outputs rounded to bf16 (one ulp is
+# 2^-8 of a value).  The relative-norm limits are about 3x the worst
+# readings on an H100 (f32 7.5e-7, bf16 2.3e-3; PERF.md)
+FLASH_TOL = {"f32": {"rtol": 1e-4, "atol": 1e-5, "rel": 3e-6},
+             "bf16": {"rtol": 2e-2, "atol": 1e-2, "rel": 7e-3}}
+# the split route in bf16 against dense attention in f32 on the same
+# (bf16-valued) inputs: the bf16 route's own rounding against exact
+# arithmetic.  Elements of dK and dV near zero are sums of up to 1024
+# terms each rounded to bf16, so atol is twice the kernel checks'; the
+# relative norm is about 3x the H100 reading of 3.0e-3
+SPLIT_TOL = {"rtol": 2e-2, "atol": 2e-2, "rel": 1e-2}
+# route parity (tiny GPT-2, f32, 3 AdamW steps, flash kernels vs dense):
+# loss and grad norm rtol; params abs at lr / 10, because Adam divides
+# each gradient by its own running magnitude, so a rounding difference
+# in a small gradient moves its param by a fraction of lr.  The key
+# bias's gradient is rounding noise around an exact zero (it adds the
+# same q.b_k to every score of a row): that slice is held only to the
+# most Adam can move a param, lr a step
+ROUTE_LR = 1e-3
+ROUTE_TOL = {"loss": 1e-4, "params": ROUTE_LR / 10, "key_bias": 3 * ROUTE_LR}
+# full-size bf16 step 0, flash vs dense: the loss (bf16 rounding through
+# 12 layers on a loss near ln 50257), and the relative norm of the
+# difference of the attention weights' gradients.  The dense route
+# rounds its scores and softmax to bf16, which the kernels keep in f32;
+# the limit is about 3x the H100 reading of 1.08e-2 (PERF.md)
+FULL_LOSS_TOL = 2e-2
+FULL_GRAD_TOL = 3e-2
 
 
 def emit(obj) -> None:
@@ -346,8 +413,7 @@ def serve(engine: LlamaEngine, prompts, max_new_tokens: int) -> dict:
     raises.  Returns outputs, wall time, and the launch counts of the
     kernels taken over exactly this run."""
     d0 = engine.stats()["decode_kernel_dispatch_total"]
-    pa.paged_kv_append.launches = 0
-    pa.paged_decode_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     futs = [engine.submit(p, max_new_tokens) for p in prompts]
     outs = [f.result(timeout=900) for f in futs]
@@ -518,6 +584,289 @@ def tiny_parity(device) -> dict:
 
 
 # ----------------------------------------------------------------------
+# flash attention (K1-K4)
+# ----------------------------------------------------------------------
+def flash_case(BH, T, D, dtype, causal, device, seed=0) -> dict:
+    """Seeded q, k, v, dO [BH, T, D] and the plain forward's O, LSE and
+    delta: the inputs each backward kernel shares with its plain
+    version."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    q, k, v, do = (torch.randn((BH, T, D), generator=gen,
+                               device=device).to(dtype) for _ in range(4))
+    scale = D ** -0.5
+    o, lse = fa.flash_fwd_reference(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    return {"q": q, "k": k, "v": v, "do": do, "o": o, "lse": lse,
+            "delta": delta, "causal": causal, "scale": scale}
+
+
+def run_flash(name: str, c: dict, plain: bool = False) -> tuple:
+    fn = getattr(fa, name + "_reference" if plain else name)
+    args = (c["q"], c["k"], c["v"])
+    if name == "flash_bwd_fused":
+        args += (c["do"], c["lse"], c["o"])
+    elif name != "flash_fwd":
+        args += (c["do"], c["lse"], c["delta"])
+    out = fn(*args, c["causal"], c["scale"])
+    return out if isinstance(out, tuple) else (out,)
+
+
+def compare(got, want, tol: dict) -> tuple:
+    """(max abs error, max |got - want| / (atol + rtol |want|), norm of
+    the difference / norm of want), in f32; the second must stay <= 1
+    and the third <= tol["rel"]."""
+    g, w = got.detach().float(), want.detach().float()
+    d = (g - w).abs()
+    return (float(d.max()),
+            float((d / (tol["atol"] + tol["rtol"] * w.abs())).max()),
+            float(torch.linalg.vector_norm(g - w)
+                  / torch.linalg.vector_norm(w)))
+
+
+def within(errs, tol: dict) -> bool:
+    return errs[1] <= 1.0 and errs[2] <= tol["rel"]
+
+
+def check_flash(c: dict, kind: str) -> dict:
+    """K1-K4 each against its plain version on the same inputs.  Returns
+    {name: (max abs err, elementwise ratio, relative norm)}, each the
+    worst over the kernel's outputs; raises beyond FLASH_TOL[kind]."""
+    tol, out = FLASH_TOL[kind], {}
+    for name in FLASH:
+        got, want = run_flash(name, c), run_flash(name, c, plain=True)
+        worst = (0.0, 0.0, 0.0)
+        for g, w in zip(got, want):
+            if (g.shape != w.shape or g.dtype != w.dtype
+                    or not bool(torch.isfinite(g.float()).all())):
+                raise AssertionError(f"{name}: misshapen or non-finite")
+            worst = tuple(map(max, worst, compare(g, w, tol)))
+        if not within(worst, tol):
+            raise AssertionError(f"{name} {kind}: (max abs, elementwise "
+                                 f"ratio, rel norm) {worst} beyond {tol}")
+        out[name] = worst
+    return out
+
+
+def flash_bound(name: str, c: dict) -> tuple:
+    """Operations: 2 * D per (q, k) pair per product, over the pairs
+    this call needs (the lower triangle with the diagonal when causal);
+    K1 does 2 products, K2 5, K3 3, K4 4.  Bytes: each input read once,
+    each output written once."""
+    BH, T, D = c["q"].shape
+    pairs = BH * (T * (T + 1) // 2 if c["causal"] else T * T)
+    mats = {"flash_fwd": 2, "flash_bwd_fused": 5, "flash_bwd_dq": 3,
+            "flash_bwd_dkv": 4}[name]
+    n = BH * T * D * c["q"].element_size()
+    vec = BH * T * 4
+    n_bytes = {"flash_fwd": 4 * n + vec, "flash_bwd_fused": 8 * n + vec,
+               "flash_bwd_dq": 5 * n + 2 * vec,
+               "flash_bwd_dkv": 6 * n + 2 * vec}[name]
+    return _bound(n_bytes, 2.0 * D * pairs * mats, c["q"].dtype)
+
+
+def sdpa_yardsticks(c: dict, H: int) -> tuple:
+    """`scaled_dot_product_attention` on the same inputs as [B, H, T, D]:
+    its forward ms, and its backward ms (forward + backward minus
+    forward)."""
+    BH, T, D = c["q"].shape
+    shape = (BH // H, H, T, D)
+    q, k, v, do = (c[n].view(shape) for n in ("q", "k", "v", "do"))
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def fwd():
+        F.scaled_dot_product_attention(q, k, v, is_causal=c["causal"])
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg,
+                                             is_causal=c["causal"])
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    f = time_ms(fwd)
+    return f, time_ms(fwd_bwd) - f
+
+
+def time_flash(c: dict, H: int) -> dict:
+    """ms / plain_ms / bound_ms / library_ms of K1-K4 on one case.  The
+    library call for K1 is SDPA's forward, for K2 its backward; no one
+    call computes K3's or K4's function alone (SDPA's backward is the
+    pair's yardstick, in the phase line)."""
+    lib_fwd, lib_bwd = sdpa_yardsticks(c, H)
+    out = {}
+    for name in FLASH:
+        bound, by = flash_bound(name, c)
+        out[name] = {
+            "ms": time_ms(lambda: run_flash(name, c)),
+            "plain_ms": time_ms(lambda: run_flash(name, c, plain=True)),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": {"flash_fwd": lib_fwd,
+                           "flash_bwd_fused": lib_bwd}.get(name),
+        }
+    return out, lib_bwd
+
+
+def reset_counts() -> None:
+    for name in FLASH:
+        getattr(fa, name).launches = 0
+    fa.flash_attention.plain_dispatches = 0
+    pa.paged_kv_append.launches = 0
+    pa.paged_decode_attention.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: getattr(fa, name).launches for name in FLASH}
+
+
+# ----------------------------------------------------------------------
+# the training main path
+# ----------------------------------------------------------------------
+def route_grads(cfg, params, tokens) -> tuple:
+    """The loss and the gradients of the attention weights, qkv (which
+    only the attention backward reaches) and out (fed by its forward)."""
+    names = ("attn_qkv_w", "attn_out_w")
+    ws = [params["blocks"][n].requires_grad_(True) for n in names]
+    loss = gpt2.loss_fn(cfg, params, tokens)
+    grads = torch.autograd.grad(loss, ws)
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def run_training(device, *, cfg=None, batch=32, seq=1024, warmup=2,
+                 steps=5) -> dict:
+    """GPT-2 (124M by default) through `make_train_step`: the step-0 loss
+    and attention-weight gradients on the flash and dense routes from
+    the initial params, `warmup` steps, then `steps` timed steps with
+    the counts of exactly those steps."""
+    state = train_gpt2.build(device, batch, seq, seed=0, cfg=cfg)
+    cfg = state["cfg"]
+    routes = {a: route_grads(dataclasses.replace(cfg, attention=a),
+                             state["params"], state["tokens"])
+              for a in ("flash", "dense")}
+    (loss_flash, g_flash), (loss_dense, g_dense) = (routes["flash"],
+                                                    routes["dense"])
+    grad_err = {n: float(torch.linalg.vector_norm(g_flash[n] - g_dense[n])
+                         / torch.linalg.vector_norm(g_dense[n]))
+                for n in g_dense}
+    del routes, g_flash, g_dense
+    if (abs(loss_flash - loss_dense) > FULL_LOSS_TOL
+            or max(grad_err.values()) > FULL_GRAD_TOL):
+        raise AssertionError(f"step 0, flash vs dense: loss {loss_flash} "
+                             f"vs {loss_dense}, grads {grad_err}")
+    warm = train_gpt2.run_steps(state, warmup)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    timed = train_gpt2.run_steps(state, steps)
+    launches = read_counts()
+    plain = fa.flash_attention.plain_dispatches
+    want = {"flash_fwd": steps * cfg.n_layer * 2,
+            "flash_bwd_fused": steps * cfg.n_layer,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if launches != want or plain != 0:
+        raise AssertionError(f"training launches {launches} (want {want}), "
+                             f"plain dispatches {plain}")
+    summary = train_gpt2.summarize(state, timed)
+    losses = [s["loss"] for s in warm] + summary["losses"]
+    if not all(math.isfinite(x) for x in losses + summary["grad_norms"]):
+        raise AssertionError(f"non-finite training metrics: {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError(f"step-0 loss {losses[0]} far from "
+                             f"ln V = {math.log(cfg.vocab_size)}")
+    peak = (torch.cuda.max_memory_allocated(device) / 1e9
+            if device.type == "cuda" else None)
+    return {"launches": launches, "line": {
+        "phase": "train_main_path", "model": "gpt2_124m",
+        "n_layer": cfg.n_layer, "n_embd": cfg.n_embd, "n_head": cfg.n_head,
+        "vocab": cfg.vocab_size, "dtype": str(cfg.dtype).replace(
+            "torch.", ""), "master_dtype": "float32",
+        "logits_dtype": str(cfg.logits_dtype).replace("torch.", ""),
+        "attention": cfg.attention, "remat_policy": cfg.remat_policy,
+        "depth_cut": False, "batch": batch, "seq": seq,
+        "warmup_steps": warmup, "timed_steps": steps,
+        "step0_loss": losses[0], "step0_loss_flash": loss_flash,
+        "step0_loss_dense": loss_dense,
+        "step0_grad_rel_err_flash_vs_dense": grad_err,
+        "step0_tolerance": {"loss": FULL_LOSS_TOL, "grad": FULL_GRAD_TOL},
+        "launches": launches, "launches_want": want,
+        "plain_dispatches": plain, "peak_mem_gb": peak,
+        **{k: summary[k] for k in ("tokens_per_step", "n_params", "step_ms",
+                                   "losses", "grad_norms", "tokens_per_s",
+                                   "mfu")},
+    }}
+
+
+def split_route(device, *, B=32, T=1024, H=12, D=64, block=256) -> dict:
+    """The flash op with blocks of 256 at the training shape (bf16),
+    forward and backward: K1, then K3 + K4 with delta from the wrapper.
+    Held against dense attention's autograd in f32 on the same inputs."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    q, k, v, w = (torch.randn((B, T, H, D), generator=gen, device=device)
+                  for _ in range(4))
+    xs = [t.to(torch.bfloat16).requires_grad_(True) for t in (q, k, v)]
+    reset_counts()
+    out = fa.flash_attention(*xs, True, block, block)
+    grads = torch.autograd.grad(out, xs, w.to(torch.bfloat16))
+    launches = read_counts()
+    if (launches["flash_bwd_dq"] != 1 or launches["flash_bwd_dkv"] != 1
+            or launches["flash_bwd_fused"] != 0
+            or fa.flash_attention.plain_dispatches != 0):
+        raise AssertionError(f"split route launches {launches}")
+    ref = [t.detach().float().requires_grad_(True) for t in xs]
+    dense = plain_attention(*ref, causal=True)
+    want = (dense, *torch.autograd.grad(dense, ref, w))
+    errs = {n: compare(g, r, SPLIT_TOL)
+            for n, g, r in zip(("out", "dq", "dk", "dv"), (out, *grads), want)}
+    if not all(within(e, SPLIT_TOL) for e in errs.values()):
+        raise AssertionError(f"split route vs dense: {errs}")
+    return {"launches": launches, "line": {
+        "phase": "split_route", "B": B, "T": T, "H": H, "D": D,
+        "block_q": block, "block_k": block, "dtype": "bfloat16",
+        "launches": launches,
+        "max_abs_elementwise_relnorm": errs, "tolerance": SPLIT_TOL}}
+
+
+def route_parity(device, steps=3) -> dict:
+    """Tiny GPT-2 in f32: `steps` AdamW steps on the flash kernels and on
+    dense attention, from the same params and tokens."""
+    base = dataclasses.replace(gpt2.GPT2Config.tiny(), dtype=torch.float32)
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, base.vocab_size, (4, 129)), dtype=torch.int32, device=device)
+    runs = {}
+    for attention in ("flash", "dense"):
+        cfg = dataclasses.replace(base, attention=attention)
+        params = gpt2.init_params(cfg, 0, device=device)
+        opt = gpt2.default_optimizer(lr=ROUTE_LR, warmup_steps=1,
+                                     total_steps=10)
+        state, step = opt.init(params), gpt2.make_train_step(cfg, opt)
+        metrics = []
+        for _ in range(steps):
+            params, state, m = step(params, state, tokens)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[attention] = (metrics, params)
+    (mf, pf), (md, pd) = runs["flash"], runs["dense"]
+    metric_err = max(abs(a - b) / abs(b) for x, y in zip(mf, md)
+                     for a, b in zip(x, y))
+    E = base.n_embd
+    with torch.no_grad():
+        kb_err = float((pf["blocks"]["attn_qkv_b"][:, E:2 * E]
+                        - pd["blocks"]["attn_qkv_b"][:, E:2 * E]).abs().max())
+        for p in (pf, pd):
+            p["blocks"]["attn_qkv_b"][:, E:2 * E] = 0.0
+        param_err = max(float((a - b).abs().max())
+                        for a, b in zip(gpt2._leaves(pf), gpt2._leaves(pd)))
+    if (metric_err > ROUTE_TOL["loss"] or param_err > ROUTE_TOL["params"]
+            or kb_err > ROUTE_TOL["key_bias"]):
+        raise AssertionError(f"flash vs dense: metrics {metric_err}, "
+                             f"params {param_err}, key bias {kb_err}")
+    return {"phase": "route_parity", "model": "gpt2_tiny_f32",
+            "steps": steps, "losses_flash": [m[0] for m in mf],
+            "losses_dense": [m[0] for m in md],
+            "max_rel_err_loss_gnorm": metric_err,
+            "max_abs_err_params": param_err,
+            "max_abs_err_key_bias": kb_err, "tolerance": ROUTE_TOL}
+
+
+# ----------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -613,12 +962,56 @@ def main() -> int:
 
     emit(tiny_parity(device))
 
-    errs = {"paged_kv_append": 0.0, "paged_decode_attention": attn_err}
+    # K1-K4 against their plain versions
+    flash_errs = {}
+    for BH, T, D, kind_, causal in (
+            [(32 * 12, 1024, 64, k, c) for k in ("f32", "bf16")
+             for c in (True, False)]
+            + [(64, 512, 128, k, c) for k in ("f32", "bf16")
+               for c in (True, False)]
+            + [(48, 1000, 64, "bf16", True)]):
+        dt = {"f32": torch.float32, "bf16": torch.bfloat16}[kind_]
+        case = flash_case(BH, T, D, dt, causal, device, seed=T + D)
+        errs_ = check_flash(case, kind_)
+        emit({"phase": "K1-K4_vs_plain", "BH": BH, "T": T, "D": D,
+              "dtype": kind_, "causal": causal, "ragged": T % 64 != 0,
+              "max_abs_elementwise_relnorm": errs_,
+              "tolerance": FLASH_TOL[kind_]})
+        if (T, kind_, causal) == (1024, "bf16", True):
+            flash_errs = {n: e[0] for n, e in errs_.items()}
+        del case
+    torch.cuda.empty_cache()
+
+    # the training main path, then the split route (K3 + K4)
+    t0 = time.perf_counter()
+    trained = run_training(device)
+    emit({**trained["line"], "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    split = split_route(device)
+    emit(split["line"])
+    emit(route_parity(device))
+    torch.cuda.empty_cache()
+
+    case = flash_case(32 * 12, 1024, 64, torch.bfloat16, True, device)
+    flash_t, sdpa_bwd = time_flash(case, H=12)
+    emit({"phase": "K1-K4_timed", "BH": 32 * 12, "T": 1024, "D": 64,
+          "dtype": "bf16", "causal": True, **{
+              name: flash_t[name] for name in FLASH},
+          "k3_plus_k4_ms": flash_t["flash_bwd_dq"]["ms"]
+          + flash_t["flash_bwd_dkv"]["ms"], "sdpa_bwd_ms": sdpa_bwd})
+    del case
+    timings.update(flash_t)
+    launches = {**served["launches"], **trained["launches"],
+                "flash_bwd_dq": split["launches"]["flash_bwd_dq"],
+                "flash_bwd_dkv": split["launches"]["flash_bwd_dkv"]}
+
+    errs = {"paged_kv_append": 0.0, "paged_decode_attention": attn_err,
+            **flash_errs}
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": served["launches"][name],
+        {"name": name, "route": "cuda", "source": SOURCES[name],
+         "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errs[name], **timings[name]}
-        for name in ("paged_kv_append", "paged_decode_attention")
+        for name in ("paged_kv_append", "paged_decode_attention", *FLASH)
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

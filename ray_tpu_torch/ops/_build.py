@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # library name -> its source under csrc/
-SOURCES = {"paged_attention": "paged_attention.cu"}
+SOURCES = {"paged_attention": "paged_attention.cu",
+           "attention": "attention.cu"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,10 @@
 """Attention backends behind one dispatch point.
 
 The port of the JAX package's `parallel/ring_attention.py`, so far its
-single-device dense path only: `plain_attention` and the
-`select_attention` dispatch.  The other backends raise until their
-ROADMAP.md queue-1 items land.
+single-device paths: `plain_attention`, and the `select_attention`
+dispatch to it or to `ops.attention.flash_attention` (kernels K1-K4).
+The sequence-parallel backends raise until their ROADMAP.md queue-1
+item lands.
 """
 
 from __future__ import annotations
@@ -13,8 +14,6 @@ import torch
 _NEG_INF = -1e30
 
 _NOT_PORTED = {
-    "flash": "flash attention waits for the training slice (queue 1: "
-             "GPT-2 training with kernels K1-K4)",
     "ring": "ring attention waits for the parallel slice (queue 1: "
             "sequence parallelism + collectives)",
     "ulysses": "Ulysses attention waits for the parallel slice (queue 1: "
@@ -24,8 +23,13 @@ _NOT_PORTED = {
 
 def select_attention(kind: str, q, k, v, mesh=None, causal: bool = True):
     """One dispatch point for the attention backends shared by all
-    model families: "dense" runs `plain_attention`; "flash", "ring"
-    and "ulysses" raise NotImplementedError naming their ROADMAP item."""
+    model families: "dense" runs `plain_attention`; "flash" runs
+    `flash_attention`; "ring" and "ulysses" raise NotImplementedError
+    naming their ROADMAP item."""
+    if kind == "flash":
+        from ray_tpu_torch.ops.attention import flash_attention
+
+        return flash_attention(q, k, v, causal)
     if kind in _NOT_PORTED:
         raise NotImplementedError(
             f"attention={kind!r} is not ported yet: {_NOT_PORTED[kind]} "

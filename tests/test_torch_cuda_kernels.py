@@ -8,14 +8,22 @@ and the port only, so it runs on a machine with the card and no JAX:
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
 
 Shapes are small and ragged (positions past the table's reach, idle
-rows on the scratch block, shuffled tables, GQA).  Tolerances: K5
-bit-equal outside the scratch block; K6 f32 1e-5, bf16 and int8 2e-2
-(the reference's own).  All draws seeded (RT008).
+rows on the scratch block, shuffled tables, GQA; T not a multiple of
+the flash tiles).  Tolerances: K5 bit-equal outside the scratch block;
+K6 f32 1e-5, bf16 and int8 2e-2 (the reference's own).  K1-K4 against
+their plain versions element by element (`assert_close`) and by the
+norm of the difference over the plain version's norm, with the limits
+of `chip_smoke.py`: f32 rtol 1e-4, atol 1e-5, norm 3e-6 (tiled online
+softmax and tiled sums in another order; K2's dQ summed by atomics in
+an order that changes from run to run), bf16 rtol 2e-2, atol 1e-2,
+norm 7e-3 (P and dS rounded to bf16 at other maxima, outputs in bf16).
+All draws seeded (RT008).
 """
 
 import pytest
 import torch
 
+from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
@@ -132,3 +140,107 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
             torch.zeros((1, 1, 8), device=cuda_device),
             dev[0].float(), dev[0].float(), dev[1].long(), dev[2], 0)
     assert pa.paged_kv_append.launches == n0
+
+
+FLASH_TOL = {"f32": {"rtol": 1e-4, "atol": 1e-5, "rel": 3e-6},
+             "bf16": {"rtol": 2e-2, "atol": 1e-2, "rel": 7e-3}}
+
+
+def _assert_flash_close(got, want, tol, msg=""):
+    got, want = got.detach().cpu().float(), want.detach().cpu().float()
+    torch.testing.assert_close(got, want, rtol=tol["rtol"], atol=tol["atol"],
+                               msg=msg or None)
+    rel = torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(
+        want)
+    assert float(rel) <= tol["rel"], (msg, float(rel))
+
+
+def _flash_inputs(BH, T, D, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn((BH, T, D), generator=gen).to(dtype)
+                   for _ in range(4))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T,D", [(128, 64), (100, 128), (72, 16)])
+def test_flash_kernels_match_plain(cuda_device, kind, causal, T, D):
+    """K1, K2, K3 and K4 each against its plain version on the same
+    inputs (the backward ones on the plain forward's O and LSE)."""
+    dt = torch.float32 if kind == "f32" else torch.bfloat16
+    q, k, v, do = _flash_inputs(6, T, D, dt, seed=T + D + causal)
+    scale = D ** -0.5
+    o, lse = fa.flash_fwd_reference(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    want = {
+        "fwd": (o, lse),
+        "fused": fa.flash_bwd_fused_reference(q, k, v, do, lse, o, causal,
+                                              scale),
+        "dq": (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal,
+                                         scale),),
+        "dkv": fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
+                                          scale),
+    }
+    dq_, dk_, dv_, ddo, dl, dd, do_ = (
+        t.to(cuda_device) for t in (q, k, v, do, lse, delta, o))
+    n0 = [f.launches for f in (fa.flash_fwd, fa.flash_bwd_fused,
+                               fa.flash_bwd_dq, fa.flash_bwd_dkv)]
+    got = {
+        "fwd": fa.flash_fwd(dq_, dk_, dv_, causal, scale),
+        "fused": fa.flash_bwd_fused(dq_, dk_, dv_, ddo, dl, do_, causal,
+                                    scale),
+        "dq": (fa.flash_bwd_dq(dq_, dk_, dv_, ddo, dl, dd, causal, scale),),
+        "dkv": fa.flash_bwd_dkv(dq_, dk_, dv_, ddo, dl, dd, causal, scale),
+    }
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fa.flash_fwd, fa.flash_bwd_fused,
+                                 fa.flash_bwd_dq, fa.flash_bwd_dkv)] == [
+        n + 1 for n in n0]
+    for name in want:
+        for g, w in zip(got[name], want[name]):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            _assert_flash_close(g, w, FLASH_TOL[kind], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [(1024, 1024), (32, 32)])
+def test_flash_attention_op_on_the_card(cuda_device, blocks):
+    """The autograd op on CUDA tensors: forward and grads equal the CPU
+    route's (the plain versions), through K2 for blocks covering T and
+    K3 + K4 otherwise; no plain dispatch."""
+    gen = torch.Generator().manual_seed(blocks[0])
+    q, k, v, w = (torch.randn((2, 64, 3, 32), generator=gen)
+                  for _ in range(4))
+
+    def run(device):
+        x = [t.to(device).requires_grad_(True) for t in (q, k, v)]
+        out = fa.flash_attention(*x, True, *blocks)
+        grads = torch.autograd.grad((out * w.to(device)).sum(), x)
+        return [t.detach().cpu() for t in (out, *grads)]
+
+    want = run("cpu")
+    n0 = (fa.flash_attention.plain_dispatches, fa.flash_bwd_fused.launches,
+          fa.flash_bwd_dq.launches)
+    got = run(cuda_device)
+    fused = blocks[0] >= 64
+    assert fa.flash_attention.plain_dispatches == n0[0]
+    assert fa.flash_bwd_fused.launches == n0[1] + int(fused)
+    assert fa.flash_bwd_dq.launches == n0[2] + int(not fused)
+    for g, w_ in zip(got, want):
+        _assert_flash_close(g, w_, FLASH_TOL["f32"])
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros((2, 16, 8), device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="not supported"):
+        fa.flash_fwd(q, q, q, True, 0.3)
+    wide = torch.zeros((2, 16, 256), device=cuda_device)
+    with pytest.raises(ValueError, match="head width"):
+        fa.flash_fwd(wide, wide, wide, True, 0.1)
+    q = torch.zeros((2, 16, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q, q.transpose(0, 1).contiguous().transpose(0, 1), q,
+                     True, 0.3)
