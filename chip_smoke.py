@@ -42,7 +42,22 @@ exits non-zero:
     against 3 on dense attention from the same params and tokens.
 11. K1-K4 timed at the training shape (bf16, causal), beside their
     bounds, plain versions and `scaled_dot_product_attention`.
-12. the kernels line, the `nvidia-smi` line, and the final result line.
+12. K7-K9 (the fused cross entropy's forward, dx and dw) against their
+    plain versions at GPT-2 124M's head (N 32,768, E 768, V 50,257;
+    bf16 x with the f32 master w, and all f32), at Llama-3-8B's head (N
+    4,096, E 4,096, V 128,256, bf16) and at a ragged N 200, E 128, V 300
+    (f32 and bf16), targets at 0 and V - 1: element by element and by
+    the relative norm of the difference.
+13. xent main path: `pallas_cross_entropy` forward and backward at
+    GPT-2 124M's full head (x = the seeded model's final hidden states
+    in bf16, w = the f32 master `wte`, targets = the shifted tokens),
+    with the launch counts of exactly that call (K7, K8, K9 once each,
+    no plain dispatch); loss, dx and dw against the materialising lse
+    form under autograd; both timed forward + backward, each with its
+    peak memory.
+14. K7-K9 timed at GPT-2's head (bf16), beside their bounds, plain
+    versions and the one `torch.matmul` of each kernel's main product.
+15. the kernels line, the `nvidia-smi` line, and the final result line.
 
 Times are medians of CUDA-event timings of device work, with the 50 MB
 L2 flushed (a 1 GiB write) before each launch.  Bounds use the H100 SXM's published 3.35 TB/s of
@@ -68,6 +83,8 @@ from ray_tpu_torch.models import gpt2, llama
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
+from ray_tpu_torch.ops import pallas_cross_entropy
+from ray_tpu_torch.ops import xent_pallas as xp
 from ray_tpu_torch.parallel.ring_attention import plain_attention
 from ray_tpu_torch.scripts import train_gpt2
 from ray_tpu_torch.serve.llm_engine import LlamaEngine
@@ -76,16 +93,22 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PAGED_SRC = "ray_tpu_torch/ops/csrc/paged_attention.cu"
 FLASH_SRC = "ray_tpu_torch/ops/csrc/attention.cu"
+XENT_SRC = "ray_tpu_torch/ops/csrc/xent.cu"
 SOURCES = {"paged_kv_append": PAGED_SRC, "paged_decode_attention": PAGED_SRC,
            "flash_fwd": FLASH_SRC, "flash_bwd_fused": FLASH_SRC,
-           "flash_bwd_dq": FLASH_SRC, "flash_bwd_dkv": FLASH_SRC}
+           "flash_bwd_dq": FLASH_SRC, "flash_bwd_dkv": FLASH_SRC,
+           "xent_fwd": XENT_SRC, "xent_dx": XENT_SRC, "xent_dw": XENT_SRC}
 REPLACES = {"paged_kv_append": "ray_tpu/ops/paged_attention.py:93",
             "paged_decode_attention": "ray_tpu/ops/paged_attention.py:247",
             "flash_fwd": "ray_tpu/ops/attention.py:61",
             "flash_bwd_fused": "ray_tpu/ops/attention.py:202",
             "flash_bwd_dq": "ray_tpu/ops/attention.py:143",
-            "flash_bwd_dkv": "ray_tpu/ops/attention.py:253"}
+            "flash_bwd_dkv": "ray_tpu/ops/attention.py:253",
+            "xent_fwd": "ray_tpu/ops/xent_pallas.py:51",
+            "xent_dx": "ray_tpu/ops/xent_pallas.py:86",
+            "xent_dw": "ray_tpu/ops/xent_pallas.py:114"}
 FLASH = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
+XENT = ("xent_fwd", "xent_dx", "xent_dw")
 # K6 tolerances: f32 to rounding; bf16 / int8 the reference's own
 # (tests/test_paged_attention.py:78-79)
 ATTN_TOL = {"f32": 1e-5, "bf16": 2e-2, "int8": 2e-2}
@@ -123,6 +146,23 @@ ROUTE_TOL = {"loss": 1e-4, "params": ROUTE_LR / 10, "key_bias": 3 * ROUTE_LR}
 # the limit is about 3x the H100 reading of 1.08e-2 (PERF.md)
 FULL_LOSS_TOL = 2e-2
 FULL_GRAD_TOL = 3e-2
+# K7-K9 against their plain versions, as K1-K4 are held, with atol taken
+# relative to the output's largest magnitude (lse ~ ln V, dx ~ |w|, dw ~
+# |x| times the rows a class is the target of).  f32: the same sums in
+# another order (64-column vocab tiles with an online logsumexp, E in
+# chunks).  bf16: dl rounded to bf16 from scores summed in another order,
+# so a few of its elements land one bf16 step (2^-8 of |dl|) apart, and an
+# output element near zero then misses by ~|dl| |w| / 256.  The
+# relative-norm limits are about 3x the worst readings on an H100 (f32
+# 3.5e-6, bf16 1.8e-4; PERF.md)
+XENT_TOL = {"f32": {"rtol": 1e-4, "atol": 1e-5, "rel": 1e-5},
+            "bf16": {"rtol": 2e-2, "atol": 5e-3, "rel": 6e-4}}
+# the fused op against the materialising lse form at GPT-2's full head
+# (bf16 x, f32 w): the lse form rounds its logits to bf16 before the
+# logsumexp and its softmax gradient to bf16 before the products, the
+# kernels keep scores in f32; loss absolute, dx / dw by relative norm of
+# the difference, each about 3x its H100 reading (2.9e-6, 5.5e-4, 1.7e-3)
+XENT_MAIN_TOL = {"loss": 1e-5, "dx": 2e-3, "dw": 5e-3}
 
 
 def emit(obj) -> None:
@@ -711,6 +751,8 @@ def reset_counts() -> None:
     fa.flash_attention.plain_dispatches = 0
     pa.paged_kv_append.launches = 0
     pa.paged_decode_attention.launches = 0
+    for name in XENT:
+        getattr(xp, name).launches = 0
 
 
 def read_counts() -> dict:
@@ -867,6 +909,206 @@ def route_parity(device, steps=3) -> dict:
 
 
 # ----------------------------------------------------------------------
+# the fused cross entropy (K7-K9)
+# ----------------------------------------------------------------------
+def xent_case(N, E, V, x_dtype, w_dtype, device, seed=0) -> dict:
+    """Seeded x [N, E] ~ N(0, 1), w [V, E] ~ N(0, 0.05^2), targets with 0
+    and V - 1 among them, and the plain forward's lse: the inputs each
+    kernel shares with its plain version."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    x = torch.randn((N, E), generator=gen, device=device).to(x_dtype)
+    w = (torch.randn((V, E), generator=gen, device=device) * 0.05).to(
+        w_dtype)
+    targets = torch.randint(0, V, (N,), generator=gen, device=device,
+                            dtype=torch.int32)
+    targets[0], targets[-1] = 0, V - 1
+    lse, _ = xp.xent_fwd_reference(x, w, targets)
+    return {"x": x, "w": w, "targets": targets, "lse": lse}
+
+
+def run_xent(name: str, c: dict, plain: bool = False) -> tuple:
+    fn = getattr(xp, name + "_reference" if plain else name)
+    args = (c["x"], c["w"], c["targets"])
+    out = fn(*args) if name == "xent_fwd" else fn(*args, c["lse"])
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _scaled(tol: dict, want) -> dict:
+    """`tol` with atol taken relative to the largest |want|."""
+    return dict(tol, atol=tol["atol"] * float(want.detach().abs().max()))
+
+
+def check_xent(c: dict, kind: str) -> dict:
+    """K7-K9 each against its plain version on the same inputs.  Returns
+    {name: (max abs err, elementwise ratio, relative norm)}, each the
+    worst over the kernel's outputs; raises beyond XENT_TOL[kind]."""
+    tol, out = XENT_TOL[kind], {}
+    for name in XENT:
+        got, want = run_xent(name, c), run_xent(name, c, plain=True)
+        worst = (0.0, 0.0, 0.0)
+        for g, w in zip(got, want):
+            if (g.shape != w.shape or g.dtype != w.dtype
+                    or not bool(torch.isfinite(g).all())):
+                raise AssertionError(f"{name}: misshapen or non-finite")
+            worst = tuple(map(max, worst, compare(g, w, _scaled(tol, w))))
+        del got, want
+        if not within(worst, tol):
+            raise AssertionError(f"{name} {kind}: (max abs, elementwise "
+                                 f"ratio, rel norm) {worst} beyond {tol}")
+        out[name] = worst
+    return out
+
+
+def xent_bound(name: str, c: dict) -> tuple:
+    """Operations: 2 N V E for the score product, plus 2 N V E for K8's
+    and K9's second product, at x's dtype's peak.  Bytes: x, w (as the
+    kernel reads it), targets and (K8, K9) lse read once; lse and target
+    logit, dx or dw written once in f32."""
+    x, w = c["x"], c["w"]
+    N, E = x.shape
+    V = w.shape[0]
+    ins = x.numel() * x.element_size() + w.numel() * w.element_size() + 4 * N
+    n_bytes = {"xent_fwd": ins + 8 * N, "xent_dx": ins + 4 * N + 4 * N * E,
+               "xent_dw": ins + 4 * N + 4 * V * E}[name]
+    mats = 1 if name == "xent_fwd" else 2
+    return _bound(n_bytes, 2.0 * N * V * E * mats, x.dtype)
+
+
+def xent_library(name: str, c: dict):
+    """The one `torch.matmul` that does the kernel's main product in x's
+    dtype: x w^T into [N, V] for K7; dl w for K8 and dl^T x for K9, from
+    a precomputed dl in x's dtype."""
+    x, w = c["x"], c["w"].to(c["x"].dtype)
+    if name == "xent_fwd":
+        return lambda: torch.matmul(x, w.T)
+    dl = xp._dlogits(x, w, c["targets"], c["lse"]).to(x.dtype)
+    if name == "xent_dx":
+        return lambda: torch.matmul(dl, w)
+    return lambda: torch.matmul(dl.T, x)
+
+
+def time_xent(c: dict) -> dict:
+    """ms / plain_ms / bound_ms / bound_by / library_ms of K7-K9 on one
+    case."""
+    out = {}
+    for name in XENT:
+        bound, by = xent_bound(name, c)
+        lib = xent_library(name, c)
+        out[name] = {
+            "ms": time_ms(lambda: run_xent(name, c), iters=10),
+            "plain_ms": time_ms(lambda: run_xent(name, c, plain=True),
+                                iters=5),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(lib, iters=10),
+        }
+        del lib
+        torch.cuda.empty_cache()
+    return out
+
+
+class count_plain:
+    """Counts calls of the K7-K9 plain versions while it is entered:
+    the wrappers look them up in their module at each call, so a CUDA
+    tensor that reached one would show here."""
+
+    def __enter__(self):
+        self.calls, self._saved = 0, {}
+        for name in XENT:
+            ref = name + "_reference"
+            orig = self._saved[ref] = getattr(xp, ref)
+
+            def counted(*a, _orig=orig, **k):
+                self.calls += 1
+                return _orig(*a, **k)
+            setattr(xp, ref, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for ref, orig in self._saved.items():
+            setattr(xp, ref, orig)
+        return False
+
+
+def _peak(fn, device) -> tuple:
+    """(result, peak bytes above what was allocated before) of `fn()`."""
+    if device.type != "cuda":
+        return fn(), None
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, torch.cuda.max_memory_allocated(device) - base
+
+
+def xent_main_path(device, *, cfg=None, batch=32, seq=1024,
+                   time_it=True) -> dict:
+    """`pallas_cross_entropy` at GPT-2's lm-head: x = the backbone's
+    final hidden states of the seeded model and tokens (bf16, detached
+    into a leaf), w = the f32 master `wte`, targets = the shifted
+    tokens.  Forward and backward with the launch counts of exactly
+    that call, held against `reference_cross_entropy` under autograd;
+    then both timed forward + backward, each with its peak memory."""
+    state = train_gpt2.build(device, batch, seq, seed=0, cfg=cfg)
+    cfg, params, tokens = state["cfg"], state["params"], state["tokens"]
+    with torch.no_grad():
+        h = gpt2.backbone(cfg, params, tokens[:, :-1])
+    x = h.reshape(-1, cfg.n_embd).detach().requires_grad_(True)
+    w = params["wte"].detach().requires_grad_(True)
+    targets = tokens[:, 1:].reshape(-1).contiguous()
+    del h, state
+
+    def fused():
+        loss = pallas_cross_entropy(x, w, targets)
+        return (loss, *torch.autograd.grad(loss, (x, w)))
+
+    def lse_form():
+        loss = xp.reference_cross_entropy(x, w, targets)
+        return (loss, *torch.autograd.grad(loss, (x, w)))
+
+    reset_counts()
+    with count_plain() as plain:
+        (loss, dx, dw), fused_peak = _peak(fused, device)
+    launches = {name: getattr(xp, name).launches for name in XENT}
+    if launches != {n: 1 for n in XENT} or plain.calls != 0:
+        raise AssertionError(f"xent launches {launches}, plain "
+                             f"dispatches {plain.calls}")
+    (r_loss, r_dx, r_dw), lse_peak = _peak(lse_form, device)
+    loss, r_loss = loss.detach(), r_loss.detach()
+    if dx.dtype != x.dtype or dw.dtype != w.dtype or not all(
+            bool(torch.isfinite(t.float()).all()) for t in (loss, dx, dw)):
+        raise AssertionError("fused grads misshapen or non-finite")
+    err = {"loss": abs(float(loss) - float(r_loss)),
+           **{n: float(torch.linalg.vector_norm(g.float() - r.float())
+                        / torch.linalg.vector_norm(r.float()))
+              for n, g, r in (("dx", dx, r_dx), ("dw", dw, r_dw))}}
+    if any(err[k] > XENT_MAIN_TOL[k] for k in err):
+        raise AssertionError(f"fused vs lse form: {err} beyond "
+                             f"{XENT_MAIN_TOL}")
+    if abs(float(loss) - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError(f"loss {float(loss)} far from ln V = "
+                             f"{math.log(cfg.vocab_size)}")
+    del r_dx, r_dw, dx, dw
+    line = {"phase": "xent_main_path", "model": "gpt2_124m",
+            "N": x.shape[0], "E": x.shape[1], "V": w.shape[0],
+            "x_dtype": str(x.dtype).replace("torch.", ""),
+            "w_dtype": str(w.dtype).replace("torch.", ""),
+            "depth_cut": False, "loss": float(loss),
+            "loss_lse_form": float(r_loss), "ln_V": math.log(w.shape[0]),
+            "launches": launches, "plain_dispatches": plain.calls,
+            "err_vs_lse_form": err, "tolerance": XENT_MAIN_TOL}
+    if time_it:
+        line.update({
+            "fused_fwd_bwd_ms": time_ms(fused, iters=10),
+            "fused_peak_extra_gb": fused_peak / 1e9,
+            "lse_form_fwd_bwd_ms": time_ms(lse_form, iters=10),
+            "lse_form_peak_extra_gb": lse_peak / 1e9,
+        })
+    return {"launches": launches, "line": line}
+
+
+# ----------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1001,17 +1243,55 @@ def main() -> int:
           + flash_t["flash_bwd_dkv"]["ms"], "sdpa_bwd_ms": sdpa_bwd})
     del case
     timings.update(flash_t)
+    torch.cuda.empty_cache()
+
+    # K7-K9 against their plain versions: the GPT-2 124M head (bf16 x with
+    # the f32 master w, and all f32), the Llama-3-8B head, a ragged tiny
+    xent_errs = {}
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for N, E, V, x_kind, w_kind in ((32768, 768, 50257, "bf16", "f32"),
+                                    (32768, 768, 50257, "f32", "f32"),
+                                    (4096, 4096, 128256, "bf16", "bf16"),
+                                    (200, 128, 300, "f32", "f32"),
+                                    (200, 128, 300, "bf16", "bf16")):
+        case = xent_case(N, E, V, dts[x_kind], dts[w_kind], device,
+                         seed=N + V)
+        errs_ = check_xent(case, x_kind)
+        emit({"phase": "K7-K9_vs_plain", "N": N, "E": E, "V": V,
+              "x_dtype": x_kind, "w_dtype": w_kind,
+              "max_abs_elementwise_relnorm": errs_,
+              "tolerance": XENT_TOL[x_kind]})
+        if (N, x_kind) == (32768, "bf16"):
+            xent_errs = {n: e[0] for n, e in errs_.items()}
+        del case
+        torch.cuda.empty_cache()
+
+    # the fused cross entropy's main path: GPT-2 124M's full head
+    t0 = time.perf_counter()
+    xent_run = xent_main_path(device)
+    emit({**xent_run["line"], "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
+    case = xent_case(32768, 768, 50257, torch.bfloat16, torch.bfloat16,
+                     device)
+    xent_t = time_xent(case)
+    emit({"phase": "K7-K9_timed", "N": 32768, "E": 768, "V": 50257,
+          "dtype": "bf16", **xent_t})
+    del case
+    timings.update(xent_t)
     launches = {**served["launches"], **trained["launches"],
                 "flash_bwd_dq": split["launches"]["flash_bwd_dq"],
-                "flash_bwd_dkv": split["launches"]["flash_bwd_dkv"]}
+                "flash_bwd_dkv": split["launches"]["flash_bwd_dkv"],
+                **xent_run["launches"]}
 
     errs = {"paged_kv_append": 0.0, "paged_decode_attention": attn_err,
-            **flash_errs}
+            **flash_errs, **xent_errs}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errs[name], **timings[name]}
-        for name in ("paged_kv_append", "paged_decode_attention", *FLASH)
+        for name in ("paged_kv_append", "paged_decode_attention", *FLASH,
+                     *XENT)
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

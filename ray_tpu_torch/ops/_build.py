@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # library name -> its source under csrc/
 SOURCES = {"paged_attention": "paged_attention.cu",
-           "attention": "attention.cu"}
+           "attention": "attention.cu", "xent": "xent.cu"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

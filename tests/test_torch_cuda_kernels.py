@@ -9,15 +9,17 @@ and the port only, so it runs on a machine with the card and no JAX:
 
 Shapes are small and ragged (positions past the table's reach, idle
 rows on the scratch block, shuffled tables, GQA; T not a multiple of
-the flash tiles).  Tolerances: K5 bit-equal outside the scratch block;
-K6 f32 1e-5, bf16 and int8 2e-2 (the reference's own).  K1-K4 against
+the flash tiles; N and V not multiples of the xent tiles, targets at 0,
+V - 1 and out of range).  Tolerances: K5 bit-equal outside the
+scratch block; K6 f32 1e-5, bf16 and int8 2e-2 (the reference's own).  K1-K4 against
 their plain versions element by element (`assert_close`) and by the
 norm of the difference over the plain version's norm, with the limits
 of `chip_smoke.py`: f32 rtol 1e-4, atol 1e-5, norm 3e-6 (tiled online
 softmax and tiled sums in another order; K2's dQ summed by atomics in
 an order that changes from run to run), bf16 rtol 2e-2, atol 1e-2,
 norm 7e-3 (P and dS rounded to bf16 at other maxima, outputs in bf16).
-All draws seeded (RT008).
+K7-K9 likewise, with atol relative to each output's largest magnitude
+(`XENT_TOL`).  All draws seeded (RT008).
 """
 
 import pytest
@@ -244,3 +246,123 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd(q, q.transpose(0, 1).contiguous().transpose(0, 1), q,
                      True, 0.3)
+
+
+# K7-K9 against their plain versions, with the limits of `chip_smoke.py`:
+# element by element, |kernel - plain| <= atol * max |plain| + rtol |plain|
+# (atol relative to the output's scale: lse ~ ln V, dx ~ |w|, dw ~ |x|), and
+# by the relative norm of the difference.  f32: the same sums in another
+# order (64-column vocab tiles with an online logsumexp, E in chunks).
+# bf16: dl rounded to bf16 from scores summed in another order, so a few of
+# its elements land one bf16 step apart.  Norm limits ~3x the worst H100
+# readings of these shapes (f32 3.5e-6; bf16 4.2e-4, at E 4,096 and V 130,
+# where few classes share the sum and one step weighs more than at the
+# chip script's shapes).
+XENT_TOL = {"f32": {"rtol": 1e-4, "atol": 1e-5, "rel": 1e-5},
+            "bf16": {"rtol": 2e-2, "atol": 5e-3, "rel": 1.5e-3}}
+
+
+def _xent_inputs(N, E, V, x_dtype, w_dtype, seed):
+    """x [N, E], w [V, E] * 0.05, targets [N] with 0, V - 1 and an
+    out-of-range -1 among them, and the plain forward's lse."""
+    from ray_tpu_torch.ops import xent_pallas as xp
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((N, E), generator=gen).to(x_dtype)
+    w = (torch.randn((V, E), generator=gen) * 0.05).to(w_dtype)
+    tg = torch.randint(0, V, (N,), generator=gen, dtype=torch.int32)
+    tg[0], tg[-1], tg[N // 2] = 0, V - 1, -1
+    lse, _ = xp.xent_fwd_reference(x, w, tg)
+    return x, w, tg, lse
+
+
+def _assert_xent_close(got, want, tol, msg):
+    got, want = got.detach().cpu().float(), want.detach().cpu().float()
+    assert got.shape == want.shape, msg
+    assert bool(torch.isfinite(got).all()), msg
+    d = (got - want).abs()
+    ratio = float((d / (tol["atol"] * float(want.abs().max())
+                        + tol["rtol"] * want.abs())).max())
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
+    readings = (msg, float(d.max()), ratio, rel)
+    assert ratio <= 1.0 and rel <= tol["rel"], readings
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,w_kind", [("f32", "f32"), ("bf16", "f32"),
+                                         ("bf16", "bf16")])
+@pytest.mark.parametrize("N,E,V", [(200, 128, 300), (77, 768, 1000),
+                                   (70, 4096, 130)])
+def test_xent_kernels_match_plain(cuda_device, kind, w_kind, N, E, V):
+    """K7, K8 and K9 each against its plain version on the same inputs
+    (K8 / K9 on the plain forward's lse); ragged N and V, E 128 to
+    4,096."""
+    from ray_tpu_torch.ops import xent_pallas as xp
+
+    x, w, tg, lse = _xent_inputs(N, E, V, DTYPES[kind], DTYPES[w_kind],
+                                 seed=N + E + V)
+    want = {"fwd": xp.xent_fwd_reference(x, w, tg),
+            "dx": (xp.xent_dx_reference(x, w, tg, lse),),
+            "dw": (xp.xent_dw_reference(x, w, tg, lse),)}
+    dev = [t.to(cuda_device) for t in (x, w, tg, lse)]
+    fns = (xp.xent_fwd, xp.xent_dx, xp.xent_dw)
+    n0 = [f.launches for f in fns]
+    got = {"fwd": xp.xent_fwd(*dev[:3]), "dx": (xp.xent_dx(*dev),),
+           "dw": (xp.xent_dw(*dev),)}
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [n + 1 for n in n0]
+    for name in want:
+        for g, w_ in zip(got[name], want[name]):
+            assert g.dtype == torch.float32, name
+            _assert_xent_close(g, w_, XENT_TOL[kind], name)
+
+
+@pytest.mark.cuda
+def test_pallas_cross_entropy_on_the_card(cuda_device):
+    """The autograd op on CUDA tensors: loss and grads equal the CPU
+    route's (the plain versions), through one launch of each kernel."""
+    from ray_tpu_torch.ops import pallas_cross_entropy
+    from ray_tpu_torch.ops import xent_pallas as xp
+
+    x, w, tg, _ = _xent_inputs(130, 64, 200, torch.float32, torch.float32,
+                               seed=9)
+
+    def run(device):
+        xs = [t.to(device).requires_grad_(True) for t in (x, w)]
+        loss = pallas_cross_entropy(*xs, tg.to(device))
+        return [t.detach().cpu() for t in (loss, *torch.autograd.grad(
+            loss, xs))]
+
+    want = run("cpu")
+    fns = (xp.xent_fwd, xp.xent_dx, xp.xent_dw)
+    n0 = [f.launches for f in fns]
+    got = run(cuda_device)
+    assert [f.launches for f in fns] == [n + 1 for n in n0]
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_xent_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    from ray_tpu_torch.ops import xent_pallas as xp
+
+    tg = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    x = torch.zeros((4, 16), device=cuda_device)
+    n0 = xp.xent_fwd.launches
+    with pytest.raises(ValueError, match="not supported"):
+        xp.xent_fwd(x.half(), x.half(), tg)
+    with pytest.raises(ValueError, match="w's dtype"):
+        xp.xent_fwd(x, x.bfloat16(), tg)
+    with pytest.raises(ValueError, match="E % 8"):
+        xp.xent_fwd(x[:, :12].contiguous(), x[:, :12].contiguous(), tg)
+    with pytest.raises(ValueError, match="contiguous"):
+        xp.xent_fwd(x, torch.zeros((16, 8), device=cuda_device).T, tg[:4])
+    flat = torch.zeros(4 * 16 + 2, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        xp.xent_fwd(flat[2:].view(4, 16), x.bfloat16(), tg)
+    with pytest.raises(ValueError, match="targets"):
+        xp.xent_fwd(x, x, tg.float())
+    with pytest.raises(ValueError, match="lse"):
+        xp.xent_dx(x, x, tg, torch.zeros((4,), device=cuda_device))
+    assert xp.xent_fwd.launches == n0

@@ -38,11 +38,52 @@ def _imported_roots(path: Path):
 
 def test_port_sources_import_no_jax_and_nothing_of_ray_tpu():
     files = _port_files()
-    assert len(files) >= 12  # the slice's modules are all scanned
+    assert len(files) >= 14  # the slices' modules are all scanned
+    assert REPO / "ray_tpu_torch" / "ops" / "xent_pallas.py" in files
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
            if root in FORBIDDEN]
     assert not bad, "\n".join(bad)
+
+
+def test_kernel_sources_include_nothing_of_jax_or_ray_tpu():
+    sources = sorted((REPO / "ray_tpu_torch" / "ops" / "csrc").glob("*.cu"))
+    assert {s.name for s in sources} >= {"attention.cu", "paged_attention.cu",
+                                         "xent.cu"}
+    bad = [f"{s.name}: {line.strip()}" for s in sources
+           for line in s.read_text().splitlines()
+           if line.startswith("#include") and any(
+               name in line for name in FORBIDDEN)]
+    assert not bad, "\n".join(bad)
+
+
+def test_cross_entropy_ops_run_with_jax_and_ray_tpu_blocked(tmp_path):
+    """A fresh interpreter where importing jax or ray_tpu fails imports
+    the fused cross entropy ops and runs both on CPU tensors against
+    the materialising oracle."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {str(REPO)!r})
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        import torch
+        from ray_tpu_torch.ops import fused_cross_entropy, pallas_cross_entropy
+        from ray_tpu_torch.ops.xent_pallas import reference_cross_entropy
+        gen = torch.Generator().manual_seed(0)
+        x = torch.randn((24, 16), generator=gen)
+        w = torch.randn((40, 16), generator=gen) * 0.1
+        t = torch.randint(0, 40, (24,), generator=gen)
+        want = reference_cross_entropy(x, w, t)
+        for fn in (pallas_cross_entropy, fused_cross_entropy):
+            torch.testing.assert_close(fn(x, w, t), want)
+        assert not any(m.split(".")[0] in {FORBIDDEN!r}
+                       for m, mod in sys.modules.items() if mod is not None)
+        print("OK")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
 
 
 def test_engine_serves_with_jax_and_ray_tpu_blocked(tmp_path):
