@@ -41,7 +41,11 @@ exits non-zero:
 10. route parity: tiny GPT-2 in f32, 3 train steps on the flash kernels
     against 3 on dense attention from the same params and tokens.
 11. K1-K4 timed at the training shape (bf16, causal), beside their
-    bounds, plain versions and `scaled_dot_product_attention`.
+    bounds, plain versions and `scaled_dot_product_attention`, with each
+    kernel's achieved TFLOP/s, its time over its bound and over SDPA's
+    (forward for K1, backward for K2-K4); then K1 and K2 beside SDPA at
+    four shapes around it (full attention, T 4096 and T 256 over the
+    same tokens, D 128).
 12. K7-K9 (the fused cross entropy's forward, dx and dw) against their
     plain versions at GPT-2 124M's head (N 32,768, E 768, V 50,257;
     bf16 x with the f32 master w, and all f32), at Llama-3-8B's head (N
@@ -121,9 +125,13 @@ ATTN_TOL = {"f32": 1e-5, "bf16": 2e-2, "int8": 2e-2}
 # in an order that changes from run to run.  bf16: P and dS rounded to
 # bf16 at other running maxima, outputs rounded to bf16 (one ulp is
 # 2^-8 of a value).  The relative-norm limits are about 3x the worst
-# readings on an H100 (f32 7.5e-7, bf16 2.3e-3; PERF.md)
+# readings on an H100 (PERF.md): f32 7.5e-7; bf16 per kernel, K1 2.2e-3
+# (P rounded to bf16 at other running maxima), the backward kernels
+# 1.5e-4 (P from the same LSE, so only dS's and the outputs' roundings)
 FLASH_TOL = {"f32": {"rtol": 1e-4, "atol": 1e-5, "rel": 3e-6},
              "bf16": {"rtol": 2e-2, "atol": 1e-2, "rel": 7e-3}}
+FLASH_REL_BF16 = {"flash_fwd": 7e-3, "flash_bwd_fused": 5e-4,
+                  "flash_bwd_dq": 5e-4, "flash_bwd_dkv": 5e-4}
 # the split route in bf16 against dense attention in f32 on the same
 # (bf16-valued) inputs: the bf16 route's own rounding against exact
 # arithmetic.  Elements of dK and dV near zero are sums of up to 1024
@@ -668,12 +676,20 @@ def within(errs, tol: dict) -> bool:
     return errs[1] <= 1.0 and errs[2] <= tol["rel"]
 
 
+def flash_tol(name: str, kind: str) -> dict:
+    """FLASH_TOL[kind], with the kernel's own norm limit in bf16."""
+    if kind == "f32":
+        return FLASH_TOL[kind]
+    return {**FLASH_TOL[kind], "rel": FLASH_REL_BF16[name]}
+
+
 def check_flash(c: dict, kind: str) -> dict:
     """K1-K4 each against its plain version on the same inputs.  Returns
     {name: (max abs err, elementwise ratio, relative norm)}, each the
-    worst over the kernel's outputs; raises beyond FLASH_TOL[kind]."""
-    tol, out = FLASH_TOL[kind], {}
+    worst over the kernel's outputs; raises beyond flash_tol(name, kind)."""
+    out = {}
     for name in FLASH:
+        tol = flash_tol(name, kind)
         got, want = run_flash(name, c), run_flash(name, c, plain=True)
         worst = (0.0, 0.0, 0.0)
         for g, w in zip(got, want):
@@ -688,21 +704,27 @@ def check_flash(c: dict, kind: str) -> dict:
     return out
 
 
-def flash_bound(name: str, c: dict) -> tuple:
-    """Operations: 2 * D per (q, k) pair per product, over the pairs
-    this call needs (the lower triangle with the diagonal when causal);
-    K1 does 2 products, K2 5, K3 3, K4 4.  Bytes: each input read once,
-    each output written once."""
+def flash_flops(name: str, c: dict) -> float:
+    """2 * D per (q, k) pair per product, over the pairs this call needs
+    (the lower triangle with the diagonal when causal); K1 does 2
+    products, K2 5, K3 3, K4 4."""
     BH, T, D = c["q"].shape
     pairs = BH * (T * (T + 1) // 2 if c["causal"] else T * T)
     mats = {"flash_fwd": 2, "flash_bwd_fused": 5, "flash_bwd_dq": 3,
             "flash_bwd_dkv": 4}[name]
+    return 2.0 * D * pairs * mats
+
+
+def flash_bound(name: str, c: dict) -> tuple:
+    """Operations: `flash_flops`.  Bytes: each input read once, each
+    output written once."""
+    BH, T, D = c["q"].shape
     n = BH * T * D * c["q"].element_size()
     vec = BH * T * 4
     n_bytes = {"flash_fwd": 4 * n + vec, "flash_bwd_fused": 8 * n + vec,
                "flash_bwd_dq": 5 * n + 2 * vec,
                "flash_bwd_dkv": 6 * n + 2 * vec}[name]
-    return _bound(n_bytes, 2.0 * D * pairs * mats, c["q"].dtype)
+    return _bound(n_bytes, flash_flops(name, c), c["q"].dtype)
 
 
 def sdpa_yardsticks(c: dict, H: int) -> tuple:
@@ -727,20 +749,27 @@ def sdpa_yardsticks(c: dict, H: int) -> tuple:
 
 
 def time_flash(c: dict, H: int) -> dict:
-    """ms / plain_ms / bound_ms / library_ms of K1-K4 on one case.  The
+    """ms / plain_ms / bound_ms / library_ms of K1-K4 on one case, with
+    the achieved TFLOP/s, ms over the bound and ms over SDPA's.  The
     library call for K1 is SDPA's forward, for K2 its backward; no one
-    call computes K3's or K4's function alone (SDPA's backward is the
-    pair's yardstick, in the phase line)."""
+    call computes K3's or K4's function alone, so they are set against
+    SDPA's backward (the pair's yardstick, also in the phase line) and
+    their library_ms stays null."""
     lib_fwd, lib_bwd = sdpa_yardsticks(c, H)
     out = {}
     for name in FLASH:
         bound, by = flash_bound(name, c)
+        ms = time_ms(lambda: run_flash(name, c))
+        sdpa = lib_fwd if name == "flash_fwd" else lib_bwd
         out[name] = {
-            "ms": time_ms(lambda: run_flash(name, c)),
+            "ms": ms,
             "plain_ms": time_ms(lambda: run_flash(name, c, plain=True)),
             "bound_ms": bound, "bound_by": by,
             "library_ms": {"flash_fwd": lib_fwd,
                            "flash_bwd_fused": lib_bwd}.get(name),
+            "tflops": flash_flops(name, c) / (ms * 1e-3) / 1e12,
+            "x_bound": ms / bound,
+            "x_sdpa": ms / sdpa,
         }
     return out, lib_bwd
 
@@ -1218,7 +1247,7 @@ def main() -> int:
         emit({"phase": "K1-K4_vs_plain", "BH": BH, "T": T, "D": D,
               "dtype": kind_, "causal": causal, "ragged": T % 64 != 0,
               "max_abs_elementwise_relnorm": errs_,
-              "tolerance": FLASH_TOL[kind_]})
+              "tolerance": {n: flash_tol(n, kind_) for n in FLASH}})
         if (T, kind_, causal) == (1024, "bf16", True):
             flash_errs = {n: e[0] for n, e in errs_.items()}
         del case

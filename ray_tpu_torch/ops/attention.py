@@ -14,8 +14,10 @@ the forward (FlashAttention-2, Dao 2023).
   other block shape, delta computed here.
 
 `block_q` / `block_k` keep the reference's meaning for the route choice
-and for `_supported`; the CUDA kernels use their own Hopper tiles (64
-rows in bf16, 32 in f32) whatever the blocks say.  A shape `_supported`
+and for `_supported`; the CUDA kernels use their own Hopper tiles
+whatever the blocks say: in bf16, K1 128-row q tiles and K2 128-row kv
+tiles over 64-row q tiles (wgmma, TMA, registers); K3 / K4 64 rows in
+bf16, and every kernel 32 rows in f32.  A shape `_supported`
 refuses (T not divisible by a block, or D % 8) goes to `plain_attention`,
 as the reference documents; `flash_attention.plain_dispatches` counts
 those calls.
@@ -209,8 +211,9 @@ flash_fwd.launches = 0
 
 def flash_bwd_fused(q, k, v, dout, lse, out, causal: bool, scale: float):
     """K2.  -> (dQ, dK, dV) in q's dtype.  dQ is summed over kv tiles
-    by f32 atomics into a zeroed scratch, so its rounding varies from
-    run to run; dK and dV are deterministic."""
+    into a zeroed f32 scratch (by TMA reduce-adds in bf16, by atomics in
+    f32), so its rounding varies from run to run; dK and dV are
+    deterministic."""
     if q.device.type == "cpu":
         return flash_bwd_fused_reference(q, k, v, dout, lse, out, causal,
                                          scale)

@@ -14,29 +14,36 @@
 //
 // How the TPU kernels translate.  The Pallas kernels take 1024-wide VMEM
 // blocks and carry m / l / acc (or the dQ / dK / dV accumulators) across the
-// sequential last grid axis.  Here that axis is a loop inside one thread
-// block, and the blocks are Hopper-sized: 64 rows (bf16) of q against 64 rows
-// of k / v per step, whatever block_q / block_k the caller passed (those
-// choose only the route, in the wrapper).  bf16 tiles multiply on the tensor
-// cores through nvcuda::wmma (16x16x16, bf16 in, f32 accumulate), with the
-// f32 accumulators and the score tile staged in shared memory.  The f32
-// instantiation is where the algorithm is checked against the reference: it
-// multiplies with scalar FMA loops, on 32-row tiles so that its f32 tiles fit
-// the 227 KB of shared memory at D = 128.
+// sequential last grid axis.  Here that axis is a loop inside one CTA, over
+// Hopper-sized tiles, whatever block_q / block_k the caller passed (those
+// choose only the route, in the wrapper).
+//
+// bf16 K1 and K2 (the training path) are Hopper kernels (PTX helpers in
+// hopper.cuh): a producer warpgroup issues TMA loads of 128-byte-swizzled
+// tiles into a shared-memory ring of two or three stages guarded by
+// mbarriers; two consumer warpgroups multiply with wgmma, S / P / O (K1)
+// and S^T / P^T / dP^T / dS^T / dK / dV (K2) accumulated in registers,
+// the softmax done in registers; P and dS^T feed the next product as
+// register A operands; K1's O leaves by TMA store and K2's dQ by TMA
+// reduce-adds, one a 32-column panel a tile pair.  Head widths 64 and 128
+// are instantiated; other widths with D % 8 == 0 and D <= 128 run on the
+// next larger one (zero-filled by the tensor maps, dropped on store).
+// See each kernel's note.
+//
+// K3, K4 and the f32 instantiations of all four are the first design,
+// unchanged: 64-row (bf16) or 32-row (f32) tiles, bf16 products through
+// nvcuda::wmma (16x16x16) with the f32 accumulators and the score tile
+// staged in shared memory, f32 products through scalar FMA loops (the f32
+// path is where the algorithm is checked against the reference), tiles
+// loaded synchronously.  K3 and K4 are the next redesign.
 //
 // Bound on this card.  At the training shape (BH 384, T 1024, D 64, causal,
 // bf16) K1 does 2 * (2*BH*T^2*D) / 2 = 52 GFLOP against 0.2 GB of q/k/v/o:
 // ~250 flops per byte, just under the card's ridge of ~295, so its floor is
-// set by bytes (0.061 ms against 0.052 ms of operations); at larger T or D
+// set by bytes (0.0606 ms against 0.052 ms of operations); at larger T or D
 // the quadratic term, which grows with T where the bytes grow linearly,
 // takes over.  K2-K4 do 1.5 to 2.5 times K1's work over 1.25 to 2 times its
-// bytes and are bound by tensor-core operations.  What these kernels do
-// about it: matmuls on the tensor cores
-// with f32 accumulation, causal tiles above the diagonal skipped (half the
-// work), S / P / dS never leave shared memory.  What they do not do yet
-// (later work): wgmma, TMA / cp.async double-buffered tile loads, register-
-// resident accumulators, warp specialisation; every step here loads its
-// tiles synchronously and passes through shared memory between products.
+// bytes and are bound by tensor-core operations (K2: 0.130 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,12 +52,15 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;  // the reference's mask value
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 128;      // four warps per block
 constexpr int kMaxD = 128;         // head widths up to 128 (GPT-2 64, Llama 128)
 enum DType { kF32 = 0, kBF16 = 1 };
@@ -78,7 +88,6 @@ struct Tile<float> {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -210,7 +219,7 @@ struct Smem {
 };
 
 // ---------------------------------------------------------------------------
-// K1: flash-attention forward.
+// K1 in f32 (the first design; bf16 runs flash_fwd_wgmma below).
 //
 // Replaces ray_tpu/ops/attention.py:61 `_build_fwd` (pallas_call at l.113).
 //
@@ -318,7 +327,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K2 (kFused) and K4: the backward seen from one kv tile.
+// K2 in f32 (kFused; bf16 runs flash_bwd_fused_wgmma below) and K4: the
+// backward seen from one kv tile.
 //
 // K2 replaces ray_tpu/ops/attention.py:202 `_build_bwd_fused` (pallas_call at
 // l.238); K4 replaces ray_tpu/ops/attention.py:253 `_build_bwd_dkv`
@@ -543,6 +553,665 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 K1 and K2: warpgroup products, TMA rings, registers.
+//
+// Both kernels run CTAs of two consumer warpgroups (64 rows each; one at
+// K2's D = 128) and one producer warpgroup, whose first thread issues
+// every TMA load into a ring of two or three stages, each guarded by a
+// full barrier (the bytes have landed) and an empty barrier (every
+// consumer warp is done with it).
+// Tiles are [rows, 64] bf16 panels, 128-byte swizzled by TMA (a head width
+// of 128 is two panels; narrower widths run on the 64 or 128 instantiation,
+// zero-filled past D by the tensor map, masked on store).  Every product is
+// a wgmma with its f32 accumulator in registers; the second product of each
+// pair takes its A operand from registers (P, or dS^T), repacked from the
+// first product's accumulator layout without a shuffle.
+// ---------------------------------------------------------------------------
+constexpr int kWarpgroup = 128;
+constexpr int kPanel = 64;  // bf16 columns in one 128-byte swizzled row
+// three warpgroups start at 168 registers a thread; the producer drops to
+// 40 and the consumers take 232 (128 * 40 + 256 * 232 <= 65,536).
+// setmaxnreg is a warpgroup instruction, hence a whole producer warpgroup
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// In a wgmma accumulator of N columns (m64nN, f32), register j of a thread
+// holds row (warp % 4) * 16 + lane / 4 + 8 * acc_half(j) and column
+// acc_col(j, lane) of the warpgroup's 64-row tile.
+__device__ __forceinline__ int acc_half(int j) { return (j >> 1) & 1; }
+__device__ __forceinline__ int acc_col(int j, int lane) {
+  return (j >> 2) * 8 + (lane & 3) * 2 + (j & 1);
+}
+
+// The A fragment of k16 step t (four bf16x2), from an accumulator whose
+// columns are that product's K (registers 8t .. 8t + 7), cast to bf16.
+template <int N>
+__device__ __forceinline__ void a_frag(uint32_t* a, const float (&d)[N],
+                                       int t) {
+  a[0] = pack_bf16(d[8 * t + 0], d[8 * t + 1]);
+  a[1] = pack_bf16(d[8 * t + 2], d[8 * t + 3]);
+  a[2] = pack_bf16(d[8 * t + 4], d[8 * t + 5]);
+  a[3] = pack_bf16(d[8 * t + 6], d[8 * t + 7]);
+}
+
+// bf16 element (r, c) of a 128-byte-swizzled [rows, 64] panel
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kPanel + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
+}
+
+// K-major operand: rows [row0, row0 + 64*) of a panel set, k16 step kk
+// (panel kk / 4, 32 bytes a step inside it)
+__device__ __forceinline__ uint64_t desc_k(const bf16* panels, int rows,
+                                           int row0, int kk) {
+  return hopper::desc_sw128(panels + (kk >> 2) * rows * kPanel +
+                                row0 * kPanel + (kk & 3) * 16,
+                            16, 1024);
+}
+
+// MN-major operand: K rows [16 t, 16 t + 16) of a [rows, 64] panel set,
+// starting at column col0 of the first panel
+__device__ __forceinline__ uint64_t desc_mn(const bf16* panels, int rows,
+                                            int t, int col0) {
+  return hopper::desc_sw128(panels + t * 16 * kPanel + col0,
+                            rows * kPanel * 2, 1024);
+}
+
+// ---------------------------------------------------------------------------
+// K1, bf16: flash-attention forward.
+//
+// Replaces ray_tpu/ops/attention.py:61 `_build_fwd` (pallas_call at l.113).
+//
+// Bound at the training shape (BH 384, T 1024, D 64, causal): bytes, 0.0606
+// ms, against 0.052 ms of operations; it sits at the ridge, so both the
+// products and the loads have to run at rate.  Design: persistent CTAs,
+// one an SM, each walking work items of (bh, 128-row q tile) longest
+// causal tile first, so that the next item's loads overlap this one's
+// tail and the triangle's short tiles fill the end.  The producer loads Q
+// into one of two slots and K / V tiles of 128 rows into a ring (three
+// stages at D = 64, two at 128; K and V on their own full barriers, so S
+// = Q K^T starts before V lands).  Each consumer warpgroup owns 64 q rows
+// of the item: S = Q K^T by wgmma m64n128k16 into registers; the online
+// softmax in registers in the reference's order (scale, -1e30 mask only
+// on the diagonal tile and on columns past T, m_new, corr = exp(m -
+// m_new), p = exp(s - m_new), l = l * corr + sum p), row maxima over a
+// quad of lanes by __shfl_xor_sync, row sums kept per thread and summed
+// over the quad once at the end; O rescaled in registers; P cast to bf16
+// (as the reference casts it before P.V) straight into wgmma's A
+// registers for O += P V, with V read through its MN-major descriptor.
+// S of tile i is issued with P V of tile i - 1, so the softmax runs while
+// the tensor cores work.  Finish as the reference: O = acc / (l == 0 ? 1
+// : l) in bf16, stored by TMA from a staging tile, and LSE = m + log(that
+// l).
+// ---------------------------------------------------------------------------
+template <int DP>
+struct FwdPlan {
+  static constexpr int kPanels = DP / kPanel;
+  static constexpr int kRows = 128;                  // q rows and kv rows
+  static constexpr int kTile = kPanels * kRows * kPanel;  // bf16 elements
+  static constexpr int kTileBytes = kTile * 2;
+  static constexpr int kStages = DP == 64 ? 3 : 2;
+  static constexpr int kThreads = 3 * kWarpgroup;
+  // two Q slots, the K ring, the V ring, the O staging tile, the barriers;
+  // + 1 KB to align the base (145 KB at D = 64, 225 KB at D = 128)
+  static constexpr size_t kBytes = (size_t)kTileBytes * (3 + 2 * kStages) +
+                                   8 * (4 + 3 * kStages) + 1024;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(FwdPlan<DP>::kThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_o,
+                    float* __restrict__ lse, int BH, int T_, float scale,
+                    int causal) {
+  using Plan = FwdPlan<DP>;
+  constexpr int R = Plan::kRows, S = Plan::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  bf16* qs = reinterpret_cast<bf16*>(base);  // [2] Q slots
+  bf16* ks = qs + 2 * Plan::kTile;
+  bf16* vs = ks + S * Plan::kTile;
+  bf16* ostage = vs + S * Plan::kTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ostage + Plan::kTile);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* k_full = q_empty + 2;
+  uint64_t* v_full = k_full + S;
+  uint64_t* empty = v_full + S;
+
+  // work items, longest first: item w is q tile nq - 1 - w / BH of head
+  // w % BH; CTA b takes items b, b + gridDim.x, ...
+  const int nq = (T_ + R - 1) / R, n_items = BH * nq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&q_full[i], 1);
+      hopper::mbar_init(&q_empty[i], 8);  // every consumer warp
+    }
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup
+    hopper::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 2 * kWarpgroup) {
+      int g = 0, it = 0;  // ring position, item count
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++it) {
+        const int qt = nq - 1 - w / BH, bh = w % BH;
+        const int n_kv = causal ? qt + 1 : nq, slot = it & 1;
+        hopper::mbar_wait(&q_empty[slot], ((it >> 1) & 1) ^ 1);
+        hopper::mbar_expect_tx(&q_full[slot], Plan::kTileBytes);
+        for (int p = 0; p < Plan::kPanels; ++p)
+          hopper::tma_load_3d(qs + slot * Plan::kTile + p * R * kPanel,
+                              &map_q, &q_full[slot], p * kPanel, qt * R, bh);
+        for (int i = 0; i < n_kv; ++i, ++g) {
+          const int s = g % S;
+          hopper::mbar_wait(&empty[s], ((g / S) & 1) ^ 1);
+          hopper::mbar_expect_tx(&k_full[s], Plan::kTileBytes);
+          for (int p = 0; p < Plan::kPanels; ++p)
+            hopper::tma_load_3d(ks + s * Plan::kTile + p * R * kPanel, &map_k,
+                                &k_full[s], p * kPanel, i * R, bh);
+          hopper::mbar_expect_tx(&v_full[s], Plan::kTileBytes);
+          for (int p = 0; p < Plan::kPanels; ++p)
+            hopper::tma_load_3d(vs + s * Plan::kTile + p * R * kPanel, &map_v,
+                                &v_full[s], p * kPanel, i * R, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each q tile
+  hopper::reg_alloc<kConsumerRegs>();
+  const int wg = warp >> 2;
+  const bool leader = (threadIdx.x & (kWarpgroup - 1)) == 0;
+  const float scale_log2 = scale * kLog2e;
+  float acc[DP / 2], sc[R / 2];
+  uint32_t pa[R / 4];  // P in bf16, the A operand of O += P V
+#pragma unroll
+  for (int j = 0; j < R / 2; ++j) sc[j] = 0.f;
+
+  int g = 0, it = 0;
+  for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++it) {
+    const int qt = nq - 1 - w / BH, bh = w % BH, r0 = qt * R;
+    const int n_kv = causal ? qt + 1 : nq, slot = it & 1;
+    const bf16* qt_s = qs + slot * Plan::kTile;
+    const int row_base = r0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < DP / 2; ++j) acc[j] = 0.f;
+
+    // S = Q K_i^T into sc (committed as one wgmma group, not waited)
+    auto issue_s = [&](int i) {
+      const int s = (g + i) % S;
+      const bf16* kt = ks + s * Plan::kTile;
+      hopper::mbar_wait(&k_full[s], ((g + i) / S) & 1);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hopper::wgmma_ss<R, 0, 0>(sc, desc_k(qt_s, R, wg * 64, kk),
+                                  desc_k(kt, R, 0, kk), kk > 0);
+      hopper::wgmma_commit();
+    };
+    // O += P V_i (one group, not waited)
+    auto issue_pv = [&](int i) {
+      const int s = (g + i) % S;
+      const bf16* vt = vs + s * Plan::kTile;
+      hopper::mbar_wait(&v_full[s], ((g + i) / S) & 1);
+#pragma unroll
+      for (int t = 0; t < R / 16; ++t)
+        hopper::wgmma_rs<DP, 1>(acc, pa + 4 * t, desc_mn(vt, R, t, 0), 1);
+      hopper::wgmma_commit();
+    };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(bar);
+    };
+    // the online softmax of tile i on sc, in registers: m, l and sc = P;
+    // returns corr for the rows' O.  The row maximum is taken on the raw
+    // scores (scale > 0 commutes with max) and p = exp(s * scale - m) is
+    // one FMA into ex2, with log2 e folded into the scale.
+    auto softmax = [&](int i, float (&corr)[2]) {
+      const int c0 = i * R;
+      const bool edge = (causal && i == qt) || c0 + R > T_;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < R / 2; ++j) {
+        if (edge) {
+          const int col = c0 + acc_col(j, lane);
+          const int row = row_base + 8 * acc_half(j);
+          if (col >= T_ || (causal && col > row)) sc[j] = kNegInf;
+        }
+        mx[acc_half(j)] = fmaxf(mx[acc_half(j)], sc[j]);
+      }
+      float m_log2[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h] * scale);
+        corr[h] = hopper::ex2((m[h] - m_new) * kLog2e);
+        m[h] = m_new;
+        m_log2[h] = m_new * kLog2e;
+        l[h] *= corr[h];
+      }
+      // masked scores give exp(-1e30 * scale - m) = 0: every live row
+      // sees column 0 in the first kv tile, so m is finite from there on
+#pragma unroll
+      for (int j = 0; j < R / 2; ++j) {
+        sc[j] = hopper::ex2(fmaf(sc[j], scale_log2, -m_log2[acc_half(j)]));
+        l[acc_half(j)] += sc[j];
+      }
+    };
+
+    // Software pipeline: S_i and P_{i-1} V_{i-1} are issued together,
+    // and the softmax of S_i runs while P_{i-1} V_{i-1} is on the tensor
+    // cores.  The Q slot is released once the item's last S is in, each
+    // kv stage once its P V is.
+    float corr[2];
+    hopper::mbar_wait(&q_full[slot], (it >> 1) & 1);
+    hopper::wgmma_fence();
+    issue_s(0);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    if (n_kv == 1) release(&q_empty[slot]);
+    softmax(0, corr);
+#pragma unroll
+    for (int t = 0; t < R / 16; ++t) a_frag(pa + 4 * t, sc, t);
+    for (int i = 1; i < n_kv; ++i) {
+      hopper::wgmma_fence();
+      issue_s(i);
+      issue_pv(i - 1);
+      hopper::wgmma_wait<1>();  // S_i is in; P_{i-1} V_{i-1} may still run
+      hopper::fence_regs(sc);
+      if (i == n_kv - 1) release(&q_empty[slot]);
+      softmax(i, corr);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(pa);
+      release(&empty[(g + i - 1) % S]);
+#pragma unroll
+      for (int j = 0; j < DP / 2; ++j) acc[j] *= corr[acc_half(j)];
+#pragma unroll
+      for (int t = 0; t < R / 16; ++t) a_frag(pa + 4 * t, sc, t);
+    }
+    hopper::wgmma_fence();
+    issue_pv(n_kv - 1);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(pa);
+    release(&empty[(g + n_kv - 1) % S]);
+    g += n_kv;
+
+    // finish: l summed over the quad, O = acc / l in bf16 into the
+    // staging tile (once the previous item's store has read it), then one
+    // TMA store a panel, which drops rows past T and columns past D;
+    // LSE = m + log l
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      if (l[h] == 0.f) l[h] = 1.f;
+    }
+    if (leader) hopper::bulk_wait_read<0>();
+    hopper::named_sync(1 + wg, kWarpgroup);
+    bf16* os = ostage + wg * 64 * kPanel;
+    const int r_local = (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < DP / 2; j += 2) {
+      const int col = acc_col(j, lane), r = r_local + 8 * acc_half(j);
+      *reinterpret_cast<__nv_bfloat162*>(
+          os + (col / kPanel) * R * kPanel + swz(r, col % kPanel)) =
+          __floats2bfloat162_rn(acc[j] / l[acc_half(j)],
+                                acc[j + 1] / l[acc_half(j)]);
+    }
+    hopper::fence_proxy_async();
+    hopper::named_sync(1 + wg, kWarpgroup);
+    if (leader) {
+      for (int p = 0; p < Plan::kPanels; ++p)
+        hopper::tma_store_3d(&map_o, os + p * R * kPanel, p * kPanel,
+                             r0 + wg * 64, bh);
+      hopper::bulk_commit();
+    }
+    const long long head = (long long)bh * T_;
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row_base + 8 * h;
+        if (row < T_) lse[head + row] = m[h] + logf(l[h]);
+      }
+    }
+  }
+  if (leader) hopper::bulk_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// K2, bf16: the fused backward, seen from one kv tile.
+//
+// Replaces ray_tpu/ops/attention.py:202 `_build_bwd_fused` (pallas_call at
+// l.238).
+//
+// Bound at the training shape: tensor-core operations, 0.130 ms (five
+// products over the causal pairs).  Design: one CTA per (bh, kv tile of
+// 64 * NWG rows), NWG consumer warpgroups of 64 kv rows each.  K and V are
+// loaded once; the producer warpgroup streams the q tiles of 64 rows, from
+// the diagonal down, as (Q, dO, O) into a ring (three stages at D = 64,
+// two at 128), and two of its warps write each tile's row data beside it:
+// lse from the wrapper's LSE, and delta = rowsum(dO * O) from the landed
+// dO and O tiles, computed in the kernel as the reference's K2 does.  Per
+// q tile each consumer warpgroup computes the transposed products with its
+// kv rows as wgmma's M: S^T = K Q^T and dP^T = V dO^T (m64n64k16,
+// registers), P^T = exp(S^T * scale - lse) (0 where masked or past T, rows
+// and columns), dS^T = P^T (dP^T - delta) * scale.  P^T and dS^T, cast to
+// bf16 as the reference casts them, are the register A operands of dV +=
+// P^T dO and dK += dS^T Q, so dK and dV stay in registers across the walk
+// and are written once (deterministic).  dS^T goes once to shared memory
+// (bf16, swizzled, two buffers alternating by q step, since each
+// warpgroup's dQ reads the other's rows) for dQ = dS K, split by columns
+// over the warpgroups (both operands MN-major); each warpgroup's f32
+// columns leave through TMA
+// reduce-adds (cp.reduce.async.bulk.tensor .add) into the wrapper's zeroed
+// scratch from a double-buffered, swizzled staging tile, so dQ's order of
+// summation over kv tiles varies from run to run.
+// D = 64 runs two warpgroups on 128-row kv tiles; D = 128 one warpgroup
+// on 64-row tiles, which keeps dK, dV (64 registers each), S^T, dP^T and
+// dQ's 64 under the 255-register limit.
+// ---------------------------------------------------------------------------
+template <int DP, int NWG>
+struct BwdPlan {
+  static constexpr int kPanels = DP / kPanel;
+  static constexpr int kKvRows = 64 * NWG;
+  static constexpr int kQRows = 64;
+  static constexpr int kKv = kPanels * kKvRows * kPanel;  // bf16 elements
+  static constexpr int kQ = kPanels * kQRows * kPanel;
+  static constexpr int kStages = DP == 64 ? 3 : 2;  // the (Q, dO, O) ring
+  static constexpr int kDqCols = DP / NWG;  // dQ columns a warpgroup owns
+  static constexpr int kStage = kQRows * kDqCols;  // its f32 dQ tile
+  static constexpr int kThreads = (NWG + 1) * kWarpgroup;
+  // K, V; the ring's Q, dO, O; two dS^T [kv, 64]; per warpgroup two f32
+  // dQ staging tiles; per stage lse and delta [64]; barriers; + 1 KB to
+  // align (171 KB at D = 64, 210 KB at D = 128)
+  static constexpr size_t kBytes =
+      2 * ((size_t)2 * kKv + 3 * kStages * kQ + 2 * kKvRows * 64) +
+      4 * ((size_t)2 * NWG * kStage + kStages * 2 * 64) +
+      8 * (1 + 3 * kStages) + 1024;
+};
+
+template <int DP, int NWG>
+__global__ void __launch_bounds__(BwdPlan<DP, NWG>::kThreads, 1)
+    flash_bwd_fused_wgmma(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const __grid_constant__ CUtensorMap map_o,
+                          const __grid_constant__ CUtensorMap map_dq,
+                          const float* __restrict__ lse,
+                          bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int T_, int D, float scale,
+                          int causal) {
+  using Plan = BwdPlan<DP, NWG>;
+  constexpr int BK = Plan::kKvRows, BQ = Plan::kQRows, S = Plan::kStages;
+  constexpr int NC = NWG * kWarpgroup;  // consumer threads
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  bf16* ks = reinterpret_cast<bf16*>(base);
+  bf16* vs = ks + Plan::kKv;
+  bf16* qs = vs + Plan::kKv;  // ring: [stage] Q, then dO, then O
+  bf16* dos = qs + S * Plan::kQ;
+  bf16* os = dos + S * Plan::kQ;
+  bf16* dst = os + S * Plan::kQ;  // [2] dS^T [BK, 64], swizzled
+  float* stage_dq = reinterpret_cast<float*>(dst + 2 * BK * 64);  // [NWG][2]
+  float* rowdata = stage_dq + 2 * NWG * Plan::kStage;  // [S][lse, delta]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(rowdata + S * 128);
+  uint64_t* full = kv_full + 1;   // the stage's tiles have landed
+  uint64_t* rows_full = full + S;  // its lse and delta are written
+  uint64_t* empty = rows_full + S;
+
+  const int bh = blockIdx.x, kt = blockIdx.y, c0 = kt * BK;
+  const int q_first = causal ? c0 / BQ : 0;
+  const int n_q = (T_ + BQ - 1) / BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long head = (long long)bh * T_;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&rows_full[s], 2);  // the two row-data warps
+      hopper::mbar_init(&empty[s], NWG * 4);  // every consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= NWG * 4) {  // producer warpgroup
+    if constexpr (NWG == 2) hopper::reg_dealloc<kProducerRegs>();
+    const int pw = warp - NWG * 4;
+    if (pw == 0 && lane == 0) {  // TMA
+      hopper::mbar_expect_tx(kv_full, 2 * Plan::kKv * 2);
+      for (int p = 0; p < Plan::kPanels; ++p) {
+        hopper::tma_load_3d(ks + p * BK * kPanel, &map_k, kv_full, p * kPanel,
+                            c0, bh);
+        hopper::tma_load_3d(vs + p * BK * kPanel, &map_v, kv_full, p * kPanel,
+                            c0, bh);
+      }
+      for (int qi = q_first, i = 0; qi < n_q; ++qi, ++i) {
+        const int s = i % S;
+        hopper::mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], 3 * Plan::kQ * 2);
+        for (int p = 0; p < Plan::kPanels; ++p) {
+          const int off = s * Plan::kQ + p * BQ * kPanel;
+          hopper::tma_load_3d(qs + off, &map_q, &full[s], p * kPanel,
+                              qi * BQ, bh);
+          hopper::tma_load_3d(dos + off, &map_do, &full[s], p * kPanel,
+                              qi * BQ, bh);
+          hopper::tma_load_3d(os + off, &map_o, &full[s], p * kPanel,
+                              qi * BQ, bh);
+        }
+      }
+    } else if (pw == 1 || pw == 2) {
+      // row data of each q tile, one row a thread: lse (times log2 e)
+      // and delta = rowsum(dO * O) from the landed tiles (rows past T
+      // were zero-filled: delta 0)
+      const int r = (pw - 1) * 32 + lane;
+      for (int qi = q_first, i = 0; qi < n_q; ++qi, ++i) {
+        const int s = i % S, row = qi * BQ + r;
+        const float l = row < T_ ? lse[head + row] : 0.f;
+        hopper::mbar_wait(&full[s], (i / S) & 1);
+        const bf16* dot = dos + s * Plan::kQ;
+        const bf16* ot = os + s * Plan::kQ;
+        float d = 0.f;
+#pragma unroll
+        for (int c = 0; c < DP; c += 8) {
+          if (c < D) {
+            const int off = (c / kPanel) * BQ * kPanel + swz(r, c % kPanel);
+            const uint4 a = *reinterpret_cast<const uint4*>(dot + off);
+            const uint4 b = *reinterpret_cast<const uint4*>(ot + off);
+            const __nv_bfloat162* pa =
+                reinterpret_cast<const __nv_bfloat162*>(&a);
+            const __nv_bfloat162* pb =
+                reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 fa = __bfloat1622float2(pa[e]);
+              const float2 fb = __bfloat1622float2(pb[e]);
+              d += fa.x * fb.x + fa.y * fb.y;
+            }
+          }
+        }
+        // the consumers of two steps back are done with this stage's row
+        // data: they released the stage before the producer refilled it
+        rowdata[s * 128 + r] = l * kLog2e;
+        rowdata[s * 128 + 64 + r] = d;
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&rows_full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns kv rows [c0 + 64 wg, c0 + 64 wg + 64)
+  if constexpr (NWG == 2) hopper::reg_alloc<kConsumerRegs>();
+  const int wg = warp >> 2;
+  const bool leader = (threadIdx.x & (kWarpgroup - 1)) == 0;
+  const int kv_base = c0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const float scale_log2 = scale * kLog2e;
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+  for (int j = 0; j < DP / 2; ++j) dk_acc[j] = dv_acc[j] = 0.f;
+  float st[32], dpt[32], dq[Plan::kDqCols / 2];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < Plan::kDqCols / 2; ++j) dq[j] = 0.f;
+
+  hopper::mbar_wait(kv_full, 0);
+  for (int qi = q_first, i = 0; qi < n_q; ++qi, ++i) {
+    const int s = i % S, q0 = qi * BQ;
+    const uint32_t phase = (i / S) & 1;
+    const bf16* qt = qs + s * Plan::kQ;
+    const bf16* dot = dos + s * Plan::kQ;
+    const float* lse_s = rowdata + s * 128;
+    const float* dl_s = lse_s + 64;
+    hopper::mbar_wait(&full[s], phase);
+
+    // S^T = K Q^T and dP^T = V dO^T, kv rows as M
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      hopper::wgmma_ss<64, 0, 0>(st, desc_k(ks, BK, wg * 64, kk),
+                                 desc_k(qt, BQ, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      hopper::wgmma_ss<64, 0, 0>(dpt, desc_k(vs, BK, wg * 64, kk),
+                                 desc_k(dot, BQ, 0, kk), kk > 0);
+    hopper::wgmma_commit();
+    hopper::mbar_wait(&rows_full[s], phase);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+
+    // P^T and dS^T in registers (st becomes P^T, dpt dS^T); p = exp(s *
+    // scale - lse) as one FMA into ex2
+    const bool edge = (causal && q0 < c0 + BK) || q0 + BQ > T_ || c0 + BK > T_;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = acc_col(j, lane);
+      float p = hopper::ex2(fmaf(st[j], scale_log2, -lse_s[c]));
+      if (edge) {
+        const int kv = kv_base + 8 * acc_half(j), q = q0 + c;
+        if (kv >= T_ || q >= T_ || (causal && q < kv)) p = 0.f;
+      }
+      st[j] = p;
+      dpt[j] = p * (dpt[j] - dl_s[c]) * scale;
+    }
+
+    // dV += P^T dO and dK += dS^T Q, A from registers, B MN-major
+    uint32_t pa[BQ / 4], da[BQ / 4];
+#pragma unroll
+    for (int t = 0; t < BQ / 16; ++t) {
+      a_frag(pa + 4 * t, st, t);
+      a_frag(da + 4 * t, dpt, t);
+    }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BQ / 16; ++t)
+      hopper::wgmma_rs<DP, 1>(dv_acc, pa + 4 * t, desc_mn(dot, BQ, t, 0), 1);
+#pragma unroll
+    for (int t = 0; t < BQ / 16; ++t)
+      hopper::wgmma_rs<DP, 1>(dk_acc, da + 4 * t, desc_mn(qt, BQ, t, 0), 1);
+    hopper::wgmma_commit();
+
+    // dS^T (bf16) to shared memory for dQ, while those run.  Every
+    // warpgroup's dQ reads all BK rows, so the buffer alternates by step:
+    // a warpgroup that runs ahead writes the other one, and can come back
+    // to this one only past the next step's barrier, which the slower
+    // warpgroup reaches after its dQ product here has completed
+    bf16* dst_i = dst + (i & 1) * BK * 64;
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {
+      const int r = kv_base - c0 + 8 * acc_half(j), c = acc_col(j, lane);
+      *reinterpret_cast<__nv_bfloat162*>(dst_i + swz(r, c)) =
+          __floats2bfloat162_rn(dpt[j], dpt[j + 1]);
+    }
+    hopper::fence_proxy_async();
+    // this warpgroup's staging tile written below was last read by its
+    // reduce-adds two steps back
+    if (leader) hopper::bulk_wait_read<1>();
+    hopper::named_sync(3, NC);  // dS^T complete, from every warpgroup
+
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dv_acc);
+    hopper::fence_regs(dk_acc);
+    hopper::fence_regs(pa);
+    hopper::fence_regs(da);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+
+    // dQ[:, wg's columns] = dS K, both operands MN-major
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t)
+      hopper::wgmma_ss<Plan::kDqCols, 1, 1>(
+          dq, desc_mn(dst_i, BK, t, 0), desc_mn(ks, BK, t, wg * Plan::kDqCols),
+          t > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dq);
+
+    // stage this warpgroup's f32 columns in 32-column panels, 128-byte
+    // swizzled (16-byte chunk c of row r at c ^ (r % 8)), and add them to
+    // the scratch with one TMA reduce-add a panel, which drops rows past T
+    // and columns past D
+    float* stage = stage_dq + (wg * 2 + (i & 1)) * Plan::kStage;
+#pragma unroll
+    for (int j = 0; j < Plan::kDqCols / 2; j += 2) {
+      const int r = (warp & 3) * 16 + (lane >> 2) + 8 * acc_half(j);
+      const int c = acc_col(j, lane);
+      *reinterpret_cast<float2*>(stage + (c >> 5) * BQ * 32 + r * 32 +
+                                 ((((c >> 2) ^ r) & 7) << 2) + (c & 3)) =
+          make_float2(dq[j], dq[j + 1]);
+    }
+    hopper::fence_proxy_async();
+    hopper::named_sync(1 + wg, kWarpgroup);
+    if (leader) {
+      for (int p = 0; p < Plan::kDqCols / 32; ++p)
+        hopper::tma_reduce_add_3d(&map_dq, stage + p * BQ * 32,
+                                  wg * Plan::kDqCols + p * 32, q0, bh);
+      hopper::bulk_commit();
+    }
+  }
+  if (leader) hopper::bulk_wait<0>();
+
+  // dK, dV: written once
+#pragma unroll
+  for (int j = 0; j < DP / 2; j += 2) {
+    const int col = acc_col(j, lane), kv = kv_base + 8 * acc_half(j);
+    if (col < D && kv < T_) {
+      const long long off = (head + kv) * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off) =
+          __floats2bfloat162_rn(dk_acc[j], dk_acc[j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off) =
+          __floats2bfloat162_rn(dv_acc[j], dv_acc[j + 1]);
+    }
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -605,6 +1274,57 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int DP>
+cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int BH, int T_, int D,
+                            float scale, int causal, cudaStream_t s) {
+  using Plan = FwdPlan<DP>;
+  CUtensorMap mq, mk, mv, mo;
+  if (!hopper::map_3d(&mq, q, false, BH, T_, D, Plan::kRows) ||
+      !hopper::map_3d(&mk, k, false, BH, T_, D, Plan::kRows) ||
+      !hopper::map_3d(&mv, v, false, BH, T_, D, Plan::kRows) ||
+      !hopper::map_3d(&mo, o, false, BH, T_, D, 64))
+    return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(flash_fwd_wgmma<DP>, Plan::kBytes);
+  if (err != cudaSuccess) return err;
+  // persistent: one CTA an SM (or one an item, if fewer)
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int items = BH * ((T_ + Plan::kRows - 1) / Plan::kRows);
+  flash_fwd_wgmma<DP>
+      <<<items < sms ? items : sms, Plan::kThreads, Plan::kBytes, s>>>(
+          mq, mk, mv, mo, static_cast<float*>(lse), BH, T_, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int DP, int NWG>
+cudaError_t launch_bwd_fused_bf16(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse,
+                                  const void* out, void* dq_acc, void* dk,
+                                  void* dv, int BH, int T_, int D,
+                                  float scale, int causal, cudaStream_t s) {
+  using Plan = BwdPlan<DP, NWG>;
+  CUtensorMap mq, mk, mv, mdo, mo, mdq;
+  if (!hopper::map_3d(&mdq, dq_acc, true, BH, T_, D, Plan::kQRows) ||
+      !hopper::map_3d(&mq, q, false, BH, T_, D, Plan::kQRows) ||
+      !hopper::map_3d(&mk, k, false, BH, T_, D, Plan::kKvRows) ||
+      !hopper::map_3d(&mv, v, false, BH, T_, D, Plan::kKvRows) ||
+      !hopper::map_3d(&mdo, dout, false, BH, T_, D, Plan::kQRows) ||
+      !hopper::map_3d(&mo, out, false, BH, T_, D, Plan::kQRows))
+    return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(flash_bwd_fused_wgmma<DP, NWG>, Plan::kBytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_fused_wgmma<DP, NWG>
+      <<<grid_of(BH, T_, Plan::kKvRows), Plan::kThreads, Plan::kBytes, s>>>(
+          mq, mk, mv, mdo, mo, mdq, static_cast<const float*>(lse),
+          static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), T_, D, scale, causal);
+  return cudaGetLastError();
+}
+
 bool bad_shape(int BH, int T_, int D) {
   return BH < 1 || T_ < 1 || D < 8 || D > kMaxD || D % 8 != 0;
 }
@@ -625,7 +1345,10 @@ int rt_flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == kF32)
     return (int)launch_fwd<float>(q, k, v, o, lse, BH, T, D, scale, causal, s);
   if (dtype == kBF16)
-    return (int)launch_fwd<bf16>(q, k, v, o, lse, BH, T, D, scale, causal, s);
+    return (int)(D <= 64 ? launch_fwd_bf16<64>(q, k, v, o, lse, BH, T, D,
+                                                scale, causal, s)
+                         : launch_fwd_bf16<128>(q, k, v, o, lse, BH, T, D,
+                                                 scale, causal, s));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -641,9 +1364,12 @@ int rt_flash_bwd_fused(const void* q, const void* k, const void* v,
                                            dq_acc, dk, dv, BH, T, D, scale,
                                            causal, s);
   if (dtype == kBF16)
-    return (int)launch_bwd_kv<bf16, true>(q, k, v, dout, lse, nullptr, out,
-                                          dq_acc, dk, dv, BH, T, D, scale,
-                                          causal, s);
+    return (int)(D <= 64 ? launch_bwd_fused_bf16<64, 2>(
+                               q, k, v, dout, lse, out, dq_acc, dk, dv, BH, T,
+                               D, scale, causal, s)
+                         : launch_bwd_fused_bf16<128, 1>(
+                               q, k, v, dout, lse, out, dq_acc, dk, dv, BH, T,
+                               D, scale, causal, s));
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,7 +17,10 @@ norm of the difference over the plain version's norm, with the limits
 of `chip_smoke.py`: f32 rtol 1e-4, atol 1e-5, norm 3e-6 (tiled online
 softmax and tiled sums in another order; K2's dQ summed by atomics in
 an order that changes from run to run), bf16 rtol 2e-2, atol 1e-2,
-norm 7e-3 (P and dS rounded to bf16 at other maxima, outputs in bf16).
+norm 7e-3 for K1 (P rounded to bf16 at other maxima, outputs in bf16)
+and 5e-4 for K2-K4 (P from the same LSE; dS and the outputs rounded to
+bf16; the bf16 K2 sums dQ by bulk reduce-adds in a run-dependent
+order).
 K7-K9 likewise, with atol relative to each output's largest magnitude
 (`XENT_TOL`).  All draws seeded (RT008).
 """
@@ -146,6 +149,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 
 FLASH_TOL = {"f32": {"rtol": 1e-4, "atol": 1e-5, "rel": 3e-6},
              "bf16": {"rtol": 2e-2, "atol": 1e-2, "rel": 7e-3}}
+# bf16 norm limits per kernel (`chip_smoke.py`'s FLASH_REL_BF16)
+FLASH_REL_BF16 = {"fwd": 7e-3, "fused": 5e-4, "dq": 5e-4, "dkv": 5e-4}
+
+
+def _flash_tol(kind, name):
+    if kind == "f32":
+        return FLASH_TOL[kind]
+    return {**FLASH_TOL[kind], "rel": FLASH_REL_BF16[name]}
 
 
 def _assert_flash_close(got, want, tol, msg=""):
@@ -167,12 +178,18 @@ def _flash_inputs(BH, T, D, dtype, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("T,D", [(128, 64), (100, 128), (72, 16)])
-def test_flash_kernels_match_plain(cuda_device, kind, causal, T, D):
+@pytest.mark.parametrize("BH,T,D", [(6, 128, 64), (6, 100, 128), (6, 72, 16),
+                                    (6, 1024, 64), (6, 48, 64), (3, 200, 64),
+                                    (3, 200, 96)])
+def test_flash_kernels_match_plain(cuda_device, kind, causal, BH, T, D):
     """K1, K2, K3 and K4 each against its plain version on the same
-    inputs (the backward ones on the plain forward's O and LSE)."""
+    inputs (the backward ones on the plain forward's O and LSE).  The
+    shapes stress the bf16 kernels' tiles (128 q rows in K1, 128 kv rows
+    and 64 q rows in K2): 8 full tiles (T 1024), T under one tile (48),
+    ragged over two (200, 100, 72), head widths that run on the 64 and
+    128 instantiations (16, 96)."""
     dt = torch.float32 if kind == "f32" else torch.bfloat16
-    q, k, v, do = _flash_inputs(6, T, D, dt, seed=T + D + causal)
+    q, k, v, do = _flash_inputs(BH, T, D, dt, seed=T + D + causal)
     scale = D ** -0.5
     o, lse = fa.flash_fwd_reference(q, k, v, causal, scale)
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
@@ -203,7 +220,27 @@ def test_flash_kernels_match_plain(cuda_device, kind, causal, T, D):
     for name in want:
         for g, w in zip(got[name], want[name]):
             assert g.dtype == w.dtype and g.shape == w.shape, name
-            _assert_flash_close(g, w, FLASH_TOL[kind], name)
+            _assert_flash_close(g, w, _flash_tol(kind, name), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_fused_repeats(cuda_device, D):
+    """K2 twice on the same inputs: dK and dV bit-equal (each is summed in
+    one CTA's registers, in a fixed order), dQ within K2's limit (its f32
+    tiles are added into the scratch by bulk reduce-adds, in an order
+    that changes from run to run)."""
+    q, k, v, do = (t.to(cuda_device) for t in _flash_inputs(
+        4, 320, D, torch.bfloat16, seed=D))
+    scale = D ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, True, scale)
+    first = fa.flash_bwd_fused(q, k, v, do, lse, o, True, scale)
+    second = fa.flash_bwd_fused(q, k, v, do, lse, o, True, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2],
+                                                            second[2])
+    _assert_flash_close(second[0], first[0], _flash_tol("bf16", "fused"),
+                        "dq")
 
 
 @pytest.mark.cuda
