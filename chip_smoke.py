@@ -43,24 +43,27 @@ exits non-zero:
 11. K1-K4 timed at the training shape (bf16, causal), beside their
     bounds, plain versions and `scaled_dot_product_attention`, with each
     kernel's achieved TFLOP/s, its time over its bound and over SDPA's
-    (forward for K1, backward for K2-K4); then K1 and K2 beside SDPA at
-    four shapes around it (full attention, T 4096 and T 256 over the
-    same tokens, D 128).
+    (forward for K1, backward for K2-K4).
 12. K7-K9 (the fused cross entropy's forward, dx and dw) against their
     plain versions at GPT-2 124M's head (N 32,768, E 768, V 50,257;
     bf16 x with the f32 master w, and all f32), at Llama-3-8B's head (N
-    4,096, E 4,096, V 128,256, bf16) and at a ragged N 200, E 128, V 300
-    (f32 and bf16), targets at 0 and V - 1: element by element and by
-    the relative norm of the difference.
+    4,096, E 4,096, V 128,256, bf16), at a ragged N 200, E 128, V 300
+    (f32 and bf16) and at N 130, E 1,032, V 515 (bf16: E wider than a
+    K8 / K9 block holds, not a multiple of 64), targets at 0 and V - 1:
+    element by element and by the relative norm of the difference; K8
+    and K9 timed at Llama's head (E wider than a CTA holds) beside the
+    one `torch.matmul` of their second product.
 13. xent main path: `pallas_cross_entropy` forward and backward at
     GPT-2 124M's full head (x = the seeded model's final hidden states
     in bf16, w = the f32 master `wte`, targets = the shifted tokens),
     with the launch counts of exactly that call (K7, K8, K9 once each,
     no plain dispatch); loss, dx and dw against the materialising lse
-    form under autograd; both timed forward + backward, each with its
-    peak memory.
+    form under autograd, and so the row-chunked `fused_cross_entropy`
+    (plain PyTorch, f32 products: a yardstick, not a kernel route); all
+    three timed forward + backward, each with its peak memory.
 14. K7-K9 timed at GPT-2's head (bf16), beside their bounds, plain
-    versions and the one `torch.matmul` of each kernel's main product.
+    versions and the one `torch.matmul` of each kernel's main product,
+    with each kernel's achieved TFLOP/s.
 15. the kernels line, the `nvidia-smi` line, and the final result line.
 
 Times are medians of CUDA-event timings of device work, with the 50 MB
@@ -87,7 +90,7 @@ from ray_tpu_torch.models import gpt2, llama
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
-from ray_tpu_torch.ops import pallas_cross_entropy
+from ray_tpu_torch.ops import fused_cross_entropy, pallas_cross_entropy
 from ray_tpu_torch.ops import xent_pallas as xp
 from ray_tpu_torch.parallel.ring_attention import plain_attention
 from ray_tpu_torch.scripts import train_gpt2
@@ -989,19 +992,24 @@ def check_xent(c: dict, kind: str) -> dict:
     return out
 
 
+def xent_flops(name: str, c: dict) -> float:
+    """2 N V E for the score product, plus 2 N V E for K8's and K9's
+    second product."""
+    (N, E), V = c["x"].shape, c["w"].shape[0]
+    return 2.0 * N * V * E * (1 if name == "xent_fwd" else 2)
+
+
 def xent_bound(name: str, c: dict) -> tuple:
-    """Operations: 2 N V E for the score product, plus 2 N V E for K8's
-    and K9's second product, at x's dtype's peak.  Bytes: x, w (as the
-    kernel reads it), targets and (K8, K9) lse read once; lse and target
-    logit, dx or dw written once in f32."""
+    """Operations: `xent_flops` at x's dtype's peak.  Bytes: x, w (as
+    the kernel reads it), targets and (K8, K9) lse read once; lse and
+    target logit, dx or dw written once in f32."""
     x, w = c["x"], c["w"]
     N, E = x.shape
     V = w.shape[0]
     ins = x.numel() * x.element_size() + w.numel() * w.element_size() + 4 * N
     n_bytes = {"xent_fwd": ins + 8 * N, "xent_dx": ins + 4 * N + 4 * N * E,
                "xent_dw": ins + 4 * N + 4 * V * E}[name]
-    mats = 1 if name == "xent_fwd" else 2
-    return _bound(n_bytes, 2.0 * N * V * E * mats, x.dtype)
+    return _bound(n_bytes, xent_flops(name, c), x.dtype)
 
 
 def xent_library(name: str, c: dict):
@@ -1017,19 +1025,38 @@ def xent_library(name: str, c: dict):
     return lambda: torch.matmul(dl.T, x)
 
 
+def time_wide_xent(c: dict) -> dict:
+    """ms, bound_ms, library_ms and TFLOP/s of K8 / K9 where E is wider
+    than the 768 columns a CTA holds (each 32-row step streams the
+    output block's A panels again), beside the one `torch.matmul` of
+    the second product."""
+    out = {}
+    for name in ("xent_dx", "xent_dw"):
+        ms = time_ms(lambda: run_xent(name, c), iters=3)
+        lib = xent_library(name, c)
+        out[name] = {"ms": ms, "bound_ms": xent_bound(name, c)[0],
+                     "library_ms": time_ms(lib, iters=3),
+                     "tflops": xent_flops(name, c) / (ms * 1e-3) / 1e12}
+        del lib
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_xent(c: dict) -> dict:
     """ms / plain_ms / bound_ms / bound_by / library_ms of K7-K9 on one
-    case."""
+    case, with the achieved TFLOP/s."""
     out = {}
     for name in XENT:
         bound, by = xent_bound(name, c)
         lib = xent_library(name, c)
+        ms = time_ms(lambda: run_xent(name, c), iters=10)
         out[name] = {
-            "ms": time_ms(lambda: run_xent(name, c), iters=10),
+            "ms": ms,
             "plain_ms": time_ms(lambda: run_xent(name, c, plain=True),
                                 iters=5),
             "bound_ms": bound, "bound_by": by,
             "library_ms": time_ms(lib, iters=10),
+            "tflops": xent_flops(name, c) / (ms * 1e-3) / 1e12,
         }
         del lib
         torch.cuda.empty_cache()
@@ -1077,8 +1104,9 @@ def xent_main_path(device, *, cfg=None, batch=32, seq=1024,
     final hidden states of the seeded model and tokens (bf16, detached
     into a leaf), w = the f32 master `wte`, targets = the shifted
     tokens.  Forward and backward with the launch counts of exactly
-    that call, held against `reference_cross_entropy` under autograd;
-    then both timed forward + backward, each with its peak memory."""
+    that call, held against `reference_cross_entropy` under autograd,
+    and so the row-chunked `fused_cross_entropy`; then all three timed
+    forward + backward, each with its peak memory."""
     state = train_gpt2.build(device, batch, seq, seed=0, cfg=cfg)
     cfg, params, tokens = state["cfg"], state["params"], state["tokens"]
     with torch.no_grad():
@@ -1096,6 +1124,10 @@ def xent_main_path(device, *, cfg=None, batch=32, seq=1024,
         loss = xp.reference_cross_entropy(x, w, targets)
         return (loss, *torch.autograd.grad(loss, (x, w)))
 
+    def chunked():
+        loss = fused_cross_entropy(x, w, targets)
+        return (loss, *torch.autograd.grad(loss, (x, w)))
+
     reset_counts()
     with count_plain() as plain:
         (loss, dx, dw), fused_peak = _peak(fused, device)
@@ -1104,21 +1136,31 @@ def xent_main_path(device, *, cfg=None, batch=32, seq=1024,
         raise AssertionError(f"xent launches {launches}, plain "
                              f"dispatches {plain.calls}")
     (r_loss, r_dx, r_dw), lse_peak = _peak(lse_form, device)
-    loss, r_loss = loss.detach(), r_loss.detach()
-    if dx.dtype != x.dtype or dw.dtype != w.dtype or not all(
-            bool(torch.isfinite(t.float()).all()) for t in (loss, dx, dw)):
-        raise AssertionError("fused grads misshapen or non-finite")
-    err = {"loss": abs(float(loss) - float(r_loss)),
-           **{n: float(torch.linalg.vector_norm(g.float() - r.float())
-                        / torch.linalg.vector_norm(r.float()))
-              for n, g, r in (("dx", dx, r_dx), ("dw", dw, r_dw))}}
-    if any(err[k] > XENT_MAIN_TOL[k] for k in err):
-        raise AssertionError(f"fused vs lse form: {err} beyond "
-                             f"{XENT_MAIN_TOL}")
+    r_loss = r_loss.detach()
+
+    def against_lse_form(what, loss, dx, dw) -> dict:
+        if dx.dtype != x.dtype or dw.dtype != w.dtype or not all(
+                bool(torch.isfinite(t.float()).all())
+                for t in (loss, dx, dw)):
+            raise AssertionError(f"{what} grads misshapen or non-finite")
+        err = {"loss": abs(float(loss) - float(r_loss)),
+               **{n: float(torch.linalg.vector_norm(g.float() - r.float())
+                            / torch.linalg.vector_norm(r.float()))
+                  for n, g, r in (("dx", dx, r_dx), ("dw", dw, r_dw))}}
+        if any(err[k] > XENT_MAIN_TOL[k] for k in err):
+            raise AssertionError(f"{what} vs lse form: {err} beyond "
+                                 f"{XENT_MAIN_TOL}")
+        return err
+
+    loss = loss.detach()
+    err = against_lse_form("fused", loss, dx, dw)
+    del dx, dw
+    (c_loss, c_dx, c_dw), chunked_peak = _peak(chunked, device)
+    err_chunked = against_lse_form("chunked", c_loss.detach(), c_dx, c_dw)
     if abs(float(loss) - math.log(cfg.vocab_size)) > 0.5:
         raise AssertionError(f"loss {float(loss)} far from ln V = "
                              f"{math.log(cfg.vocab_size)}")
-    del r_dx, r_dw, dx, dw
+    del r_dx, r_dw, c_dx, c_dw
     line = {"phase": "xent_main_path", "model": "gpt2_124m",
             "N": x.shape[0], "E": x.shape[1], "V": w.shape[0],
             "x_dtype": str(x.dtype).replace("torch.", ""),
@@ -1126,13 +1168,17 @@ def xent_main_path(device, *, cfg=None, batch=32, seq=1024,
             "depth_cut": False, "loss": float(loss),
             "loss_lse_form": float(r_loss), "ln_V": math.log(w.shape[0]),
             "launches": launches, "plain_dispatches": plain.calls,
-            "err_vs_lse_form": err, "tolerance": XENT_MAIN_TOL}
+            "err_vs_lse_form": err,
+            "chunked_err_vs_lse_form": err_chunked,
+            "tolerance": XENT_MAIN_TOL}
     if time_it:
         line.update({
             "fused_fwd_bwd_ms": time_ms(fused, iters=10),
             "fused_peak_extra_gb": fused_peak / 1e9,
             "lse_form_fwd_bwd_ms": time_ms(lse_form, iters=10),
             "lse_form_peak_extra_gb": lse_peak / 1e9,
+            "chunked_fwd_bwd_ms": time_ms(chunked, iters=5),
+            "chunked_peak_extra_gb": chunked_peak / 1e9,
         })
     return {"launches": launches, "line": line}
 
@@ -1282,14 +1328,18 @@ def main() -> int:
                                     (32768, 768, 50257, "f32", "f32"),
                                     (4096, 4096, 128256, "bf16", "bf16"),
                                     (200, 128, 300, "f32", "f32"),
-                                    (200, 128, 300, "bf16", "bf16")):
+                                    (200, 128, 300, "bf16", "bf16"),
+                                    (130, 1032, 515, "bf16", "bf16")):
         case = xent_case(N, E, V, dts[x_kind], dts[w_kind], device,
                          seed=N + V)
         errs_ = check_xent(case, x_kind)
-        emit({"phase": "K7-K9_vs_plain", "N": N, "E": E, "V": V,
-              "x_dtype": x_kind, "w_dtype": w_kind,
-              "max_abs_elementwise_relnorm": errs_,
-              "tolerance": XENT_TOL[x_kind]})
+        line = {"phase": "K7-K9_vs_plain", "N": N, "E": E, "V": V,
+                "x_dtype": x_kind, "w_dtype": w_kind,
+                "max_abs_elementwise_relnorm": errs_,
+                "tolerance": XENT_TOL[x_kind]}
+        if E == 4096:  # Llama's head: K8 / K9 on the streamed path
+            line["timed"] = time_wide_xent(case)
+        emit(line)
         if (N, x_kind) == (32768, "bf16"):
             xent_errs = {n: e[0] for n, e in errs_.items()}
         del case

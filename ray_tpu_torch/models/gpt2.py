@@ -43,7 +43,7 @@ class GPT2Config:
     n_head: int = 12
     dropout: float = 0.0  # pretraining default; the reference applies none
     dtype: torch.dtype = torch.bfloat16  # compute dtype (params stay f32)
-    attention: str = "dense"  # dense | flash (ring | ulysses: not ported)
+    attention: str = "dense"  # dense | flash | ring | ulysses (no mesh: dense)
     remat: bool = True
     # lm-head logits dtype for the LOSS path (float32 or bfloat16);
     # `forward()` always returns f32 logits

@@ -48,7 +48,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    attention: str = "dense"  # dense | flash (ring | ulysses: not ported)
+    attention: str = "dense"  # dense | flash | ring | ulysses (no mesh: dense)
 
     @property
     def head_dim(self) -> int:

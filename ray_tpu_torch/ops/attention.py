@@ -17,10 +17,11 @@ the forward (FlashAttention-2, Dao 2023).
 and for `_supported`; the CUDA kernels use their own Hopper tiles
 whatever the blocks say: in bf16, K1 128-row q tiles and K2 128-row kv
 tiles over 64-row q tiles (wgmma, TMA, registers); K3 / K4 64 rows in
-bf16, and every kernel 32 rows in f32.  A shape `_supported`
+bf16, and every kernel 32 rows in f32; heads wider than 128, to 256,
+on the first design's kernels at half those rows.  A shape `_supported`
 refuses (T not divisible by a block, or D % 8) goes to `plain_attention`,
 as the reference documents; `flash_attention.plain_dispatches` counts
-those calls.
+those calls.  A head wider than 256 raises on the card.
 
 Each wrapper works on folded `[BH, T, D]` tensors and launches its kernel
 for CUDA tensors, or raises; it takes its plain PyTorch version
@@ -40,7 +41,7 @@ from ray_tpu_torch.parallel.ring_attention import plain_attention
 
 _NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 128  # the kernels' shared-memory tiles hold head widths <= 128
+_MAX_D = 256  # the kernels' shared-memory tiles hold head widths <= 256
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -153,7 +154,7 @@ def _lib() -> ctypes.CDLL:
 
 def _check(q, **others):
     """The kernels take contiguous [BH, T, D] q/k/v/dO/O of one dtype
-    (f32 or bf16) with D % 8 == 0 and D <= 128, and f32 [BH, T, 1]
+    (f32 or bf16) with D % 8 == 0 and D <= 256, and f32 [BH, T, 1]
     LSE / delta, all on q's CUDA device."""
     if q.device.type != "cuda":
         raise ValueError(

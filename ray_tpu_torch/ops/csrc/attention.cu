@@ -28,10 +28,12 @@
 // reduce-adds, one a 32-column panel a tile pair.  Head widths 64 and 128
 // are instantiated; other widths with D % 8 == 0 and D <= 128 run on the
 // next larger one (zero-filled by the tensor maps, dropped on store).
-// See each kernel's note.
+// Wider heads, to D 256 (the reference takes any width; no config of the
+// repo has one), run the first design below.  See each kernel's note.
 //
-// K3, K4 and the f32 instantiations of all four are the first design,
-// unchanged: 64-row (bf16) or 32-row (f32) tiles, bf16 products through
+// K3, K4, the f32 instantiations of all four and the bf16 K1 / K2 past
+// D 128 are the first design: 64-row (bf16) or 32-row (f32) tiles, half
+// as many rows past D 128 to fit shared memory, bf16 products through
 // nvcuda::wmma (16x16x16) with the f32 accumulators and the score tile
 // staged in shared memory, f32 products through scalar FMA loops (the f32
 // path is where the algorithm is checked against the reference), tiles
@@ -62,7 +64,8 @@ using bf16 = __nv_bfloat16;
 constexpr float kNegInf = -1e30f;  // the reference's mask value
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 128;      // four warps per block
-constexpr int kMaxD = 128;         // head widths up to 128 (GPT-2 64, Llama 128)
+constexpr int kTileD = 128;        // the widest head a full-row tile holds
+constexpr int kMaxD = 256;         // head widths up to 256 (GPT-2 64, Llama 128)
 enum DType { kF32 = 0, kBF16 = 1 };
 
 // Tile geometry per element type.  Rows: q rows and kv rows per step.  Pads
@@ -183,9 +186,8 @@ __device__ void load_tile(T* s, int lds, const T* g, int row0, int T_, int D,
 // shared-memory plan, shared by the kernels and their launchers.  f32
 // regions come first, then the T tiles; every region size is a multiple of
 // 32 bytes for the bf16 geometry, so wmma's pointers stay aligned.
-template <typename T>
+template <typename T, int B>
 struct Smem {
-  static constexpr int B = Tile<T>::kRows;
   int Dp, ldt, ldp, lds, lda;
   __host__ __device__ explicit Smem(int D)
       : Dp((D + 15) / 16 * 16),
@@ -234,14 +236,13 @@ struct Smem {
 // LSE = m + log(that l) in f32.  Columns past T (the ragged last tile) get
 // p = 0; rows past T are computed on zeros and never written.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, int B>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int T_, int D, float scale,
                      int causal) {
-  constexpr int B = Tile<T>::kRows;
-  const Smem<T> sm(D);
+  const Smem<T, B> sm(D);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* ss = reinterpret_cast<float*>(smem_raw);  // [B, lds] scores
   float* acc = ss + sm.tile_s();                   // [B, lda]
@@ -349,7 +350,7 @@ __global__ void __launch_bounds__(kThreads)
 // is read with every thread on its own row slice, so its loads overlap.  dK and dV stay in
 // f32 shared memory across the walk and are written once, deterministically.
 // ---------------------------------------------------------------------------
-template <typename T, bool kFused>
+template <typename T, int B, bool kFused>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -358,8 +359,7 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ out, float* __restrict__ dq_acc,
                         T* __restrict__ dk, T* __restrict__ dv, int T_, int D,
                         float scale, int causal) {
-  constexpr int B = Tile<T>::kRows;
-  const Smem<T> sm(D);
+  const Smem<T, B> sm(D);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* pf = reinterpret_cast<float*>(smem_raw);  // [B, lds] P (f32)
   float* dpf = pf + sm.tile_s();                   // [B, lds] dP
@@ -485,15 +485,14 @@ __global__ void __launch_bounds__(kThreads)
 // dQ += dS K in f32 shared memory.  Deterministic: one block owns each dQ
 // row.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, int B>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
                         int T_, int D, float scale, int causal) {
-  constexpr int B = Tile<T>::kRows;
-  const Smem<T> sm(D);
+  const Smem<T, B> sm(D);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* sf = reinterpret_cast<float*>(smem_raw);  // [B, lds] S
   float* dpf = sf + sm.tile_s();                   // [B, lds] dP
@@ -568,63 +567,20 @@ __global__ void __launch_bounds__(kThreads)
 // pair takes its A operand from registers (P, or dS^T), repacked from the
 // first product's accumulator layout without a shuffle.
 // ---------------------------------------------------------------------------
-constexpr int kWarpgroup = 128;
-constexpr int kPanel = 64;  // bf16 columns in one 128-byte swizzled row
+using hopper::a_frag;
+using hopper::acc_col;
+using hopper::acc_half;
+using hopper::align1024;
+using hopper::desc_k;
+using hopper::desc_mn;
+using hopper::kPanel;
+using hopper::kWarpgroup;
+using hopper::swz;
+
 // three warpgroups start at 168 registers a thread; the producer drops to
 // 40 and the consumers take 232 (128 * 40 + 256 * 232 <= 65,536).
 // setmaxnreg is a warpgroup instruction, hence a whole producer warpgroup
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// In a wgmma accumulator of N columns (m64nN, f32), register j of a thread
-// holds row (warp % 4) * 16 + lane / 4 + 8 * acc_half(j) and column
-// acc_col(j, lane) of the warpgroup's 64-row tile.
-__device__ __forceinline__ int acc_half(int j) { return (j >> 1) & 1; }
-__device__ __forceinline__ int acc_col(int j, int lane) {
-  return (j >> 2) * 8 + (lane & 3) * 2 + (j & 1);
-}
-
-// The A fragment of k16 step t (four bf16x2), from an accumulator whose
-// columns are that product's K (registers 8t .. 8t + 7), cast to bf16.
-template <int N>
-__device__ __forceinline__ void a_frag(uint32_t* a, const float (&d)[N],
-                                       int t) {
-  a[0] = pack_bf16(d[8 * t + 0], d[8 * t + 1]);
-  a[1] = pack_bf16(d[8 * t + 2], d[8 * t + 3]);
-  a[2] = pack_bf16(d[8 * t + 4], d[8 * t + 5]);
-  a[3] = pack_bf16(d[8 * t + 6], d[8 * t + 7]);
-}
-
-// bf16 element (r, c) of a 128-byte-swizzled [rows, 64] panel
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * kPanel + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
-}
-
-// K-major operand: rows [row0, row0 + 64*) of a panel set, k16 step kk
-// (panel kk / 4, 32 bytes a step inside it)
-__device__ __forceinline__ uint64_t desc_k(const bf16* panels, int rows,
-                                           int row0, int kk) {
-  return hopper::desc_sw128(panels + (kk >> 2) * rows * kPanel +
-                                row0 * kPanel + (kk & 3) * 16,
-                            16, 1024);
-}
-
-// MN-major operand: K rows [16 t, 16 t + 16) of a [rows, 64] panel set,
-// starting at column col0 of the first panel
-__device__ __forceinline__ uint64_t desc_mn(const bf16* panels, int rows,
-                                            int t, int col0) {
-  return hopper::desc_sw128(panels + t * 16 * kPanel + col0,
-                            rows * kPanel * 2, 1024);
-}
 
 // ---------------------------------------------------------------------------
 // K1, bf16: flash-attention forward.
@@ -1224,31 +1180,43 @@ dim3 grid_of(int BH, int T_, int rows) {
   return dim3(BH, (T_ + rows - 1) / rows);
 }
 
-template <typename T>
+// The first design's launchers take Tile<T>::kRows rows a tile up to
+// kTileD and half as many past it, so the shared-memory plan of a head up
+// to kMaxD still fits (bf16 K2 / K4 at D 256: 170 KB; f32: 116 KB).
+template <typename T, int B = Tile<T>::kRows>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int BH, int T_, int D, float scale,
                        int causal, cudaStream_t s) {
-  const size_t bytes = Smem<T>(D).fwd_bytes();
-  cudaError_t err = set_smem(flash_fwd_kernel<T>, bytes);
+  if constexpr (B == Tile<T>::kRows)
+    if (D > kTileD)
+      return launch_fwd<T, B / 2>(q, k, v, o, lse, BH, T_, D, scale, causal,
+                                  s);
+  const size_t bytes = Smem<T, B>(D).fwd_bytes();
+  cudaError_t err = set_smem(flash_fwd_kernel<T, B>, bytes);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T><<<grid_of(BH, T_, Tile<T>::kRows), kThreads, bytes, s>>>(
+  flash_fwd_kernel<T, B><<<grid_of(BH, T_, B), kThreads, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       T_, D, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, bool kFused>
+template <typename T, bool kFused, int B = Tile<T>::kRows>
 cudaError_t launch_bwd_kv(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, const void* out, void* dq_acc,
                           void* dk, void* dv, int BH, int T_, int D,
                           float scale, int causal, cudaStream_t s) {
-  const size_t bytes = Smem<T>(D).bwd_kv_bytes();
-  cudaError_t err = set_smem(flash_bwd_kv_kernel<T, kFused>, bytes);
+  if constexpr (B == Tile<T>::kRows)
+    if (D > kTileD)
+      return launch_bwd_kv<T, kFused, B / 2>(q, k, v, dout, lse, delta, out,
+                                             dq_acc, dk, dv, BH, T_, D,
+                                             scale, causal, s);
+  const size_t bytes = Smem<T, B>(D).bwd_kv_bytes();
+  cudaError_t err = set_smem(flash_bwd_kv_kernel<T, B, kFused>, bytes);
   if (err != cudaSuccess) return err;
-  flash_bwd_kv_kernel<T, kFused>
-      <<<grid_of(BH, T_, Tile<T>::kRows), kThreads, bytes, s>>>(
+  flash_bwd_kv_kernel<T, B, kFused>
+      <<<grid_of(BH, T_, B), kThreads, bytes, s>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const T*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1257,16 +1225,20 @@ cudaError_t launch_bwd_kv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int B = Tile<T>::kRows>
 cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dq, int BH, int T_, int D,
                           float scale, int causal, cudaStream_t s) {
-  const size_t bytes = Smem<T>(D).bwd_q_bytes();
-  cudaError_t err = set_smem(flash_bwd_dq_kernel<T>, bytes);
+  if constexpr (B == Tile<T>::kRows)
+    if (D > kTileD)
+      return launch_bwd_dq<T, B / 2>(q, k, v, dout, lse, delta, dq, BH, T_,
+                                     D, scale, causal, s);
+  const size_t bytes = Smem<T, B>(D).bwd_q_bytes();
+  cudaError_t err = set_smem(flash_bwd_dq_kernel<T, B>, bytes);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T>
-      <<<grid_of(BH, T_, Tile<T>::kRows), kThreads, bytes, s>>>(
+  flash_bwd_dq_kernel<T, B>
+      <<<grid_of(BH, T_, B), kThreads, bytes, s>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const T*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1345,10 +1317,12 @@ int rt_flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == kF32)
     return (int)launch_fwd<float>(q, k, v, o, lse, BH, T, D, scale, causal, s);
   if (dtype == kBF16)
-    return (int)(D <= 64 ? launch_fwd_bf16<64>(q, k, v, o, lse, BH, T, D,
-                                                scale, causal, s)
-                         : launch_fwd_bf16<128>(q, k, v, o, lse, BH, T, D,
-                                                 scale, causal, s));
+    return (int)(D <= 64    ? launch_fwd_bf16<64>(q, k, v, o, lse, BH, T, D,
+                                                   scale, causal, s)
+                 : D <= 128 ? launch_fwd_bf16<128>(q, k, v, o, lse, BH, T, D,
+                                                    scale, causal, s)
+                            : launch_fwd<bf16>(q, k, v, o, lse, BH, T, D,
+                                               scale, causal, s));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1364,12 +1338,15 @@ int rt_flash_bwd_fused(const void* q, const void* k, const void* v,
                                            dq_acc, dk, dv, BH, T, D, scale,
                                            causal, s);
   if (dtype == kBF16)
-    return (int)(D <= 64 ? launch_bwd_fused_bf16<64, 2>(
-                               q, k, v, dout, lse, out, dq_acc, dk, dv, BH, T,
-                               D, scale, causal, s)
-                         : launch_bwd_fused_bf16<128, 1>(
-                               q, k, v, dout, lse, out, dq_acc, dk, dv, BH, T,
-                               D, scale, causal, s));
+    return (int)(D <= 64    ? launch_bwd_fused_bf16<64, 2>(
+                                  q, k, v, dout, lse, out, dq_acc, dk, dv, BH,
+                                  T, D, scale, causal, s)
+                 : D <= 128 ? launch_bwd_fused_bf16<128, 1>(
+                                  q, k, v, dout, lse, out, dq_acc, dk, dv, BH,
+                                  T, D, scale, causal, s)
+                            : launch_bwd_kv<bf16, true>(
+                                  q, k, v, dout, lse, nullptr, out, dq_acc,
+                                  dk, dv, BH, T, D, scale, causal, s));
   return (int)cudaErrorInvalidValue;
 }
 

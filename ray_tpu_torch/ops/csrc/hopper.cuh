@@ -1,9 +1,11 @@
-// Hopper (sm_90a) building blocks for the attention kernels: mbarriers,
-// TMA tensor loads, stores and reduce-adds, and warpgroup matrix multiplies
-// (wgmma) with their shared-memory descriptors.  Everything here is a thin
-// wrapper over one PTX instruction (see the PTX ISA, "Asynchronous
-// warpgroup level matrix multiply-accumulate" and "Tensor copy"), so the
-// kernels in attention.cu read as the algorithm.
+// Hopper (sm_90a) building blocks for the attention and cross-entropy
+// kernels: mbarriers, TMA tensor loads, stores and reduce-adds, and
+// warpgroup matrix multiplies (wgmma) with their shared-memory
+// descriptors.  Everything here is a thin wrapper over one PTX instruction
+// (see the PTX ISA, "Asynchronous warpgroup level matrix
+// multiply-accumulate" and "Tensor copy"), or a register or operand
+// layout those instructions fix, so the kernels in attention.cu and
+// xent.cu read as the algorithm.
 //
 // The tensor-map encoder, cuTensorMapEncodeTiled, is looked up once with
 // cudaGetDriverEntryPoint*, so the library links against the CUDA runtime
@@ -299,6 +301,62 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
           "n"(kTB));
   }
+}
+
+// ---- warp-specialised kernels: roles, register layouts, operands ------
+// (shared by the bf16 kernels of attention.cu and xent.cu)
+constexpr int kWarpgroup = 128;
+constexpr int kPanel = 64;  // bf16 columns in one 128-byte swizzled row
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// In a wgmma accumulator of N columns (m64nN, f32), register j of a thread
+// holds row (warp % 4) * 16 + lane / 4 + 8 * acc_half(j) and column
+// acc_col(j, lane) of the warpgroup's 64-row tile.
+__device__ __forceinline__ int acc_half(int j) { return (j >> 1) & 1; }
+__device__ __forceinline__ int acc_col(int j, int lane) {
+  return (j >> 2) * 8 + (lane & 3) * 2 + (j & 1);
+}
+
+// The A fragment of k16 step t (four bf16x2), from an accumulator whose
+// columns are that product's K (registers 8t .. 8t + 7), cast to bf16.
+template <int N>
+__device__ __forceinline__ void a_frag(uint32_t* a, const float (&d)[N],
+                                       int t) {
+  a[0] = pack_bf16(d[8 * t + 0], d[8 * t + 1]);
+  a[1] = pack_bf16(d[8 * t + 2], d[8 * t + 3]);
+  a[2] = pack_bf16(d[8 * t + 4], d[8 * t + 5]);
+  a[3] = pack_bf16(d[8 * t + 6], d[8 * t + 7]);
+}
+
+// bf16 element (r, c) of a 128-byte-swizzled [rows, 64] panel
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kPanel + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
+}
+
+// K-major operand: rows [row0, row0 + 64*) of a panel set, k16 step kk
+// (panel kk / 4, 32 bytes a step inside it)
+__device__ __forceinline__ uint64_t desc_k(const __nv_bfloat16* panels, int rows,
+                                           int row0, int kk) {
+  return desc_sw128(panels + (kk >> 2) * rows * kPanel +
+                                row0 * kPanel + (kk & 3) * 16,
+                            16, 1024);
+}
+
+// MN-major operand: K rows [16 t, 16 t + 16) of a [rows, 64] panel set,
+// starting at column col0 of the first panel
+__device__ __forceinline__ uint64_t desc_mn(const __nv_bfloat16* panels, int rows,
+                                            int t, int col0) {
+  return desc_sw128(panels + t * 16 * kPanel + col0,
+                            rows * kPanel * 2, 1024);
 }
 
 // ---- host: tensor maps ----------------------------------------------------

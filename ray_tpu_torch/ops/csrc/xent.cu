@@ -24,28 +24,29 @@
 // blocks in device memory first.  Here nothing is padded: every tile load
 // zero-fills the rows past N or V and the columns past E, and the kernels
 // mask columns past V (-1e30 before the max in K7, probability 0 in K8/K9).
-// The shared step is a score tile S = A[64 rows] . B[64 rows]^T over all of E,
-// streamed in E chunks through a two-stage cp.async ring in shared memory,
-// with the sum kept in registers: bf16 on the tensor cores through
-// nvcuda::wmma (16x16x16, f32 accumulate, eight warps as 2 x 4), f32 on
-// scalar FMA with a 4 x 4 register tile a thread (the instantiation that
-// checks the algorithm against the plain versions).
+// K7 and the f32 K8 / K9 share one step, a score tile S = A[64 rows] .
+// B[64 rows]^T over all of E, streamed in E chunks through a two-stage
+// cp.async ring in shared memory, with the sum kept in registers: bf16 on
+// the tensor cores through nvcuda::wmma (16x16x16, f32 accumulate, eight
+// warps as 2 x 4), f32 on scalar FMA with a 4 x 4 register tile a thread
+// (the instantiation that checks the algorithm against the plain versions).
+// The bf16 K8 and K9 are Hopper kernels (TMA, mbarriers, wgmma with
+// accumulators in registers, PTX helpers in hopper.cuh); see their note.
 //
 // Bound on this card.  At the GPT-2 124M head (N 32,768, E 768, V 50,257,
 // bf16) every kernel is bound by tensor-core operations: K7 does 2 N V E =
 // 2.53 TFLOP (2.56 ms at 989 TFLOP/s) against ~0.13 GB of input (0.04 ms at
 // 3.35 TB/s); K8 and K9 each recompute S and do one more product, 4 N V E,
-// 5.1 ms each.  What these kernels do about it: products on the tensor cores
-// with f32 accumulators in registers, E chunks double-buffered with cp.async.
-// What they do not do yet (later work): wgmma and TMA, tiles wider than
-// 64 x 64, and a K8/K9 without the recompute below.
+// 5.1 ms each.  K7 still runs the first design: wmma tiles of 64 x 64 with
+// E chunks double-buffered by cp.async (its redesign is later work).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "hopper.cuh"
+
 
 namespace {
 
@@ -82,15 +83,6 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -156,34 +148,22 @@ struct Acc<bf16, M, N> {
 #pragma unroll
       for (int j = 0; j < FN; ++j) wmma::fill_fragment(c[i][j], 0.f);
   }
-  template <bool kNT>
-  __device__ __forceinline__ void mma(const bf16* A, int lda, const bf16* B,
-                                      int ldb, int K) {
-    using LB = std::conditional_t<kNT, wmma::col_major, wmma::row_major>;
+  __device__ __forceinline__ void mma_nt(const bf16* A, int lda,
+                                         const bf16* B, int ldb, int K) {
     for (int k = 0; k < K; k += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b[FN];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[FN];
 #pragma unroll
       for (int i = 0; i < FM; ++i)
         wmma::load_matrix_sync(a[i], A + (m0() + 16 * i) * lda + k, lda);
 #pragma unroll
       for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(
-            b[j], kNT ? B + (n0() + 16 * j) * ldb + k : B + k * ldb + n0() + 16 * j,
-            ldb);
+        wmma::load_matrix_sync(b[j], B + (n0() + 16 * j) * ldb + k, ldb);
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
         for (int j = 0; j < FN; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
     }
-  }
-  __device__ __forceinline__ void mma_nt(const bf16* A, int lda,
-                                         const bf16* B, int ldb, int K) {
-    mma<true>(A, lda, B, ldb, K);
-  }
-  __device__ __forceinline__ void mma_nn(const bf16* A, int lda,
-                                         const bf16* B, int ldb, int K) {
-    mma<false>(A, lda, B, ldb, K);
   }
   __device__ __forceinline__ void store(float* C, int ldc) const {
 #pragma unroll
@@ -192,25 +172,6 @@ struct Acc<bf16, M, N> {
       for (int j = 0; j < FN; ++j)
         wmma::store_matrix_sync(C + (m0() + 16 * i) * ldc + n0() + 16 * j,
                                 c[i][j], ldc, wmma::mem_row_major);
-  }
-  // through a 16 x 16 f32 scratch a warp (scratch holds 8 x 256 floats)
-  __device__ __forceinline__ void store_global(float* G, long long ldg,
-                                               int rows, int cols,
-                                               float* scratch) const {
-    const int lane = threadIdx.x & 31;
-    float* s = scratch + (threadIdx.x >> 5) * 256;
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        wmma::store_matrix_sync(s, c[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int r = m0() + 16 * i + e / 16, col = n0() + 16 * j + e % 16;
-          if (r < rows && col < cols) G[r * ldg + col] = s[e];
-        }
-        __syncwarp();
-      }
   }
 };
 
@@ -261,8 +222,7 @@ struct Acc<float, M, N> {
       for (int j = 0; j < TN; ++j) C[(ty + 16 * i) * ldc + tx + 16 * j] = c[i][j];
   }
   __device__ __forceinline__ void store_global(float* G, long long ldg,
-                                               int rows, int cols,
-                                               float*) const {
+                                               int rows, int cols) const {
     const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
     for (int i = 0; i < TM; ++i)
@@ -322,9 +282,8 @@ struct Plan {
   // K7: m, l, t (f32) and targets; K8 / K9: lse and targets
   static constexpr size_t dl = up128(vec + 4 * 64 * sizeof(float));
   static constexpr size_t b2 = up128(dl + kBM * ldd * sizeof(T));
-  static constexpr size_t scratch = up128(b2 + kBN * ldb2 * sizeof(T));
   static constexpr size_t fwd_bytes = dl;
-  static constexpr size_t grad_bytes = up128(scratch + 8 * 256 * sizeof(float));
+  static constexpr size_t grad_bytes = up128(b2 + kBN * ldb2 * sizeof(T));
 };
 
 // ---------------------------------------------------------------------------
@@ -421,26 +380,21 @@ __global__ void __launch_bounds__(kThreads)
 // l.248, in `_bwd`): A = w, B = x, out = dw [V, E], reduced over the rows;
 // its score tile is S^T = w x^T, so the two kernels are one loop.
 //
-// Bound: tensor-core operations (4 N V E; see the file note).
-// The trouble is the E-wide f32 accumulator the Pallas kernels keep in VMEM
-// (512 x 768 x 4 B = 1.5 MB): 64 rows of it at E = 768 are 196 KB, and at E =
-// 4,096 not even 16 rows fit beside the tiles.  Design: each block owns a
-// 64-row x 256-column slice of the output in registers (64 floats a thread)
-// and walks the whole reduction axis in 64-wide steps: per step, S for its 64
-// rows over all of E (score_tile), dl in x's dtype into shared memory, the
-// step's [64, 256] slice of B2 (its copy in flight while S is computed),
-// then acc += dl . B2.  Every output element has one owner, so the sums are
-// deterministic and need no atomics or second pass; the price is that S is
-// recomputed once per E slice: ceil(E / 256) = 3 times at E = 768, so a
-// kernel does (3 + 1) / 2 = 2x the reference's operations (16 slices at E =
-// 4,096).
+// This is the f32 instantiation, the first design kept as the check of the
+// algorithm against the plain versions (bf16 runs xent_grad_wgmma below):
+// each block owns a 64-row x 256-column slice of the output in registers
+// and walks the whole reduction axis in 64-wide steps: per step, S for its
+// 64 rows over all of E (score_tile), dl into shared memory, the step's
+// [64, 256] slice of B2, then acc += dl . B2.  S is recomputed once per E
+// slice (ceil(E / 256) times).
 // ---------------------------------------------------------------------------
-template <typename T, bool kDW>
+template <bool kDW>
 __global__ void __launch_bounds__(kThreads)
-    xent_grad_kernel(const T* __restrict__ A, const T* __restrict__ B,
+    xent_grad_kernel(const float* __restrict__ A, const float* __restrict__ B,
                      const int* __restrict__ tg,
                      const float* __restrict__ lse, float* __restrict__ out,
                      int N, int V, int E) {
+  using T = float;
   using P = Plan<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sA = reinterpret_cast<T*>(smem + P::a);
@@ -450,7 +404,6 @@ __global__ void __launch_bounds__(kThreads)
   int* tg_s = reinterpret_cast<int*>(lse_s + 64);          // [64]
   T* sDL = reinterpret_cast<T*>(smem + P::dl);
   T* sB2 = reinterpret_cast<T*>(smem + P::b2);
-  float* scratch = reinterpret_cast<float*>(smem + P::scratch);
 
   const int na = kDW ? V : N, nb = kDW ? N : V;
   const int a0 = blockIdx.x * kBM, e0 = blockIdx.y * kES;
@@ -490,14 +443,323 @@ __global__ void __launch_bounds__(kThreads)
         dl = expf(sS[r * P::lds + c] - lse_s[k]);
         if (tg_s[k] == v) dl -= 1.f;
       }
-      sDL[r * P::ldd + c] = from_f32<T>(dl);  // dl in x's dtype
+      sDL[r * P::ldd + c] = dl;
     }
     __syncthreads();
     acc.mma_nn(sDL, P::ldd, sB2, P::ldb2, kBN);
     __syncthreads();
   }
   acc.store_global(out + (long long)a0 * E + e0, E, min(kBM, na - a0),
-                   min(kES, E - e0), scratch);
+                   min(kES, E - e0));
+}
+
+// ---------------------------------------------------------------------------
+// K8 and K9, bf16: Hopper kernels (PTX helpers in hopper.cuh).
+//
+// Replace the same Pallas builders as above: K8 `_dx_kernel`
+// (ray_tpu/ops/xent_pallas.py:86, pallas_call at l.230), K9 `_dw_kernel`
+// (l.114, pallas_call at l.248).
+//
+// Bound: tensor-core operations, 4 N V E (S and the second product, 2 N V
+// E each): 5.115 ms at GPT-2 124M's head on an H100 (989 TFLOP/s bf16).
+//
+// What held the first design (kept as the f32 kernel above) back: each
+// block owned a 64 x 256 slice of the output, so S = A B^T over all of E
+// was recomputed for every slice (3 times at E 768: 8 N V E in all, twice
+// the reference's operations); its products ran on 16x16x16 wmma
+// fragments through a two-stage cp.async ring, with S stored to shared
+// memory in f32 and read back to form dl; and 64 x 64 tiles reloaded A
+// and B every step.
+//
+// Design: "K1's loop at head width E, with the lse known in advance".  A
+// CTA owns 64 output rows (A rows: x's for K8, w's for K9) and up to 768
+// output columns: all of E when E <= 768, which covers GPT-2 124M's head,
+// so S is computed once per output row block.  Wider E splits into as few
+// column slices as fit (six at Llama-3-8B's 4,096), each recomputing S.
+// Three warpgroups: a producer whose first thread issues every TMA load
+// (128-byte-swizzled [rows, 64] panels through 3-D tensor maps, which
+// zero-fill rows past N or V and columns past E), and two consumer
+// warpgroups that walk B in steps of 32 rows.  Per step:
+//   S [64, 32] = A B_step^T by wgmma m64n32k16 into registers, the E
+//     chunks split between the warpgroups (chunk k to warpgroup k % 2);
+//   the two f32 partials summed through shared memory (one named barrier a
+//     step, the exchange tiles alternating by step), so both warpgroups
+//     hold the same S;
+//   dl = exp(S - lse) - onehot(target) in registers (0 past N and V), cast
+//     to bf16 straight into wgmma's A-fragment layout;
+//   out[:, 384 columns of this warpgroup] += dl B_step by wgmma_rs
+//     m64n128k16 with B read MN-major from the step's tile, the f32
+//     accumulator (192 registers a thread) kept across the walk and
+//     written once at the end, so every output element has one owner
+//     (deterministic, no atomics).
+// The four parts run in turn.  Issuing the next step's S under this step's
+// second product (K1's pipeline) needs more registers than the consumers'
+// 240 beside the accumulator, and ptxas then serialises every wgmma (the
+// kernels ran about a third slower on an H100).
+// Shared memory (227 KB): when E <= 768 A's 64 rows stay resident (96 KB)
+// and B's steps stream through two stages of [32, E] (2 x 48 KB); wider E
+// streams (A panel, B panel) pairs for S through an eight-stage ring in
+// A's place, and the stages hold only the slice's columns.  K9's per-column
+// lse and target are written beside each stage by a second producer warp.
+// ---------------------------------------------------------------------------
+constexpr int kGM = 64;          // output rows a CTA owns (rows of A)
+constexpr int kGN = 32;          // rows of B a step
+constexpr int kSlicePanels = 12;  // output columns a CTA owns: 768
+constexpr int kWgPanels = 6;      // a consumer warpgroup's: 384
+constexpr int kRing = 8;          // (A, B) panel pairs in flight, wide E
+constexpr float kLog2e = 1.4426950408889634f;
+// the producer warpgroup drops to 24 registers a thread and the consumers
+// take 240 (128 * 24 + 256 * 240 <= 65,536): the accumulator alone is 192
+constexpr int kGradProducerRegs = 24, kGradConsumerRegs = 240;
+
+struct GradPlan {
+  static constexpr int kAPanel = kGM * hopper::kPanel;  // bf16 elements
+  static constexpr int kBPanel = kGN * hopper::kPanel;
+  static constexpr int kStage = kSlicePanels * kBPanel;
+  static constexpr int kChunk = kAPanel + kBPanel;  // a ring slot
+  static constexpr int kA = kSlicePanels * kAPanel;  // = kRing * kChunk
+  static constexpr int kXch = kGM * kGN;              // f32 partial S
+  static constexpr int kThreads = 3 * hopper::kWarpgroup;
+  // A (or the ring), two B stages, four exchange tiles, per stage K9's
+  // lse and target, barriers; + 1 KB to align (225.7 KB)
+  static constexpr size_t kBytes = 2 * ((size_t)kA + 2 * kStage) +
+                                   4 * ((size_t)4 * kXch + 2 * 2 * kGN) +
+                                   8 * (1 + 2 * 2 + 2 * kRing) + 1024;
+};
+static_assert(GradPlan::kA == kRing * GradPlan::kChunk, "ring fills A");
+
+template <bool kDW, bool kStream>
+__global__ void __launch_bounds__(GradPlan::kThreads, 1)
+    xent_grad_wgmma(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b,
+                    const int* __restrict__ tg,
+                    const float* __restrict__ lse, float* __restrict__ out,
+                    int N, int V, int E, int slice_panels) {
+  using P = GradPlan;
+  using hopper::kPanel;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = hopper::align1024(smem_raw);
+  bf16* as = reinterpret_cast<bf16*>(base);  // A's panels, or the ring
+  bf16* bs = as + P::kA;                     // [2] B stages
+  float* xch = reinterpret_cast<float*>(bs + 2 * P::kStage);  // [wg][2]
+  float* col_lse = xch + 4 * P::kXch;  // K9: [2][32] lse * log2 e
+  int* col_tg = reinterpret_cast<int*>(col_lse + 2 * kGN);  // [2][32]
+  uint64_t* a_full = reinterpret_cast<uint64_t*>(col_tg + 2 * kGN);
+  uint64_t* full = a_full + 1;  // a B stage (and K9's row data) landed
+  uint64_t* empty = full + 2;   // every consumer warp is done with it
+  uint64_t* ring_full = empty + 2;
+  uint64_t* ring_empty = ring_full + kRing;
+
+  const int na = kDW ? V : N, nb = kDW ? N : V;
+  const int a0 = blockIdx.x * kGM;
+  const int nk = (E + kPanel - 1) / kPanel;  // S's chunks: all of E
+  const int p0 = blockIdx.y * slice_panels;  // the slice's first panel
+  const int np = min(slice_panels, nk - p0);  // and its panel count
+  const int steps = (nb + kGN - 1) / kGN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(a_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&full[s], kDW ? 2 : 1);  // + K9's row-data warp
+      hopper::mbar_init(&empty[s], 8);
+    }
+    for (int r = 0; r < kRing; ++r) {
+      hopper::mbar_init(&ring_full[r], 1);
+      hopper::mbar_init(&ring_empty[r], 4);  // the warpgroup that used it
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup
+    hopper::reg_dealloc<kGradProducerRegs>();
+    if (warp == 8 && lane == 0) {  // TMA
+      if constexpr (!kStream) {
+        hopper::mbar_expect_tx(a_full, nk * P::kAPanel * 2);
+        for (int k = 0; k < nk; ++k)
+          hopper::tma_load_3d(as + k * P::kAPanel, &map_a, a_full,
+                              k * kPanel, a0, 0);
+      }
+      int g = 0;  // ring position
+      for (int i = 0; i < steps; ++i) {
+        const int s = i & 1, b0 = i * kGN;
+        hopper::mbar_wait(&empty[s], ((i >> 1) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], np * P::kBPanel * 2);
+        for (int p = 0; p < np; ++p)
+          hopper::tma_load_3d(bs + s * P::kStage + p * P::kBPanel, &map_b,
+                              &full[s], (p0 + p) * kPanel, b0, 0);
+        if constexpr (kStream) {
+          for (int k = 0; k < nk; ++k, ++g) {
+            const int r = g % kRing;
+            bf16* slot = as + r * P::kChunk;
+            hopper::mbar_wait(&ring_empty[r], ((g / kRing) & 1) ^ 1);
+            hopper::mbar_expect_tx(&ring_full[r], P::kChunk * 2);
+            hopper::tma_load_3d(slot, &map_a, &ring_full[r], k * kPanel, a0,
+                                0);
+            hopper::tma_load_3d(slot + P::kAPanel, &map_b, &ring_full[r],
+                                k * kPanel, b0, 0);
+          }
+        }
+      }
+    } else if (kDW && warp == 9) {
+      // K9: lse (times log2 e) and target of each step's 32 rows of x
+      for (int i = 0; i < steps; ++i) {
+        const int s = i & 1, n = i * kGN + lane;
+        const float l = n < N ? lse[n] * kLog2e : 0.f;
+        const int t = n < N ? tg[n] : -1;
+        hopper::mbar_wait(&empty[s], ((i >> 1) & 1) ^ 1);
+        col_lse[s * kGN + lane] = l;
+        col_tg[s * kGN + lane] = t;
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns the slice's panels [6 wg, 6 wg + 6)
+  hopper::reg_alloc<kGradConsumerRegs>();
+  // the warpgroup index through a shuffle, so that the compiler sees it
+  // warp-uniform: loops and branches around the wgmmas that depend on it
+  // are then not divergent (which would serialise every wgmma)
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int wtid = threadIdx.x & (hopper::kWarpgroup - 1);
+  const int r_local = (warp & 3) * 16 + (lane >> 2);
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(bar);
+  };
+  // K8: lse (times log2 e) and target of the thread's two rows of x
+  float row_lse[2] = {0.f, 0.f};
+  int row_tg[2] = {-1, -1};
+  if constexpr (!kDW) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = a0 + r_local + 8 * h;
+      if (n < N) {
+        row_lse[h] = lse[n] * kLog2e;
+        row_tg[h] = tg[n];
+      }
+    }
+  }
+  float acc[kWgPanels / 2][64];
+#pragma unroll
+  for (int n = 0; n < kWgPanels / 2; ++n)
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[n][j] = 0.f;
+  if constexpr (!kStream) hopper::mbar_wait(a_full, 0);
+
+  int g = 0;  // ring position
+  for (int i = 0; i < steps; ++i) {
+    const int s = i & 1, b0 = i * kGN;
+    const bf16* bt = bs + s * P::kStage;
+    // this warpgroup's part of S: chunks k = wg, wg + 2, ...
+    float sc[kGN / 2];
+#pragma unroll
+    for (int j = 0; j < kGN / 2; ++j) sc[j] = 0.f;
+    if constexpr (!kStream) {
+      hopper::mbar_wait(&full[s], (i >> 1) & 1);
+      hopper::wgmma_fence();
+      for (int k = wg; k < nk; k += 2)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_ss<kGN, 0, 0>(
+              sc, hopper::desc_k(as, kGM, 0, 4 * k + kk),
+              hopper::desc_k(bt, kGN, 0, 4 * k + kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+    } else {
+      int prev = -1;  // the ring slot of this warpgroup's previous chunk
+      for (int k = wg; k < nk; k += 2) {
+        const int gk = g + k, r = gk % kRing;
+        const bf16* slot = as + r * P::kChunk;
+        hopper::mbar_wait(&ring_full[r], (gk / kRing) & 1);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_ss<kGN, 0, 0>(
+              sc, hopper::desc_k(slot, kGM, 0, kk),
+              hopper::desc_k(slot + P::kAPanel, kGN, 0, kk), 1);
+        hopper::wgmma_commit();
+        if (prev >= 0) {
+          hopper::wgmma_wait<1>();
+          release(&ring_empty[prev]);
+        }
+        prev = r;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      if (prev >= 0) release(&ring_empty[prev]);
+      g += nk;
+      hopper::mbar_wait(&full[s], (i >> 1) & 1);
+    }
+    // S = the two partials (p0 + p1 on both sides: the same bits)
+    float* mine = xch + (wg * 2 + s) * P::kXch;
+    const float* theirs = xch + ((wg ^ 1) * 2 + s) * P::kXch;
+#pragma unroll
+    for (int j = 0; j < kGN / 2; ++j)
+      mine[j * hopper::kWarpgroup + wtid] = sc[j];
+    hopper::named_sync(1, 2 * hopper::kWarpgroup);
+#pragma unroll
+    for (int j = 0; j < kGN / 2; ++j)
+      sc[j] += theirs[j * hopper::kWarpgroup + wtid];
+    // dl = exp(s - lse) - onehot(target) in registers, 0 past N and V
+#pragma unroll
+    for (int j = 0; j < kGN / 2; ++j) {
+      const int h = hopper::acc_half(j), c = hopper::acc_col(j, lane);
+      const int ra = a0 + r_local + 8 * h, cb = b0 + c;
+      const int n = kDW ? cb : ra, v = kDW ? ra : cb;
+      const float l2 = kDW ? col_lse[s * kGN + c] : row_lse[h];
+      const int t = kDW ? col_tg[s * kGN + c] : row_tg[h];
+      float d = 0.f;
+      if (n < N && v < V)
+        d = hopper::ex2(fmaf(sc[j], kLog2e, -l2)) - (t == v ? 1.f : 0.f);
+      sc[j] = d;
+    }
+    uint32_t da[kGN / 4];  // dl in bf16, the A operand
+#pragma unroll
+    for (int t = 0; t < kGN / 16; ++t) hopper::a_frag(da + 4 * t, sc, t);
+    // out[:, this warpgroup's panels] += dl B_step
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int n = 0; n < kWgPanels / 2; ++n) {
+      const int p = wg * kWgPanels + 2 * n;
+      if (p < np) {
+#pragma unroll
+        for (int t = 0; t < kGN / 16; ++t)
+          hopper::wgmma_rs<128, 1>(
+              acc[n], da + 4 * t,
+              hopper::desc_mn(bt + p * P::kBPanel, kGN, t, 0), 1);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int n = 0; n < kWgPanels / 2; ++n) hopper::fence_regs(acc[n]);
+    hopper::fence_regs(da);
+    release(&empty[s]);
+  }
+
+  // the accumulator straight to device memory, two f32 a store; rows past
+  // the output's and columns past the slice or E dropped (E % 8 == 0, so
+  // a pair is wholly inside or outside)
+  const int c_end = min(E, (p0 + np) * kPanel);
+#pragma unroll
+  for (int n = 0; n < kWgPanels / 2; ++n) {
+    const int p = wg * kWgPanels + 2 * n;
+    if (p >= np) continue;
+    const int c0 = (p0 + p) * kPanel;
+#pragma unroll
+    for (int j = 0; j < 64; j += 2) {
+      const int row = a0 + r_local + 8 * hopper::acc_half(j);
+      const int col = c0 + hopper::acc_col(j, lane);
+      if (row < na && col < c_end)
+        *reinterpret_cast<float2*>(out + (long long)row * E + col) =
+            make_float2(acc[n][j], acc[n][j + 1]);
+    }
+  }
 }
 
 template <typename K>
@@ -522,20 +784,58 @@ cudaError_t launch_fwd(const void* x, const void* w, const void* tg,
   return cudaGetLastError();
 }
 
-template <typename T, bool kDW>
-cudaError_t launch_grad(const void* x, const void* w, const void* tg,
-                        const void* lse, void* out, int N, int V, int E,
-                        cudaStream_t s) {
-  const size_t bytes = Plan<T>::grad_bytes;
-  cudaError_t err = set_smem(xent_grad_kernel<T, kDW>, bytes);
+template <bool kDW>
+cudaError_t launch_grad_f32(const void* x, const void* w, const void* tg,
+                            const void* lse, void* out, int N, int V, int E,
+                            cudaStream_t s) {
+  const size_t bytes = Plan<float>::grad_bytes;
+  cudaError_t err = set_smem(xent_grad_kernel<kDW>, bytes);
   if (err != cudaSuccess) return err;
   const int na = kDW ? V : N;
   const dim3 grid((na + kBM - 1) / kBM, (E + kES - 1) / kES);
-  xent_grad_kernel<T, kDW><<<grid, kThreads, bytes, s>>>(
-      static_cast<const T*>(kDW ? w : x), static_cast<const T*>(kDW ? x : w),
-      static_cast<const int*>(tg), static_cast<const float*>(lse),
-      static_cast<float*>(out), N, V, E);
+  xent_grad_kernel<kDW><<<grid, kThreads, bytes, s>>>(
+      static_cast<const float*>(kDW ? w : x),
+      static_cast<const float*>(kDW ? x : w), static_cast<const int*>(tg),
+      static_cast<const float*>(lse), static_cast<float*>(out), N, V, E);
   return cudaGetLastError();
+}
+
+template <bool kDW, bool kStream>
+cudaError_t launch_grad_kernel(const CUtensorMap& ma, const CUtensorMap& mb,
+                               const void* tg, const void* lse, void* out,
+                               int N, int V, int E, int slices,
+                               int slice_panels, cudaStream_t s) {
+  cudaError_t err = set_smem(xent_grad_wgmma<kDW, kStream>, GradPlan::kBytes);
+  if (err != cudaSuccess) return err;
+  const int na = kDW ? V : N;
+  const dim3 grid((na + kGM - 1) / kGM, slices);
+  xent_grad_wgmma<kDW, kStream>
+      <<<grid, GradPlan::kThreads, GradPlan::kBytes, s>>>(
+          ma, mb, static_cast<const int*>(tg),
+          static_cast<const float*>(lse), static_cast<float*>(out), N, V, E,
+          slice_panels);
+  return cudaGetLastError();
+}
+
+// bf16: A = x (K8) or w (K9) in 64-row boxes, B the other in 32-row boxes;
+// E in as few column slices of at most 768 as cover it, of equal panels
+template <bool kDW>
+cudaError_t launch_grad_bf16(const void* x, const void* w, const void* tg,
+                             const void* lse, void* out, int N, int V, int E,
+                             cudaStream_t s) {
+  const int na = kDW ? V : N, nb = kDW ? N : V;
+  CUtensorMap ma, mb;
+  if (!hopper::map_3d(&ma, kDW ? w : x, false, 1, na, E, kGM) ||
+      !hopper::map_3d(&mb, kDW ? x : w, false, 1, nb, E, kGN))
+    return cudaErrorInvalidValue;
+  const int nk = (E + hopper::kPanel - 1) / hopper::kPanel;
+  const int slices = (nk + kSlicePanels - 1) / kSlicePanels;
+  const int per = (nk + slices - 1) / slices;
+  if (slices == 1)
+    return launch_grad_kernel<kDW, false>(ma, mb, tg, lse, out, N, V, E, 1,
+                                          nk, s);
+  return launch_grad_kernel<kDW, true>(ma, mb, tg, lse, out, N, V, E,
+                                       slices, per, s);
 }
 
 bool bad_shape(int N, int V, int E) {
@@ -565,9 +865,9 @@ int rt_xent_dx(const void* x, const void* w, const void* tg, const void* lse,
   if (bad_shape(N, V, E)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return (int)launch_grad<float, false>(x, w, tg, lse, dx, N, V, E, s);
+    return (int)launch_grad_f32<false>(x, w, tg, lse, dx, N, V, E, s);
   if (dtype == kBF16)
-    return (int)launch_grad<bf16, false>(x, w, tg, lse, dx, N, V, E, s);
+    return (int)launch_grad_bf16<false>(x, w, tg, lse, dx, N, V, E, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -577,9 +877,9 @@ int rt_xent_dw(const void* x, const void* w, const void* tg, const void* lse,
   if (bad_shape(N, V, E)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return (int)launch_grad<float, true>(x, w, tg, lse, dw, N, V, E, s);
+    return (int)launch_grad_f32<true>(x, w, tg, lse, dw, N, V, E, s);
   if (dtype == kBF16)
-    return (int)launch_grad<bf16, true>(x, w, tg, lse, dw, N, V, E, s);
+    return (int)launch_grad_bf16<true>(x, w, tg, lse, dw, N, V, E, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -248,7 +248,8 @@ def pallas_cross_entropy(x, w, targets, block_n: int = 512,
     int.  Returns the f32 scalar mean loss; gradients flow to x (in x's
     dtype) and w (in w's dtype).  `block_n` / `block_v` keep the
     reference's signature; the CUDA kernels use their own Hopper tiles
-    (64 rows by 64 vocab columns, 256-column slices of E in the
-    backward) whatever the blocks say."""
+    whatever the blocks say (K7: 64 rows by 64 vocab columns; bf16 K8 /
+    K9: 64 output rows by up to 768 columns, 32 rows of the other
+    operand a step; f32 K8 / K9: 64 x 256 output slices)."""
     del block_n, block_v
     return _PallasCrossEntropy.apply(x, w, targets)

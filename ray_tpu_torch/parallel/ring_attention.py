@@ -3,8 +3,10 @@
 The port of the JAX package's `parallel/ring_attention.py`, so far its
 single-device paths: `plain_attention`, and the `select_attention`
 dispatch to it or to `ops.attention.flash_attention` (kernels K1-K4).
-The sequence-parallel backends raise until their ROADMAP.md queue-1
-item lands.
+As in the reference, "ring", "ulysses" and any other kind run
+`plain_attention` when no mesh is given; with a mesh the
+sequence-parallel backends raise until their ROADMAP.md queue-1 item
+(item 4) lands.
 """
 
 from __future__ import annotations
@@ -14,29 +16,28 @@ import torch
 _NEG_INF = -1e30
 
 _NOT_PORTED = {
-    "ring": "ring attention waits for the parallel slice (queue 1: "
-            "sequence parallelism + collectives)",
-    "ulysses": "Ulysses attention waits for the parallel slice (queue 1: "
-               "sequence parallelism + collectives)",
+    "ring": "ring attention waits for the parallel slice (queue 1 item "
+            "4: sequence parallelism + collectives)",
+    "ulysses": "Ulysses attention waits for the parallel slice (queue 1 "
+               "item 4: sequence parallelism + collectives)",
 }
 
 
 def select_attention(kind: str, q, k, v, mesh=None, causal: bool = True):
     """One dispatch point for the attention backends shared by all
-    model families: "dense" runs `plain_attention`; "flash" runs
-    `flash_attention`; "ring" and "ulysses" raise NotImplementedError
-    naming their ROADMAP item."""
+    model families: "flash" runs `flash_attention`; "ring" and
+    "ulysses" with a mesh raise NotImplementedError naming their
+    ROADMAP item; everything else, those two without a mesh included,
+    runs `plain_attention`, as the reference does."""
     if kind == "flash":
         from ray_tpu_torch.ops.attention import flash_attention
 
         return flash_attention(q, k, v, causal)
-    if kind in _NOT_PORTED:
+    if kind in _NOT_PORTED and mesh is not None:
         raise NotImplementedError(
-            f"attention={kind!r} is not ported yet: {_NOT_PORTED[kind]} "
-            "(ROADMAP.md)"
+            f"attention={kind!r} over a mesh is not ported yet: "
+            f"{_NOT_PORTED[kind]} (ROADMAP.md)"
         )
-    if kind != "dense":
-        raise ValueError(f"unknown attention kind {kind!r}")
     return plain_attention(q, k, v, causal=causal)
 
 

@@ -9,8 +9,10 @@ and the port only, so it runs on a machine with the card and no JAX:
 
 Shapes are small and ragged (positions past the table's reach, idle
 rows on the scratch block, shuffled tables, GQA; T not a multiple of
-the flash tiles; N and V not multiples of the xent tiles, targets at 0,
-V - 1 and out of range).  Tolerances: K5 bit-equal outside the
+the flash tiles, and heads of 136 and 256, past the bf16 K1 / K2's
+Hopper tiles; N and V not multiples of the xent tiles, E past one
+K8 / K9 block,
+targets at 0, V - 1 and out of range).  Tolerances: K5 bit-equal outside the
 scratch block; K6 f32 1e-5, bf16 and int8 2e-2 (the reference's own).  K1-K4 against
 their plain versions element by element (`assert_close`) and by the
 norm of the difference over the plain version's norm, with the limits
@@ -180,14 +182,16 @@ def _flash_inputs(BH, T, D, dtype, seed):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("BH,T,D", [(6, 128, 64), (6, 100, 128), (6, 72, 16),
                                     (6, 1024, 64), (6, 48, 64), (3, 200, 64),
-                                    (3, 200, 96)])
+                                    (3, 200, 96), (3, 200, 256),
+                                    (2, 72, 136)])
 def test_flash_kernels_match_plain(cuda_device, kind, causal, BH, T, D):
     """K1, K2, K3 and K4 each against its plain version on the same
     inputs (the backward ones on the plain forward's O and LSE).  The
     shapes stress the bf16 kernels' tiles (128 q rows in K1, 128 kv rows
     and 64 q rows in K2): 8 full tiles (T 1024), T under one tile (48),
     ragged over two (200, 100, 72), head widths that run on the 64 and
-    128 instantiations (16, 96)."""
+    128 instantiations (16, 96), and past them (136, 256: the first
+    design at half its rows)."""
     dt = torch.float32 if kind == "f32" else torch.bfloat16
     q, k, v, do = _flash_inputs(BH, T, D, dt, seed=T + D + causal)
     scale = D ** -0.5
@@ -272,11 +276,41 @@ def test_flash_attention_op_on_the_card(cuda_device, blocks):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [(1024, 1024), (16, 16)])
+def test_flash_attention_wide_head_on_the_card(cuda_device, blocks):
+    """D 256, wider than the bf16 K1 / K2's Hopper tiles (the reference
+    computes any width): the op launches K1 and K2 (or K3 + K4), takes
+    no plain branch, and its forward and grads equal the CPU route's
+    (the plain versions).  bf16 at D 256 is held kernel by kernel in
+    `test_flash_kernels_match_plain`."""
+    gen = torch.Generator().manual_seed(256 + blocks[0])
+    q, k, v, w = (torch.randn((2, 32, 2, 256), generator=gen)
+                  for _ in range(4))
+
+    def run(device):
+        x = [t.to(device).requires_grad_(True) for t in (q, k, v)]
+        out = fa.flash_attention(*x, True, *blocks)
+        grads = torch.autograd.grad((out * w.to(device)).sum(), x)
+        return [t.detach().cpu() for t in (out, *grads)]
+
+    want = run("cpu")
+    n0 = (fa.flash_attention.plain_dispatches, fa.flash_fwd.launches,
+          fa.flash_bwd_fused.launches, fa.flash_bwd_dq.launches)
+    got = run(cuda_device)
+    fused = blocks[0] >= 32
+    assert (fa.flash_attention.plain_dispatches, fa.flash_fwd.launches,
+            fa.flash_bwd_fused.launches, fa.flash_bwd_dq.launches) == (
+        n0[0], n0[1] + 1, n0[2] + int(fused), n0[3] + int(not fused))
+    for g, w_ in zip(got, want):
+        _assert_flash_close(g, w_, FLASH_TOL["f32"])
+
+
+@pytest.mark.cuda
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((2, 16, 8), device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="not supported"):
         fa.flash_fwd(q, q, q, True, 0.3)
-    wide = torch.zeros((2, 16, 256), device=cuda_device)
+    wide = torch.zeros((2, 16, 264), device=cuda_device)
     with pytest.raises(ValueError, match="head width"):
         fa.flash_fwd(wide, wide, wide, True, 0.1)
     q = torch.zeros((2, 16, 8), device=cuda_device)
@@ -330,11 +364,12 @@ def _assert_xent_close(got, want, tol, msg):
 @pytest.mark.parametrize("kind,w_kind", [("f32", "f32"), ("bf16", "f32"),
                                          ("bf16", "bf16")])
 @pytest.mark.parametrize("N,E,V", [(200, 128, 300), (77, 768, 1000),
-                                   (70, 4096, 130)])
+                                   (130, 1032, 515), (70, 4096, 130)])
 def test_xent_kernels_match_plain(cuda_device, kind, w_kind, N, E, V):
     """K7, K8 and K9 each against its plain version on the same inputs
     (K8 / K9 on the plain forward's lse); ragged N and V, E 128 to
-    4,096."""
+    4,096 (E 1,032: wider than a bf16 K8 / K9 block holds, in two
+    column slices, and not a multiple of 64)."""
     from ray_tpu_torch.ops import xent_pallas as xp
 
     x, w, tg, lse = _xent_inputs(N, E, V, DTYPES[kind], DTYPES[w_kind],
@@ -353,6 +388,23 @@ def test_xent_kernels_match_plain(cuda_device, kind, w_kind, N, E, V):
         for g, w_ in zip(got[name], want[name]):
             assert g.dtype == torch.float32, name
             _assert_xent_close(g, w_, XENT_TOL[kind], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [768, 1032])
+def test_xent_grads_repeat(cuda_device, E):
+    """The bf16 K8 and K9 twice on the same inputs: bit-equal, since every
+    output element is summed in one CTA's registers in a fixed order
+    (E 768: one column slice, A resident; E 1,032: two slices, A
+    streamed)."""
+    from ray_tpu_torch.ops import xent_pallas as xp
+
+    dev = [t.to(cuda_device) for t in _xent_inputs(
+        200, E, 700, torch.bfloat16, torch.bfloat16, seed=E)]
+    for fn in (xp.xent_dx, xp.xent_dw):
+        first, second = fn(*dev), fn(*dev)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), fn.__name__
 
 
 @pytest.mark.cuda

@@ -212,6 +212,16 @@ def test_unsupported_shapes_dispatch_to_plain_attention():
     _close(got, plain_attention(_t(q), _t(k), _t(v), causal=True))
 
 
+@pytest.mark.parametrize("T,D,bq,bk", [(64, 128, 64, 64), (64, 256, 64, 64),
+                                       (64, 264, 64, 64), (64, 12, 64, 64),
+                                       (60, 64, 16, 16)])
+def test_supported_matches_the_reference(T, D, bq, bk):
+    """The op refuses what the reference's `_supported` refuses, and no
+    more: no bound on the head width (the kernels take D <= 256 on the
+    card and raise past it)."""
+    assert tattn._supported(T, D, bq, bk) is jattn._supported(T, D, bq, bk)
+
+
 def test_select_attention_flash_is_the_op():
     q, k, v = (_t(a) for a in _arrays(3, (1, 16, 2, 8), seed=9))
     n0 = tattn.flash_attention.plain_dispatches

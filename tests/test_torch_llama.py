@@ -356,18 +356,28 @@ def test_generate_sampling_is_seeded(model):
     assert int(a.min()) >= 0 and int(a.max()) < tcfg.vocab_size
 
 
-@pytest.mark.parametrize("kind", ["flash", "ring", "ulysses"])
-def test_unported_attention_backends_raise(kind):
-    """ring / ulysses still raise naming their ROADMAP item; flash has
-    been ported (kernels K1-K4) and gives plain attention's answer."""
-    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
-        (1, 8, 2, 8)).astype(np.float32))
-    if kind == "flash":
-        want = select_attention("dense", x, x, x)
-        np.testing.assert_allclose(_np(select_attention(kind, x, x, x)),
-                                   _np(want), **TOL)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            select_attention(kind, x, x, x)
-    with pytest.raises(ValueError):
-        select_attention("sparse", x, x, x)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["flash", "ring", "ulysses", "sparse"])
+def test_select_attention_matches_jax_without_mesh(kind, causal):
+    """With no mesh every kind answers as the reference's dispatch:
+    flash through the flash op, ring / ulysses / an unknown kind through
+    plain attention (f32, 1e-5)."""
+    from ray_tpu.parallel.ring_attention import select_attention as jsel
+
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal((2, 16, 2, 8)).astype(np.float32)
+               for _ in range(3))
+    want = jsel(kind, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                causal=causal)
+    got = select_attention(kind, torch.as_tensor(q), torch.as_tensor(k),
+                           torch.as_tensor(v), causal=causal)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["ring", "ulysses"])
+def test_sequence_parallel_backends_over_a_mesh_raise(kind):
+    """Given a mesh, ring / ulysses raise naming their ROADMAP item until
+    the parallel slice lands."""
+    x = torch.zeros((1, 8, 2, 8))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        select_attention(kind, x, x, x, mesh=object())
