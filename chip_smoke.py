@@ -15,12 +15,15 @@ exits non-zero:
    scratch block.
 4. K6 (paged decode attention) against its plain version at H=32,
    KV=8, hd=128, BS=16, B in {8, 32}, ragged positions up to 1024,
-   shuffled tables; timed at B=32, bf16.
+   shuffled tables; timed at B=32, bf16, beside its bound and SDPA over
+   the same KV gathered dense, with K6's split plan.
 5. main path: Llama-3-8B at full width and depth (bf16, random weights
    from a seed) served by `LlamaEngine` to 8 concurrent requests, three
    of them sharing a 64-token prefix; the kernel launch counts of that
    run; decode_step_paged (kernels) against decode_step_vec (dense) at
-   a mid-decode state; K5/K6 timed at the main path's shapes.
+   a mid-decode state; K5/K6 timed at the main path's shapes (K6 with
+   the L2 cold and warm, beside its bound and SDPA, with its split
+   plan).
 6. tiny parity: a tiny f32 engine on the card gives `generate`'s greedy
    tokens exactly.
 7. K1-K4 (flash attention forward, fused backward, split dQ and dK/dV)
@@ -50,9 +53,9 @@ exits non-zero:
     4,096, E 4,096, V 128,256, bf16), at a ragged N 200, E 128, V 300
     (f32 and bf16) and at N 130, E 1,032, V 515 (bf16: E wider than a
     K8 / K9 block holds, not a multiple of 64), targets at 0 and V - 1:
-    element by element and by the relative norm of the difference; K8
-    and K9 timed at Llama's head (E wider than a CTA holds) beside the
-    one `torch.matmul` of their second product.
+    element by element and by the relative norm of the difference;
+    K7-K9 timed at Llama's head (E wider than a CTA holds) beside the
+    one `torch.matmul` of each kernel's main product.
 13. xent main path: `pallas_cross_entropy` forward and backward at
     GPT-2 124M's full head (x = the seeded model's final hidden states
     in bf16, w = the f32 master `wte`, targets = the shifted tokens),
@@ -417,6 +420,14 @@ def library_append(case):
         kp.index_put_(idx, k_new)
         vp.index_put_(idx, v_new)
     return run
+
+
+def k6_splits(case) -> list:
+    """[splits, blocks per split] of K6's plan for `case` on this card."""
+    q, kp, tables = case["q"], case["k_pool"], case["tables"]
+    return list(pa.split_plan(
+        q.shape[0], q.shape[1], kp.shape[3], tables.shape[1], kp.shape[2],
+        torch.cuda.get_device_properties(q.device).multi_processor_count))
 
 
 def time_kernels(app_case, attn_case) -> dict:
@@ -1026,12 +1037,12 @@ def xent_library(name: str, c: dict):
 
 
 def time_wide_xent(c: dict) -> dict:
-    """ms, bound_ms, library_ms and TFLOP/s of K8 / K9 where E is wider
-    than the 768 columns a CTA holds (each 32-row step streams the
-    output block's A panels again), beside the one `torch.matmul` of
-    the second product."""
+    """ms, bound_ms, library_ms and TFLOP/s of K7-K9 where E is wider
+    than the 768 columns a CTA holds (K7 streams x beside w; each 32-row
+    step of K8 / K9 streams the output block's A panels again), beside
+    the one `torch.matmul` of each kernel's main product."""
     out = {}
-    for name in ("xent_dx", "xent_dw"):
+    for name in XENT:
         ms = time_ms(lambda: run_xent(name, c), iters=3)
         lib = xent_library(name, c)
         out[name] = {"ms": ms, "bound_ms": xent_bound(name, c)[0],
@@ -1220,13 +1231,16 @@ def main() -> int:
         if B == 32:
             case = attention_case("bf16", device, B=B, seed=B)
             bound, by = attention_bound(case)
+            ms = time_ms(lambda: _run_attention(
+                pa.paged_decode_attention, case))
+            sdpa = time_ms(dense_sdpa(case))
             line.update({
-                "bf16_ms": time_ms(lambda: _run_attention(
-                    pa.paged_decode_attention, case)),
+                "bf16_ms": ms,
                 "bf16_plain_ms": time_ms(lambda: _run_attention(
                     pa.paged_decode_attention_reference, case)),
                 "bf16_bound_ms": bound, "bf16_bound_by": by,
-                "bf16_library_ms": time_ms(dense_sdpa(case)),
+                "bf16_library_ms": sdpa, "bf16_x_sdpa": ms / sdpa,
+                "bf16_x_bound": ms / bound, "splits": k6_splits(case),
             })
         emit(line)
         del case
@@ -1270,8 +1284,13 @@ def main() -> int:
         # latency from the walk's per-step compute and barriers
         k6_warm = time_ms(lambda: _run_attention(pa.paged_decode_attention,
                                                  attn_case), cold=False)
+    k6 = timings["paged_decode_attention"]
     emit({"phase": "mid_decode_routes", **routes,
+          "paged_decode_attention_ms": k6["ms"],
           "paged_decode_attention_warm_l2_ms": k6_warm,
+          "paged_decode_attention_x_sdpa": k6["ms"] / k6["library_ms"],
+          "paged_decode_attention_x_bound": k6["ms"] / k6["bound_ms"],
+          "paged_decode_attention_splits": k6_splits(attn_case),
           "kernel_shapes": {"B": B, "W": int(state["tables"].shape[1]),
                             "pos": state["pos"].tolist()}})
     del params, state

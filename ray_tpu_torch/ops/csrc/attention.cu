@@ -28,12 +28,13 @@
 // reduce-adds, one a 32-column panel a tile pair.  Head widths 64 and 128
 // are instantiated; other widths with D % 8 == 0 and D <= 128 run on the
 // next larger one (zero-filled by the tensor maps, dropped on store).
-// Wider heads, to D 256 (the reference takes any width; no config of the
-// repo has one), run the first design below.  See each kernel's note.
+// Wider heads (the reference takes any width; no config of the repo has
+// one) run the first design below.  See each kernel's note.
 //
 // K3, K4, the f32 instantiations of all four and the bf16 K1 / K2 past
-// D 128 are the first design: 64-row (bf16) or 32-row (f32) tiles, half
-// as many rows past D 128 to fit shared memory, bf16 products through
+// D 128 are the first design: 64-row (bf16) or 32-row (f32) tiles, halved
+// until the shared-memory plan fits (down to wmma's 16 rows in bf16 and 8
+// in f32, which reach D 704 and D 1,024), bf16 products through
 // nvcuda::wmma (16x16x16) with the f32 accumulators and the score tile
 // staged in shared memory, f32 products through scalar FMA loops (the f32
 // path is where the algorithm is checked against the reference), tiles
@@ -64,8 +65,7 @@ using bf16 = __nv_bfloat16;
 constexpr float kNegInf = -1e30f;  // the reference's mask value
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 128;      // four warps per block
-constexpr int kTileD = 128;        // the widest head a full-row tile holds
-constexpr int kMaxD = 256;         // head widths up to 256 (GPT-2 64, Llama 128)
+constexpr int kSmemOptIn = 232448;  // a CTA's shared memory, opted in
 enum DType { kF32 = 0, kBF16 = 1 };
 
 // Tile geometry per element type.  Rows: q rows and kv rows per step.  Pads
@@ -76,6 +76,8 @@ struct Tile;
 template <>
 struct Tile<bf16> {
   static constexpr int kRows = 64;
+  static constexpr int kMinRows = 16;  // wmma's m16
+  static constexpr int kMaxD = 704;    // the widest head 16 rows fit
   static constexpr int kPadT = 8;  // bf16 tiles: ld = Dp + 8 (16 bytes)
   static constexpr int kPadF = 4;  // f32 accumulators: ld = Dp + 4
   // f32 score / dP tiles unpadded: with them the backward kernels' plan
@@ -85,6 +87,8 @@ struct Tile<bf16> {
 template <>
 struct Tile<float> {
   static constexpr int kRows = 32;
+  static constexpr int kMinRows = 8;  // scalar FMA: any count; 8 keeps a warp
+  static constexpr int kMaxD = 1024;  // the widest head 8 rows fit
   static constexpr int kPadT = 1;
   static constexpr int kPadF = 1;
   static constexpr int kPadS = 1;
@@ -189,36 +193,52 @@ __device__ void load_tile(T* s, int lds, const T* g, int row0, int T_, int D,
 template <typename T, int B>
 struct Smem {
   int Dp, ldt, ldp, lds, lda;
-  __host__ __device__ explicit Smem(int D)
+  __host__ __device__ constexpr explicit Smem(int D)
       : Dp((D + 15) / 16 * 16),
         ldt(Dp + Tile<T>::kPadT),
         ldp(B + Tile<T>::kPadT),
         lds(B + Tile<T>::kPadS),
         lda(Dp + Tile<T>::kPadF) {}
-  __host__ __device__ int tile_t() const { return B * ldt; }  // T elements
-  __host__ __device__ int tile_p() const { return B * ldp; }  // T elements
-  __host__ __device__ int tile_s() const { return B * lds; }  // floats
-  __host__ __device__ int tile_a() const { return B * lda; }  // floats
+  __host__ __device__ constexpr int tile_t() const { return B * ldt; }  // T elements
+  __host__ __device__ constexpr int tile_p() const { return B * ldp; }  // T elements
+  __host__ __device__ constexpr int tile_s() const { return B * lds; }  // floats
+  __host__ __device__ constexpr int tile_a() const { return B * lda; }  // floats
   // K1: S, acc, m / l / corr; then q, k, v, P
-  __host__ __device__ size_t fwd_bytes() const {
+  __host__ __device__ constexpr size_t fwd_bytes() const {
     return sizeof(float) * (tile_s() + tile_a() + 3 * B) +
            sizeof(T) * (3 * tile_t() + tile_p());
   }
   // K2 / K4: scratch (P, dP, then K2's dQ part), dK acc, dV acc, lse,
   // delta; then q, dO, k, v, P/dS
-  __host__ __device__ int scratch() const {
+  __host__ __device__ constexpr int scratch() const {
     return 2 * tile_s() > tile_a() ? 2 * tile_s() : tile_a();
   }
-  __host__ __device__ size_t bwd_kv_bytes() const {
+  __host__ __device__ constexpr size_t bwd_kv_bytes() const {
     return sizeof(float) * (scratch() + 2 * tile_a() + 2 * B) +
            sizeof(T) * (4 * tile_t() + tile_p());
   }
   // K3: P, dP, dQ acc, lse, delta; then q, dO, k, v, dS
-  __host__ __device__ size_t bwd_q_bytes() const {
+  __host__ __device__ constexpr size_t bwd_q_bytes() const {
     return sizeof(float) * (2 * tile_s() + tile_a() + 2 * B) +
            sizeof(T) * (4 * tile_t() + tile_p());
   }
+  // the largest of the three kernels' plans (K2 / K4's at every width)
+  __host__ __device__ constexpr size_t max_bytes() const {
+    return bwd_kv_bytes() > fwd_bytes()
+               ? (bwd_kv_bytes() > bwd_q_bytes() ? bwd_kv_bytes()
+                                                 : bwd_q_bytes())
+               : (fwd_bytes() > bwd_q_bytes() ? fwd_bytes() : bwd_q_bytes());
+  }
 };
+// kMaxD is where the least row count stops fitting, 8 columns further
+static_assert(Smem<bf16, 16>(Tile<bf16>::kMaxD).max_bytes() <= kSmemOptIn &&
+                  Smem<bf16, 16>(Tile<bf16>::kMaxD + 8).max_bytes() >
+                      kSmemOptIn,
+              "bf16 kMaxD");
+static_assert(Smem<float, 8>(Tile<float>::kMaxD).max_bytes() <= kSmemOptIn &&
+                  Smem<float, 8>(Tile<float>::kMaxD + 8).max_bytes() >
+                      kSmemOptIn,
+              "f32 kMaxD");
 
 // ---------------------------------------------------------------------------
 // K1 in f32 (the first design; bf16 runs flash_fwd_wgmma below).
@@ -1180,18 +1200,21 @@ dim3 grid_of(int BH, int T_, int rows) {
   return dim3(BH, (T_ + rows - 1) / rows);
 }
 
-// The first design's launchers take Tile<T>::kRows rows a tile up to
-// kTileD and half as many past it, so the shared-memory plan of a head up
-// to kMaxD still fits (bf16 K2 / K4 at D 256: 170 KB; f32: 116 KB).
+// The first design's launchers take Tile<T>::kRows rows a tile and halve
+// them until the kernel's shared-memory plan fits the opt-in, down to
+// Tile<T>::kMinRows (bf16 K2 / K4 at D 256: 32 rows, 170 KB; at D 512: 16
+// rows, 160 KB).  Past Tile<T>::kMaxD no row count fits and the launch
+// is refused (the wrapper raises first).
 template <typename T, int B = Tile<T>::kRows>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int BH, int T_, int D, float scale,
                        int causal, cudaStream_t s) {
-  if constexpr (B == Tile<T>::kRows)
-    if (D > kTileD)
+  if constexpr (B > Tile<T>::kMinRows)
+    if (Smem<T, B>(D).fwd_bytes() > kSmemOptIn)
       return launch_fwd<T, B / 2>(q, k, v, o, lse, BH, T_, D, scale, causal,
                                   s);
   const size_t bytes = Smem<T, B>(D).fwd_bytes();
+  if (bytes > kSmemOptIn) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(flash_fwd_kernel<T, B>, bytes);
   if (err != cudaSuccess) return err;
   flash_fwd_kernel<T, B><<<grid_of(BH, T_, B), kThreads, bytes, s>>>(
@@ -1207,12 +1230,13 @@ cudaError_t launch_bwd_kv(const void* q, const void* k, const void* v,
                           const void* delta, const void* out, void* dq_acc,
                           void* dk, void* dv, int BH, int T_, int D,
                           float scale, int causal, cudaStream_t s) {
-  if constexpr (B == Tile<T>::kRows)
-    if (D > kTileD)
+  if constexpr (B > Tile<T>::kMinRows)
+    if (Smem<T, B>(D).bwd_kv_bytes() > kSmemOptIn)
       return launch_bwd_kv<T, kFused, B / 2>(q, k, v, dout, lse, delta, out,
                                              dq_acc, dk, dv, BH, T_, D,
                                              scale, causal, s);
   const size_t bytes = Smem<T, B>(D).bwd_kv_bytes();
+  if (bytes > kSmemOptIn) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(flash_bwd_kv_kernel<T, B, kFused>, bytes);
   if (err != cudaSuccess) return err;
   flash_bwd_kv_kernel<T, B, kFused>
@@ -1230,11 +1254,12 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dq, int BH, int T_, int D,
                           float scale, int causal, cudaStream_t s) {
-  if constexpr (B == Tile<T>::kRows)
-    if (D > kTileD)
+  if constexpr (B > Tile<T>::kMinRows)
+    if (Smem<T, B>(D).bwd_q_bytes() > kSmemOptIn)
       return launch_bwd_dq<T, B / 2>(q, k, v, dout, lse, delta, dq, BH, T_,
                                      D, scale, causal, s);
   const size_t bytes = Smem<T, B>(D).bwd_q_bytes();
+  if (bytes > kSmemOptIn) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(flash_bwd_dq_kernel<T, B>, bytes);
   if (err != cudaSuccess) return err;
   flash_bwd_dq_kernel<T, B>
@@ -1297,8 +1322,9 @@ cudaError_t launch_bwd_fused_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-bool bad_shape(int BH, int T_, int D) {
-  return BH < 1 || T_ < 1 || D < 8 || D > kMaxD || D % 8 != 0;
+bool bad_shape(int BH, int T_, int D, int dtype) {
+  const int max_d = dtype == kBF16 ? Tile<bf16>::kMaxD : Tile<float>::kMaxD;
+  return BH < 1 || T_ < 1 || D < 8 || D > max_d || D % 8 != 0;
 }
 
 }  // namespace
@@ -1312,7 +1338,7 @@ extern "C" {
 int rt_flash_fwd(const void* q, const void* k, const void* v, void* o,
                  void* lse, int BH, int T, int D, float scale, int causal,
                  int dtype, void* stream) {
-  if (bad_shape(BH, T, D)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(BH, T, D, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return (int)launch_fwd<float>(q, k, v, o, lse, BH, T, D, scale, causal, s);
@@ -1331,7 +1357,7 @@ int rt_flash_bwd_fused(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* out,
                        void* dq_acc, void* dk, void* dv, int BH, int T, int D,
                        float scale, int causal, int dtype, void* stream) {
-  if (bad_shape(BH, T, D)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(BH, T, D, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return (int)launch_bwd_kv<float, true>(q, k, v, dout, lse, nullptr, out,
@@ -1355,7 +1381,7 @@ int rt_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dq, int BH, int T, int D, float scale, int causal,
                     int dtype, void* stream) {
-  if (bad_shape(BH, T, D)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(BH, T, D, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return (int)launch_bwd_dq<float>(q, k, v, dout, lse, delta, dq, BH, T, D,
@@ -1371,7 +1397,7 @@ int rt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dk, void* dv, int BH, int T, int D, float scale,
                      int causal, int dtype, void* stream) {
-  if (bad_shape(BH, T, D)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(BH, T, D, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return (int)launch_bwd_kv<float, false>(q, k, v, dout, lse, delta,

@@ -1,11 +1,11 @@
-// Hopper (sm_90a) building blocks for the attention and cross-entropy
-// kernels: mbarriers, TMA tensor loads, stores and reduce-adds, and
-// warpgroup matrix multiplies (wgmma) with their shared-memory
-// descriptors.  Everything here is a thin wrapper over one PTX instruction
+// Hopper (sm_90a) building blocks for the attention, cross-entropy and
+// paged decode kernels: mbarriers, cp.async copies, TMA tensor loads,
+// stores and reduce-adds, and warpgroup matrix multiplies (wgmma) with
+// their shared-memory descriptors.  Everything here is a thin wrapper over one PTX instruction
 // (see the PTX ISA, "Asynchronous warpgroup level matrix
 // multiply-accumulate" and "Tensor copy"), or a register or operand
-// layout those instructions fix, so the kernels in attention.cu and
-// xent.cu read as the algorithm.
+// layout those instructions fix, so the kernels in attention.cu, xent.cu
+// and paged_attention.cu read as the algorithm.
 //
 // The tensor-map encoder, cuTensorMapEncodeTiled, is looked up once with
 // cudaGetDriverEntryPoint*, so the library links against the CUDA runtime
@@ -77,6 +77,35 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 // async-proxy reads (wgmma operands, bulk copies)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- cp.async: per-thread asynchronous copies ------------------------------
+// 16 (or 4) bytes global -> shared; !pred reads no source bytes and zeroes
+// the destination
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// at most N of this thread's committed groups still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- TMA and bulk copies --------------------------------------------------

@@ -24,25 +24,22 @@
 // blocks in device memory first.  Here nothing is padded: every tile load
 // zero-fills the rows past N or V and the columns past E, and the kernels
 // mask columns past V (-1e30 before the max in K7, probability 0 in K8/K9).
-// K7 and the f32 K8 / K9 share one step, a score tile S = A[64 rows] .
-// B[64 rows]^T over all of E, streamed in E chunks through a two-stage
-// cp.async ring in shared memory, with the sum kept in registers: bf16 on
-// the tensor cores through nvcuda::wmma (16x16x16, f32 accumulate, eight
-// warps as 2 x 4), f32 on scalar FMA with a 4 x 4 register tile a thread
-// (the instantiation that checks the algorithm against the plain versions).
-// The bf16 K8 and K9 are Hopper kernels (TMA, mbarriers, wgmma with
-// accumulators in registers, PTX helpers in hopper.cuh); see their note.
+// The f32 K7, K8 and K9 are the first design, kept as the instantiation
+// that checks the algorithm against the plain versions: they share one
+// step, a score tile S = A[64 rows] . B[64 rows]^T over all of E, streamed
+// in E chunks through a two-stage cp.async ring in shared memory, on scalar
+// FMA with a 4 x 4 register tile a thread.  The bf16 K7, K8 and K9 are
+// Hopper kernels (TMA, mbarriers, wgmma with accumulators in registers, PTX
+// helpers in hopper.cuh); see their notes.
 //
 // Bound on this card.  At the GPT-2 124M head (N 32,768, E 768, V 50,257,
 // bf16) every kernel is bound by tensor-core operations: K7 does 2 N V E =
 // 2.53 TFLOP (2.56 ms at 989 TFLOP/s) against ~0.13 GB of input (0.04 ms at
 // 3.35 TB/s); K8 and K9 each recompute S and do one more product, 4 N V E,
-// 5.1 ms each.  K7 still runs the first design: wmma tiles of 64 x 64 with
-// E chunks double-buffered by cp.async (its redesign is later work).
+// 5.1 ms each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -50,7 +47,6 @@
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;  // the reference's mask value
@@ -62,13 +58,9 @@ constexpr int kPadF = 4;  // f32 score tile: ld = kBN + 4
 enum DType { kF32 = 0, kBF16 = 1 };
 
 // E chunk per pipeline stage and the row pad (elements) of the T tiles: the
-// pad keeps wmma's 32-byte alignment for bf16 and spreads f32 rows over banks
+// pad spreads f32 rows over banks
 template <typename T>
 struct Cfg;
-template <>
-struct Cfg<bf16> {
-  static constexpr int kBK = 64, kPad = 8;
-};
 template <>
 struct Cfg<float> {
   static constexpr int kBK = 32, kPad = 4;
@@ -85,24 +77,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // rows [row0, row0 + rows) x columns [col0, col0 + cols) of a row-major
 // [n_rows, E] matrix into a shared tile (ld lds), 16 bytes a copy; rows past
 // n_rows and columns past E arrive as zeros.  E % 8 == 0 and col0, cols
@@ -117,63 +91,18 @@ __device__ __forceinline__ void load_async(T* s, int lds, const T* g,
     const int r = i / vpr, c = (i - r * vpr) * kVec;
     const bool ok = row0 + r < n_rows && col0 + c < E;
     const T* src = ok ? g + (long long)(row0 + r) * E + col0 + c : g;
-    cp_async16(s + r * lds + c, src, ok);
+    hopper::cp_async16(s + r * lds + c, src, ok);
   }
 }
 
-// An M x N f32 accumulator held in registers across a block's eight warps.
+// An M x N f32 accumulator held in registers across a block's eight warps
+// (the f32 first design's).
 //   mma_nt: acc += A[M, K] . B[N, K]^T;  mma_nn: acc += A[M, K] . B[K, N]
 // (A, B in shared memory, K a multiple of 16).  store: the tile into shared
 // memory; store_global: rows [0, rows) x columns [0, cols) of it into device
 // memory.  No barrier inside.
 template <typename T, int M, int N>
 struct Acc;
-
-// bf16: tensor cores through wmma, warps as 2 (rows) x 4 (columns), each
-// holding (M / 2) x (N / 4) as 16 x 16 fragments
-template <int M, int N>
-struct Acc<bf16, M, N> {
-  static constexpr int WM = M / 2, WN = N / 4, FM = WM / 16, FN = WN / 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[FM][FN];
-
-  __device__ __forceinline__ int m0() const {
-    return (threadIdx.x >> 5) / 4 * WM;
-  }
-  __device__ __forceinline__ int n0() const {
-    return (threadIdx.x >> 5) % 4 * WN;
-  }
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(c[i][j], 0.f);
-  }
-  __device__ __forceinline__ void mma_nt(const bf16* A, int lda,
-                                         const bf16* B, int ldb, int K) {
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], A + (m0() + 16 * i) * lda + k, lda);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], B + (n0() + 16 * j) * ldb + k, ldb);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
-  }
-  __device__ __forceinline__ void store(float* C, int ldc) const {
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(C + (m0() + 16 * i) * ldc + n0() + 16 * j,
-                                c[i][j], ldc, wmma::mem_row_major);
-  }
-};
 
 // f32: scalar FMA, threads as 16 x 16, each holding rows ty + 16 i and
 // columns tx + 16 j of the tile
@@ -248,17 +177,17 @@ __device__ __forceinline__ void score_tile(Acc<T, M, N>& acc, const T* A,
   acc.zero();
   load_async(sA, ld, A, na, E, a0, 0, M, BK);
   load_async(sB, ld, B, nb, E, b0, 0, N, BK);
-  cp_async_commit();
+  hopper::cp_async_commit();
   for (int kc = 0; kc < nk; ++kc) {
     const int cur = kc & 1;
     if (kc + 1 < nk) {
       const int nxt = cur ^ 1;
       load_async(sA + nxt * M * ld, ld, A, na, E, a0, (kc + 1) * BK, M, BK);
       load_async(sB + nxt * N * ld, ld, B, nb, E, b0, (kc + 1) * BK, N, BK);
-      cp_async_commit();
-      cp_async_wait<1>();
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      hopper::cp_async_wait<0>();
     }
     __syncthreads();
     acc.mma_nt(sA + cur * M * ld, ld, sB + cur * N * ld, ld, BK);
@@ -292,7 +221,9 @@ struct Plan {
 // Replaces ray_tpu/ops/xent_pallas.py:51 `_fwd_kernel` (pallas_call at
 // l.184, in `_lse_tgt`).
 //
-// Bound: tensor-core operations (2 N V E; see the file note).  Design: one
+// This is the f32 instantiation, the first design kept as the check of the
+// algorithm against the plain version (bf16 runs xent_fwd_wgmma below).
+// Bound: operations (2 N V E; see the file note).  Design: one
 // block per 64-row tile of x, walking the vocab in 64-column tiles, as K1
 // walks its kv tiles: the Pallas grid's sequential vocab axis is a loop
 // inside the block.  Per tile: S = x w^T (f32, score_tile) into shared
@@ -300,9 +231,7 @@ struct Plan {
 // at the target column to t (from the f32 score, never a rounded logit),
 // and updates the running m and l in the reference's order (m_new = max(m,
 // max s); l = l exp(m - m_new) + sum exp(s - m_new)).  At the end lse = m +
-// log l.  (m, l, t) stay in f32 shared memory for the whole walk.  At N =
-// 32,768 there are 512 row tiles for 132 SMs; a split of the vocab over
-// blocks (flash-decoding's combine) is later work for small N.
+// log l.  (m, l, t) stay in f32 shared memory for the whole walk.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -341,7 +270,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = lane; c < kBN; c += 32) {
         const int col = c0 + c;
         const float s = col < V ? sS[r * P::lds + c] : kNegInf;
-        if (col == t) hit += s;
+        if (col == t && col < V) hit += s;  // a target >= V matches none
         mx = fmaxf(mx, s);
       }
       const float m_old = m_s[r];
@@ -429,7 +358,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     load_async(sB2, P::ldb2, B, nb, E, b0, e0, kBN, kES);
-    cp_async_commit();
+    hopper::cp_async_commit();
     // waits for every copy (the slice of B2 too) and ends on a barrier
     score_tile(sacc, A, na, a0, B, nb, b0, E, sA, sB);
     sacc.store(sS, P::lds);
@@ -762,6 +691,233 @@ __global__ void __launch_bounds__(GradPlan::kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K7, bf16: a Hopper kernel (PTX helpers in hopper.cuh).
+//
+// Replaces the same Pallas builder as above: `_fwd_kernel`
+// (ray_tpu/ops/xent_pallas.py:51, pallas_call at l.184, in `_lse_tgt`).
+//
+// Bound: tensor-core operations, 2 N V E: 2.56 ms at GPT-2 124M's head on
+// an H100 (989 TFLOP/s bf16).
+//
+// What held the first design (kept as the f32 kernel above) back: 64 x 64
+// score tiles on 16x16x16 wmma fragments from a two-stage cp.async ring
+// that reloaded x with every vocab tile, S stored to shared memory in f32
+// every step, and one warp a row doing the online logsumexp while the
+// tensor cores idled: level with one `matmul` of the same product.
+//
+// Design: K1's loop with the vocab as the kv axis and no second product.  A
+// CTA owns 64 rows of x.  At E <= 768 (GPT-2 124M's head) they stay
+// resident in shared memory as 128-byte-swizzled [64, 64] panels (96 KB),
+// loaded once by TMA.  Two consumer warpgroups take the vocab tiles of 128
+// columns in turn (tile j to warpgroup j % 2), so one warpgroup's softmax
+// runs under the other's products; each has its own four-stage ring of
+// [128, 64] w panels, fed by its own producer thread through TMA (the
+// tensor maps zero-fill rows past N or V and columns past E).  Per tile:
+// S [64, 128] = x w_tile^T by wgmma m64n128k16 into f32 registers (64 a
+// thread), E in k16 steps, each panel's slot released as soon as the
+// products reading it are done; then, in registers, columns past V are
+// set to -1e30, the score at the target column is added to t (the f32
+// score, never a rounded logit; a target outside [0, V) matches none),
+// the row max is taken across the quad that shares a row, and l = l exp(m
+// - m_new) + sum exp(s - m_new) by ex2 with log2 e folded into one FMA.
+// Nothing of S goes through shared memory.  At the end each thread's l and
+// t are summed across its quad, and the two warpgroups' (m, l, t) merge
+// once through shared memory: lse = M + log(l0 e^(m0 - M) + l1 e^(m1 -
+// M)), t = t0 + t1.  Every sum has a fixed order, so the result is
+// deterministic.  Wider E (Llama-3-8B's 4,096) streams (x panel, w panel)
+// pairs through the rings instead of keeping x resident; S still
+// accumulates over all of E in registers, so nothing is recomputed.
+// ---------------------------------------------------------------------------
+constexpr int kFwdRows = 64;      // rows of x a CTA owns
+constexpr int kFwdCols = 128;     // vocab columns a tile
+constexpr int kFwdStages = 4;     // ring slots a consumer warpgroup
+constexpr int kFwdResident = 12;  // x panels kept resident: E <= 768
+
+template <bool kStream>
+struct FwdPlan {
+  static constexpr int kXPanel = kFwdRows * hopper::kPanel;  // bf16 elements
+  static constexpr int kWPanel = kFwdCols * hopper::kPanel;
+  static constexpr int kSlot = kWPanel + (kStream ? kXPanel : 0);
+  static constexpr int kX = kStream ? 0 : kFwdResident * kXPanel;
+  static constexpr int kThreads = 3 * hopper::kWarpgroup;
+  // x (or nothing), two rings, the merge's (m, l, t) per warpgroup and
+  // row, barriers; + 1 KB to align (226.6 KB resident, 194.6 streamed)
+  static constexpr size_t kBytes = 2 * ((size_t)kX + 2 * kFwdStages * kSlot) +
+                                   4 * 2 * 3 * kFwdRows +
+                                   8 * (1 + 4 * kFwdStages) + 1024;
+};
+
+template <bool kStream>
+__global__ void __launch_bounds__(FwdPlan<kStream>::kThreads, 1)
+    xent_fwd_wgmma(const __grid_constant__ CUtensorMap map_x,
+                   const __grid_constant__ CUtensorMap map_w,
+                   const int* __restrict__ tg, float* __restrict__ lse,
+                   float* __restrict__ tgt, int N, int V, int E) {
+  using P = FwdPlan<kStream>;
+  using hopper::kPanel;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = hopper::align1024(smem_raw);
+  bf16* xs = reinterpret_cast<bf16*>(base);  // resident x panels
+  bf16* rings = xs + P::kX;                  // [wg][stage] slots
+  float* mlt = reinterpret_cast<float*>(rings + 2 * kFwdStages * P::kSlot);
+  uint64_t* x_full = reinterpret_cast<uint64_t*>(mlt + 2 * 3 * kFwdRows);
+  uint64_t* full = x_full + 1;             // [wg][stage]: a slot landed
+  uint64_t* empty = full + 2 * kFwdStages;  // [wg][stage]: its reader is done
+
+  const int a0 = blockIdx.x * kFwdRows;
+  const int nk = (E + kPanel - 1) / kPanel;
+  const int ntiles = (V + kFwdCols - 1) / kFwdCols;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(x_full, 1);
+    for (int s = 0; s < 2 * kFwdStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);  // the four warps of the reader
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup: warp 8 + wg feeds warpgroup wg
+    const int wg = warp - 8;
+    if (wg < 2 && lane == 0) {
+      if (!kStream && wg == 0) {
+        hopper::mbar_expect_tx(x_full, nk * P::kXPanel * 2);
+        for (int k = 0; k < nk; ++k)
+          hopper::tma_load_3d(xs + k * P::kXPanel, &map_x, x_full,
+                              k * kPanel, a0, 0);
+      }
+      bf16* ring = rings + wg * kFwdStages * P::kSlot;
+      int g = 0;  // this ring's position
+      for (int j = wg; j < ntiles; j += 2) {
+        for (int k = 0; k < nk; ++k, ++g) {
+          const int s = g % kFwdStages;
+          bf16* slot = ring + s * P::kSlot;
+          uint64_t* f = &full[wg * kFwdStages + s];
+          hopper::mbar_wait(&empty[wg * kFwdStages + s],
+                            ((g / kFwdStages) & 1) ^ 1);
+          hopper::mbar_expect_tx(f, P::kSlot * 2);
+          hopper::tma_load_3d(slot, &map_w, f, k * kPanel, j * kFwdCols, 0);
+          if constexpr (kStream)
+            hopper::tma_load_3d(slot + P::kWPanel, &map_x, f, k * kPanel,
+                                a0, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: the warpgroup index through a shuffle, so that the compiler
+  // sees it warp-uniform (divergence around a wgmma serialises it)
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int r_local = (warp & 3) * 16 + (lane >> 2);
+  const bf16* ring = rings + wg * kFwdStages * P::kSlot;
+  uint64_t* my_full = full + wg * kFwdStages;
+  uint64_t* my_empty = empty + wg * kFwdStages;
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(bar);
+  };
+  // the thread's two rows of x: target, and the running (m, l, t); l and t
+  // are this thread's share of the row, summed across the quad at the end
+  int row_tg[2];
+  float m_r[2], l_r[2], t_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = a0 + r_local + 8 * h;
+    row_tg[h] = n < N ? tg[n] : -1;
+    m_r[h] = kNegInf;
+    l_r[h] = 0.f;
+    t_r[h] = 0.f;
+  }
+  if constexpr (!kStream) hopper::mbar_wait(x_full, 0);
+
+  float acc[kFwdCols / 2];
+  int g = 0;  // ring position
+  for (int j = wg; j < ntiles; j += 2) {
+    hopper::wgmma_fence();
+    int prev = -1;
+    for (int k = 0; k < nk; ++k, ++g) {
+      const int s = g % kFwdStages;
+      const bf16* slot = ring + s * P::kSlot;
+      const bf16* xp = kStream ? slot + P::kWPanel : xs + k * P::kXPanel;
+      hopper::mbar_wait(&my_full[s], (g / kFwdStages) & 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_ss<kFwdCols, 0, 0>(
+            acc, hopper::desc_k(xp, kFwdRows, 0, kk),
+            hopper::desc_k(slot, kFwdCols, 0, kk), (k | kk) != 0);
+      hopper::wgmma_commit();
+      if (prev >= 0) {
+        hopper::wgmma_wait<1>();
+        release(&my_empty[prev]);
+      }
+      prev = s;
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    release(&my_empty[prev]);
+
+    // the online logsumexp over this tile, in registers
+    const int c0 = j * kFwdCols;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < kFwdCols / 2; ++i) {
+      const int h = hopper::acc_half(i), c = c0 + hopper::acc_col(i, lane);
+      const float s = c < V ? acc[i] : kNegInf;
+      t_r[h] += c == row_tg[h] && c < V ? s : 0.f;
+      acc[i] = s;
+      mx[h] = fmaxf(mx[h], s);
+    }
+    float neg[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_r[h], mx[h]);
+      l_r[h] *= hopper::ex2((m_r[h] - m_new) * kLog2e);
+      m_r[h] = m_new;
+      neg[h] = -m_new * kLog2e;
+    }
+#pragma unroll
+    for (int i = 0; i < kFwdCols / 2; ++i) {
+      const int h = hopper::acc_half(i);
+      l_r[h] += hopper::ex2(fmaf(acc[i], kLog2e, neg[h]));
+    }
+  }
+
+  // each row's l and t over its quad, then the two warpgroups' merge
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+    t_r[h] += __shfl_xor_sync(0xffffffffu, t_r[h], 1);
+    t_r[h] += __shfl_xor_sync(0xffffffffu, t_r[h], 2);
+    if ((lane & 3) == 0) {
+      float* e = mlt + (wg * kFwdRows + r_local + 8 * h) * 3;
+      e[0] = m_r[h];
+      e[1] = l_r[h];
+      e[2] = t_r[h];
+    }
+  }
+  hopper::named_sync(1, 2 * hopper::kWarpgroup);
+  if (wg == 0 && (lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_local + 8 * h;
+      if (a0 + r >= N) continue;
+      const float* e0 = mlt + r * 3;
+      const float* e1 = mlt + (kFwdRows + r) * 3;
+      const float M = fmaxf(e0[0], e1[0]);
+      const float L = e0[1] * expf(e0[0] - M) + e1[1] * expf(e1[0] - M);
+      lse[a0 + r] = M + logf(L);
+      tgt[a0 + r] = e0[2] + e1[2];
+    }
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -770,18 +926,45 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T>
-cudaError_t launch_fwd(const void* x, const void* w, const void* tg,
-                       void* lse, void* tgt, int N, int V, int E,
-                       cudaStream_t s) {
-  const size_t bytes = Plan<T>::fwd_bytes;
-  cudaError_t err = set_smem(xent_fwd_kernel<T>, bytes);
+cudaError_t launch_fwd_f32(const void* x, const void* w, const void* tg,
+                           void* lse, void* tgt, int N, int V, int E,
+                           cudaStream_t s) {
+  const size_t bytes = Plan<float>::fwd_bytes;
+  cudaError_t err = set_smem(xent_fwd_kernel<float>, bytes);
   if (err != cudaSuccess) return err;
-  xent_fwd_kernel<T><<<(N + kBM - 1) / kBM, kThreads, bytes, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
+  xent_fwd_kernel<float><<<(N + kBM - 1) / kBM, kThreads, bytes, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const int*>(tg), static_cast<float*>(lse),
       static_cast<float*>(tgt), N, V, E);
   return cudaGetLastError();
+}
+
+template <bool kStream>
+cudaError_t launch_fwd_kernel(const CUtensorMap& mx, const CUtensorMap& mw,
+                              const void* tg, void* lse, void* tgt, int N,
+                              int V, int E, cudaStream_t s) {
+  using P = FwdPlan<kStream>;
+  cudaError_t err = set_smem(xent_fwd_wgmma<kStream>, P::kBytes);
+  if (err != cudaSuccess) return err;
+  xent_fwd_wgmma<kStream>
+      <<<(N + kFwdRows - 1) / kFwdRows, P::kThreads, P::kBytes, s>>>(
+          mx, mw, static_cast<const int*>(tg), static_cast<float*>(lse),
+          static_cast<float*>(tgt), N, V, E);
+  return cudaGetLastError();
+}
+
+// bf16: x in [64, 64] boxes, w in [128, 64] boxes; x resident where its
+// panels fit (E <= 768), else streamed beside w
+cudaError_t launch_fwd_bf16(const void* x, const void* w, const void* tg,
+                            void* lse, void* tgt, int N, int V, int E,
+                            cudaStream_t s) {
+  CUtensorMap mx, mw;
+  if (!hopper::map_3d(&mx, x, false, 1, N, E, kFwdRows) ||
+      !hopper::map_3d(&mw, w, false, 1, V, E, kFwdCols))
+    return cudaErrorInvalidValue;
+  if ((E + hopper::kPanel - 1) / hopper::kPanel <= kFwdResident)
+    return launch_fwd_kernel<false>(mx, mw, tg, lse, tgt, N, V, E, s);
+  return launch_fwd_kernel<true>(mx, mw, tg, lse, tgt, N, V, E, s);
 }
 
 template <bool kDW>
@@ -854,8 +1037,8 @@ int rt_xent_fwd(const void* x, const void* w, const void* tg, void* lse,
                 void* tgt, int N, int V, int E, int dtype, void* stream) {
   if (bad_shape(N, V, E)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return (int)launch_fwd<float>(x, w, tg, lse, tgt, N, V, E, s);
-  if (dtype == kBF16) return (int)launch_fwd<bf16>(x, w, tg, lse, tgt, N, V, E, s);
+  if (dtype == kF32) return (int)launch_fwd_f32(x, w, tg, lse, tgt, N, V, E, s);
+  if (dtype == kBF16) return (int)launch_fwd_bf16(x, w, tg, lse, tgt, N, V, E, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,8 +11,10 @@ the per-layer loop never slices (= copies) the pool.
 
 - `paged_kv_append`: writes each row's new K/V into its tail block, in
   place (CUDA source: `csrc/paged_attention.cu`, K5).
-- `paged_decode_attention`: walks each row's blocks with an online
-  softmax (same source, K6).
+- `paged_decode_attention`: split-KV flash-decoding in one launch: each
+  row's block table is cut into runs (`split_plan`, from shapes only),
+  each run walked by its own CTA with an online softmax, the runs merged
+  by the last CTA of each (row, kv head) to finish (same source, K6).
 
 Each wrapper launches its kernel for CUDA tensors, or raises; it takes
 its plain PyTorch version (`*_reference`, same arguments, same
@@ -30,6 +32,7 @@ writes the quantized row and its scale.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -38,7 +41,16 @@ from ray_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_MAX_TILE_BYTES = 16 * 8 * 128  # kMaxVecs 16-byte vectors x 128 threads
+# K6's plan constants, mirrored from csrc/paged_attention.cu
+_MAX_GROUP = 8      # query heads a CTA serves (kMaxG)
+_MAX_SPLITS = 64    # kMaxSplits
+_MAX_PER = 1024     # kMaxPer: table entries a split stages in shared memory
+_MAX_HD = 1024      # kMaxHD: a P.V thread holds at most four hd pairs
+_CTAS_PER_SM = 2    # the split count's target
+# a split spans at least this many columns: below it a split's fixed cost
+# (prologue, first round trip, merge) outweighs the columns it takes off
+# the longest CTA
+_MIN_SPLIT_TOKENS = 256
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -98,7 +110,9 @@ def paged_decode_attention_reference(q, k_pool, v_pool, tables, pos, layer,
     """`paged_decode_attention` in plain PyTorch: gather each row's W
     blocks into a dense `[B, W*BS, KV, hd]` view, then
     `decode_step_vec`'s attention: f32 scores times hd**-0.5, columns
-    > pos at -1e30, f32 softmax, weights cast to q's dtype, f32 P.V."""
+    > pos at -1e30, f32 softmax, weights cast to q's dtype, f32 P.V.
+    A row with pos < 0 attends to nothing and returns zeros, as the
+    Pallas kernel's (l == 0 -> 1) does."""
     _, _, BS, KV, HD = k_pool.shape
     B, W = tables.shape
     H = q.shape[1]
@@ -116,6 +130,7 @@ def paged_decode_attention_reference(q, k_pool, v_pool, tables, pos, layer,
     valid = (cols[None, :] <= pos[:, None].long())[:, None, None, :]
     s = torch.where(valid, s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
+    p = torch.where(pos[:, None, None, None] >= 0, p, 0.0)
     o = torch.einsum("bkgm,bmkd->bkgd", p.to(q.dtype).float(), v.float())
     return o.reshape(B, H, HD).to(q.dtype)
 
@@ -123,13 +138,57 @@ def paged_decode_attention_reference(q, k_pool, v_pool, tables, pos, layer,
 # ----------------------------------------------------------------------
 # kernel wrappers
 # ----------------------------------------------------------------------
+def split_plan(B: int, H: int, KV: int, W: int, BS: int,
+               sms: int) -> Tuple[int, int]:
+    """K6's cut of every row's block table: (splits, per), split s
+    covering table columns [s * per, min((s + 1) * per, W)).
+
+    A function of shapes and the card's SM count only, never of the
+    positions: they live on the device, and reading them would sync the
+    engine's tick; a grid fixed by shapes is also what a CUDA graph per
+    width bucket can capture.  It aims at about `_CTAS_PER_SM` CTAs an
+    SM over the B * KV * ceil((H / KV) / 8) (row, kv head) cells, gives
+    each split at least `_MIN_SPLIT_TOKENS` columns' worth of blocks and
+    at most `_MAX_PER` blocks, and leaves no split empty by construction
+    (a split past a short row's last block is empty at run time and
+    costs the kernel one predicate).  Up to W = _MAX_SPLITS * _MAX_PER
+    there are at most `_MAX_SPLITS` splits a cell."""
+    cells = B * KV * -(-(H // KV) // _MAX_GROUP)
+    want = min(max(1, -(-_CTAS_PER_SM * sms // cells)), _MAX_SPLITS, W)
+    per = min(W, _MAX_PER,
+              max(-(-W // want), -(-_MIN_SPLIT_TOKENS // BS)))
+    return -(-W // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# device index -> (f32 workspace, int32 counters) of K6's split partials
+_workspaces: dict = {}
+
+
+def _workspace(device: torch.device, floats: int, cells: int):
+    """K6's workspace and arrival counters on `device`, allocated once
+    and grown when a call needs more.  The counters start at zero and
+    every launch leaves them zero."""
+    ws, counters = _workspaces.get(device.index, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < cells:
+        counters = torch.zeros(cells, dtype=torch.int32, device=device)
+    _workspaces[device.index] = (ws, counters)
+    return ws, counters
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_attention")
     if not getattr(lib, "_rt_typed", False):
         lib.rt_paged_kv_append.argtypes = [_P] * 10 + [_I] * 8 + [_P]
         lib.rt_paged_kv_append.restype = _I
         lib.rt_paged_decode_attention.argtypes = (
-            [_P] * 8 + [_I] * 8 + [ctypes.c_float, _I, _I, _P])
+            [_P] * 10 + [_I] * 10 + [ctypes.c_float, _I, _I, _P])
         lib.rt_paged_decode_attention.restype = _I
         lib._rt_typed = True
     return lib
@@ -258,7 +317,11 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, layer, *,
     columns 0..pos[b] inclusive, so the current row must already be
     written (`paged_kv_append` first).  `layer` selects the pool layer.
     GQA: query head h attends through kv head h // (H // KV).  Returns
-    o [B, H, hd] in q's dtype."""
+    o [B, H, hd] in q's dtype.
+
+    On the card the split partials go through a workspace and arrival
+    counters allocated once per device and shared by every call: two
+    streams must not run this kernel at once on one device."""
     if k_pool.device.type == "cpu":
         return paged_decode_attention_reference(
             q, k_pool, v_pool, tables, pos, layer,
@@ -283,25 +346,35 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, layer, *,
                       or v_scale.shape != (L, NB, BS, KV)):
         raise ValueError("scale shapes disagree with the pool")
     _check_index(tables, pos, B)
-    # the kernel moves K/V tiles as 16-byte vectors, at most 16 KB a tile
+    # the kernel moves pool rows as 16-byte vectors and holds a P.V
+    # thread's hd pairs in registers
     row_bytes = HD * k_pool.element_size()
-    if (row_bytes % 16 or BS * row_bytes > _MAX_TILE_BYTES
-            or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16):
+    if (row_bytes % 16 or HD > _MAX_HD or k_pool.data_ptr() % 16
+            or v_pool.data_ptr() % 16 or q.data_ptr() % 4):
         raise ValueError(
-            f"pool rows of {row_bytes} B (block of {BS}) are not 16-byte "
-            f"vectors of a tile <= {_MAX_TILE_BYTES} B at 16-byte aligned "
-            "addresses"
+            f"pool rows of {row_bytes} B (hd {HD}) are not 16-byte vectors "
+            f"at 16-byte aligned addresses (q at 4-byte) with hd <= "
+            f"{_MAX_HD}"
         )
     layer = int(layer)
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range [0, {L})")
+    W = tables.shape[1]
+    if W > _MAX_SPLITS * _MAX_PER:
+        raise ValueError(f"tables of {W} blocks a row: at most "
+                         f"{_MAX_SPLITS * _MAX_PER}")
+    splits, per = split_plan(B, H, KV, W, BS, _sm_count(q.device))
+    cells = B * KV * -(-(H // KV) // _MAX_GROUP)
+    ws, counters = _workspace(
+        q.device, cells * splits * _MAX_GROUP * (2 + HD), cells)
     out = torch.empty_like(q)
     rc = _lib().rt_paged_decode_attention(
         out.data_ptr(), q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
-        tables.data_ptr(), pos.data_ptr(), layer, NB, BS, KV, HD, H, B,
-        tables.shape[1], float(HD ** -0.5), _KERNEL_DTYPES[q.dtype],
+        tables.data_ptr(), pos.data_ptr(), ws.data_ptr(),
+        counters.data_ptr(), layer, NB, BS, KV, HD, H, B, W, per, splits,
+        float(HD ** -0.5), _KERNEL_DTYPES[q.dtype],
         _KERNEL_DTYPES[k_pool.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )

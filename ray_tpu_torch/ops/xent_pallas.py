@@ -248,8 +248,10 @@ def pallas_cross_entropy(x, w, targets, block_n: int = 512,
     int.  Returns the f32 scalar mean loss; gradients flow to x (in x's
     dtype) and w (in w's dtype).  `block_n` / `block_v` keep the
     reference's signature; the CUDA kernels use their own Hopper tiles
-    whatever the blocks say (K7: 64 rows by 64 vocab columns; bf16 K8 /
-    K9: 64 output rows by up to 768 columns, 32 rows of the other
-    operand a step; f32 K8 / K9: 64 x 256 output slices)."""
+    whatever the blocks say (bf16 K7: 64 rows by 128 vocab columns a
+    tile, two warpgroups taking the tiles in turn; bf16 K8 / K9: 64
+    output rows by up to 768 columns, 32 rows of the other operand a
+    step; f32 K7: 64 x 64 score tiles; f32 K8 / K9: 64 x 256 output
+    slices)."""
     del block_n, block_v
     return _PallasCrossEntropy.apply(x, w, targets)

@@ -8,11 +8,11 @@ and the port only, so it runs on a machine with the card and no JAX:
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
 
 Shapes are small and ragged (positions past the table's reach, idle
-rows on the scratch block, shuffled tables, GQA; T not a multiple of
-the flash tiles, and heads of 136 and 256, past the bf16 K1 / K2's
+rows on the scratch block, shuffled tables, GQA, K6's table cut into
+three or more splits, pool blocks of 16 to 128 tokens; T not a multiple
+of the flash tiles, and heads of 136 to 512, past the bf16 K1 / K2's
 Hopper tiles; N and V not multiples of the xent tiles, E past one
-K8 / K9 block,
-targets at 0, V - 1 and out of range).  Tolerances: K5 bit-equal outside the
+K8 / K9 block, targets at 0, V - 1 and out of range on both sides).  Tolerances: K5 bit-equal outside the
 scratch block; K6 f32 1e-5, bf16 and int8 2e-2 (the reference's own).  K1-K4 against
 their plain versions element by element (`assert_close`) and by the
 norm of the difference over the plain version's norm, with the limits
@@ -131,8 +131,84 @@ def test_attention_kernel_matches_plain(cuda_device, kind, tol, hd, group):
                                atol=tol)
 
 
+def _split_case(kind, BS, hd, device_sms, *, B=8, KV=2, group=4, seed=0):
+    """A pool and tables whose rows exercise K6's split plan: W not a
+    multiple of the split count and at least three splits; rows at pos
+    -1 (idle), 0, the last column of split 0, the first of split 1 and
+    of the last split, past the table's reach, and two random."""
+    H = KV * group
+    for W in range(37, 80):
+        splits, per = pa.split_plan(B, H, KV, W, BS, device_sms)
+        if splits >= 3 and W % splits:
+            break
+    gen = torch.Generator().manual_seed(seed + BS + hd)
+    NB, tables, pos = _layout(B, W, BS, gen)
+    pos[:6] = torch.tensor([-1, 0, per * BS - 1, per * BS,
+                            (splits - 1) * per * BS, W * BS + 5])
+    q_dt = torch.float32 if kind == "f32" else torch.bfloat16
+    case = {"q": torch.randn((B, H, hd), generator=gen).to(q_dt),
+            "k_pool": _rand((1, NB, BS, KV, hd), DTYPES[kind], gen),
+            "v_pool": _rand((1, NB, BS, KV, hd), DTYPES[kind], gen),
+            "tables": tables, "pos": pos}
+    if kind == "int8":
+        case["k_scale"] = torch.rand((1, NB, BS, KV), generator=gen) / 20
+        case["v_scale"] = torch.rand((1, NB, BS, KV), generator=gen) / 20
+    return case, splits
+
+
+def _run_k6(fn, case):
+    return fn(case["q"], case["k_pool"], case["v_pool"], case["tables"],
+              case["pos"], 0, k_scale=case.get("k_scale"),
+              v_scale=case.get("v_scale"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,tol", [("f32", 1e-5), ("bf16", 2e-2),
+                                      ("int8", 2e-2)])
+@pytest.mark.parametrize("BS", [16, 64, 128])
+def test_attention_kernel_splits_match_plain(cuda_device, kind, tol, BS):
+    """K6 at hd 128 with its table cut into three or more splits (W not
+    a multiple of their count), rows idle, at 0, on a split's first and
+    last columns, past the table's reach and long enough to use every
+    split; pool blocks of 16, 64 and 128 tokens (the last 32 KB a tile
+    in bf16, past the first design's 16 KB cap)."""
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    case, splits = _split_case(kind, BS, 128, sms)
+    assert splits >= 3
+    want = _run_k6(pa.paged_decode_attention_reference, case)
+    assert bool((want[0] == 0).all())  # the idle row attends to nothing
+    n0 = pa.paged_decode_attention.launches
+    got = _run_k6(pa.paged_decode_attention, _to(case, cuda_device))
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == n0 + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_attention_kernel_repeats_bit_equal(cuda_device, kind):
+    """K6 twice on the same inputs gives the same bits: the split plan
+    is fixed by shapes and the last CTA merges the splits in split
+    order, whichever CTA finishes last."""
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    case, _ = _split_case(kind, 16, 128, sms, seed=5)
+    dev = _to(case, cuda_device)
+    first = _run_k6(pa.paged_decode_attention, dev)
+    for _ in range(3):
+        again = _run_k6(pa.paged_decode_attention, dev)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    """Dtypes, index types and pool rows that are not 16-byte vectors
+    raise; a pool block of 128 tokens at hd 128 in bf16 (a 32 KB tile,
+    which the first design's 16 KB cap refused) launches."""
     gen = torch.Generator().manual_seed(0)
     pool = torch.randn((1, 3, 4, 1, 8), generator=gen).to(torch.float16)
     tables = torch.ones((1, 1), dtype=torch.int32)
@@ -147,6 +223,25 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
             torch.zeros((1, 1, 8), device=cuda_device),
             dev[0].float(), dev[0].float(), dev[1].long(), dev[2], 0)
     assert pa.paged_kv_append.launches == n0
+    n0 = pa.paged_decode_attention.launches
+    narrow = torch.zeros((1, 3, 4, 1, 4), dtype=torch.bfloat16,
+                         device=cuda_device)  # 8-byte rows
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_decode_attention(
+            torch.zeros((1, 1, 4), dtype=torch.bfloat16, device=cuda_device),
+            narrow, narrow, dev[1], dev[2], 0)
+    assert pa.paged_decode_attention.launches == n0
+    big = torch.randn((1, 2, 128, 1, 128), generator=gen).to(
+        device=cuda_device, dtype=torch.bfloat16)
+    q = torch.randn((1, 2, 128), generator=gen).to(device=cuda_device,
+                                                    dtype=torch.bfloat16)
+    pos = torch.full((1,), 100, dtype=torch.int32, device=cuda_device)
+    got = pa.paged_decode_attention(q, big, big, dev[1], pos, 0)
+    want = pa.paged_decode_attention_reference(q, big, big, dev[1], pos, 0)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == n0 + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 FLASH_TOL = {"f32": {"rtol": 1e-4, "atol": 1e-5, "rel": 3e-6},
@@ -183,15 +278,17 @@ def _flash_inputs(BH, T, D, dtype, seed):
 @pytest.mark.parametrize("BH,T,D", [(6, 128, 64), (6, 100, 128), (6, 72, 16),
                                     (6, 1024, 64), (6, 48, 64), (3, 200, 64),
                                     (3, 200, 96), (3, 200, 256),
-                                    (2, 72, 136)])
+                                    (2, 72, 136), (2, 72, 264),
+                                    (2, 48, 512)])
 def test_flash_kernels_match_plain(cuda_device, kind, causal, BH, T, D):
     """K1, K2, K3 and K4 each against its plain version on the same
     inputs (the backward ones on the plain forward's O and LSE).  The
     shapes stress the bf16 kernels' tiles (128 q rows in K1, 128 kv rows
     and 64 q rows in K2): 8 full tiles (T 1024), T under one tile (48),
     ragged over two (200, 100, 72), head widths that run on the 64 and
-    128 instantiations (16, 96), and past them (136, 256: the first
-    design at half its rows)."""
+    128 instantiations (16, 96), and past them (136 to 512: the first
+    design, its rows halved until its shared-memory plan fits: 16 bf16
+    rows for K2 / K4 at 512)."""
     dt = torch.float32 if kind == "f32" else torch.bfloat16
     q, k, v, do = _flash_inputs(BH, T, D, dt, seed=T + D + causal)
     scale = D ** -0.5
@@ -276,15 +373,16 @@ def test_flash_attention_op_on_the_card(cuda_device, blocks):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [256, 512])
 @pytest.mark.parametrize("blocks", [(1024, 1024), (16, 16)])
-def test_flash_attention_wide_head_on_the_card(cuda_device, blocks):
-    """D 256, wider than the bf16 K1 / K2's Hopper tiles (the reference
-    computes any width): the op launches K1 and K2 (or K3 + K4), takes
-    no plain branch, and its forward and grads equal the CPU route's
-    (the plain versions).  bf16 at D 256 is held kernel by kernel in
-    `test_flash_kernels_match_plain`."""
-    gen = torch.Generator().manual_seed(256 + blocks[0])
-    q, k, v, w = (torch.randn((2, 32, 2, 256), generator=gen)
+def test_flash_attention_wide_head_on_the_card(cuda_device, blocks, D):
+    """D 256 and 512, wider than the bf16 K1 / K2's Hopper tiles (the
+    reference computes any width): the op launches K1 and K2 (or K3 +
+    K4), takes no plain branch, and its forward and grads equal the CPU
+    route's (the plain versions).  bf16 at these widths is held kernel
+    by kernel in `test_flash_kernels_match_plain`."""
+    gen = torch.Generator().manual_seed(D + blocks[0])
+    q, k, v, w = (torch.randn((2, 32, 2, D), generator=gen)
                   for _ in range(4))
 
     def run(device):
@@ -310,7 +408,13 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((2, 16, 8), device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="not supported"):
         fa.flash_fwd(q, q, q, True, 0.3)
-    wide = torch.zeros((2, 16, 264), device=cuda_device)
+    # past the widest head the least row count fits: 1,024 in f32, 704
+    # in bf16
+    wide = torch.zeros((2, 16, 1032), device=cuda_device)
+    with pytest.raises(ValueError, match="head width"):
+        fa.flash_fwd(wide, wide, wide, True, 0.1)
+    wide = torch.zeros((2, 16, 712), device=cuda_device,
+                       dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head width"):
         fa.flash_fwd(wide, wide, wide, True, 0.1)
     q = torch.zeros((2, 16, 8), device=cuda_device)
@@ -405,6 +509,49 @@ def test_xent_grads_repeat(cuda_device, E):
         first, second = fn(*dev), fn(*dev)
         torch.cuda.synchronize()
         assert torch.equal(first, second), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,w_kind", [("bf16", "f32"), ("bf16", "bf16"),
+                                         ("f32", "f32")])
+@pytest.mark.parametrize("N,E,V", [(200, 128, 300), (77, 768, 1000),
+                                   (130, 1032, 515)])
+def test_xent_fwd_kernel_targets(cuda_device, kind, w_kind, N, E, V):
+    """K7 against its plain version with targets at 0 and V - 1 and
+    outside [0, V) on both sides (-1, V, V + 7: they match no column, so
+    their target logit is 0); ragged N and V, E resident (128, 768) and
+    streamed (1,032) in the bf16 kernel."""
+    from ray_tpu_torch.ops import xent_pallas as xp
+
+    x, w, tg, _ = _xent_inputs(N, E, V, DTYPES[kind], DTYPES[w_kind],
+                               seed=N + E)
+    tg[1], tg[2], tg[3] = V, V + 7, V - 1
+    want = xp.xent_fwd_reference(x, w, tg)
+    assert not bool(want[1][[1, 2, N // 2]].any())
+    n0 = xp.xent_fwd.launches
+    got = xp.xent_fwd(*[t.to(cuda_device) for t in (x, w, tg)])
+    torch.cuda.synchronize()
+    assert xp.xent_fwd.launches == n0 + 1
+    for g, w_, name in zip(got, want, ("lse", "tgt")):
+        assert g.dtype == torch.float32 and g.shape == w_.shape, name
+        _assert_xent_close(g, w_, XENT_TOL[kind], name)
+    assert not bool(got[1][[1, 2, N // 2]].cpu().any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [768, 1032])
+def test_xent_fwd_repeats(cuda_device, E):
+    """The bf16 K7 twice on the same inputs: bit-equal, since each row's
+    (m, l, t) is summed in a fixed order (E 768: x resident; E 1,032:
+    streamed)."""
+    from ray_tpu_torch.ops import xent_pallas as xp
+
+    dev = [t.to(cuda_device) for t in _xent_inputs(
+        200, E, 700, torch.bfloat16, torch.bfloat16, seed=E)[:3]]
+    first = xp.xent_fwd(*dev)
+    second = xp.xent_fwd(*dev)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda

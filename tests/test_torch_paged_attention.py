@@ -12,6 +12,8 @@ The CUDA kernels themselves are held against the plain versions on the
 card by `tests/test_torch_cuda_kernels.py` and by `chip_smoke.py`.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -208,6 +210,53 @@ def test_attention_plain_matches_jax_kernel(kind, tol, layer):
     assert got.dtype == (torch.float32 if kind == "f32" else torch.bfloat16)
     np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kind,tol", [("f32", 1e-5), ("bf16", 2e-2),
+                                      ("int8", 2e-2)])
+def test_attention_plain_matches_jax_kernel_on_idle_rows(kind, tol):
+    """Rows with pos < 0 attend to nothing: the Pallas kernel skips every
+    block and returns zeros (l == 0 -> 1), and so does the plain version
+    (a softmax over an all-masked row would average V instead)."""
+    q, kp, vp, tables, pos, scales = _attention_inputs(kind, seed=9)
+    pos[[0, 3]] = [-1, -7]
+    want = jpa.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(pos), 1,
+        **{k: jnp.asarray(v) for k, v in scales.items()},
+    )
+    got = tpa.paged_decode_attention(
+        _t(q), _t(kp), _t(vp), _t(tables), _t(pos), 1,
+        **{k: _t(v) for k, v in scales.items()},
+    )
+    assert not np.asarray(want, np.float32)[[0, 3]].any()
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("sms", [132, 78, 1])
+def test_split_plan_covers_every_block_once(sms):
+    """K6's host-side cut of the block tables: for W 1 to 128 and B 1 to
+    64, every block of a row falls in exactly one split, no split is
+    empty by construction, the split count stays in [1, _MAX_SPLITS]
+    and a split stages at most _MAX_PER table entries.  The plan takes shapes and the SM count only (no
+    positions, which live on the device), so equal shapes give equal
+    plans."""
+    for B in (1, 2, 3, 8, 17, 32, 64):
+        for W in range(1, 129):
+            for KV, H, BS in ((8, 32, 16), (2, 4, 128), (1, 24, 1)):
+                splits, per = tpa.split_plan(B, H, KV, W, BS, sms)
+                assert 1 <= splits <= tpa._MAX_SPLITS
+                assert 1 <= per <= min(W, tpa._MAX_PER)
+                owner = np.zeros(W, np.int64)
+                for s in range(splits):
+                    run = np.arange(s * per, min((s + 1) * per, W))
+                    assert run.size > 0
+                    owner[run] += 1
+                assert (owner == 1).all(), (B, W, KV, H, BS, splits, per)
+                assert tpa.split_plan(B, H, KV, W, BS, sms) == (splits, per)
+    assert list(inspect.signature(tpa.split_plan).parameters) == [
+        "B", "H", "KV", "W", "BS", "sms"]
 
 
 # ----------------------------------------------------------------------
