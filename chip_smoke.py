@@ -16,7 +16,9 @@ exits non-zero:
 4. K6 (paged decode attention) against its plain version at H=32,
    KV=8, hd=128, BS=16, B in {8, 32}, ragged positions up to 1024,
    shuffled tables; timed at B=32, bf16, beside its bound and SDPA over
-   the same KV gathered dense, with K6's split plan.
+   the same KV gathered dense, with K6's split plan; then at hd 1,032
+   (the wide-head kernel) and at tables of 65,540 blocks (splits past
+   the 1,024 staged table entries), f32 and bf16.
 5. main path: Llama-3-8B at full width and depth (bf16, random weights
    from a seed) served by `LlamaEngine` to 8 concurrent requests, three
    of them sharing a 64-token prefix; the kernel launch counts of that
@@ -29,8 +31,10 @@ exits non-zero:
 7. K1-K4 (flash attention forward, fused backward, split dQ and dK/dV)
    against their plain versions at the training shape (BH 32*12, T
    1024, D 64) and at Llama's head width (BH 64, T 512, D 128), causal
-   and full, f32 and bf16, plus a ragged T of 1000 (bf16, causal):
-   element by element and by the relative norm of the difference.
+   and full, f32 and bf16, plus a ragged T of 1000 (bf16, causal, D 64
+   and 128), and heads of 712 and 1,032 (f32 and bf16, BH 2, T 256: the
+   first design cut into column slices): element by element and by the
+   relative norm of the difference.
 8. training main path: GPT-2 124M at full width and depth (bf16 compute,
    f32 master weights, flash attention, full remat, bf16 logits),
    batch 32 x 1024, through `make_train_step`: 2 warm-up steps, then 5
@@ -39,12 +43,16 @@ exits non-zero:
    dispatch); at full size, the step-0 loss and the gradients of the
    attention weights on the flash and dense routes.
 9. split route: the flash op at the training shape with blocks of 256,
-   forward and backward, so K3 + K4 run (their launch counts are this
-   run's), against dense attention's autograd in f32.
+   and at the reference's own split route (default blocks of 1,024 at T
+   4,096, B 1, H 32, D 128: Llama-3-8B's head width), forward and
+   backward, so K3 + K4 run once each per case (their launch counts are
+   these runs', summed in the kernels line), against dense attention's
+   autograd in f32.
 10. route parity: tiny GPT-2 in f32, 3 train steps on the flash kernels
     against 3 on dense attention from the same params and tokens.
-11. K1-K4 timed at the training shape (bf16, causal), beside their
-    bounds, plain versions and `scaled_dot_product_attention`, with each
+11. K1-K4 timed at the training shape (bf16, causal), and K3 and K4 at
+    the second split shape (BH 32, T 4,096, D 128), beside their bounds,
+    plain versions and `scaled_dot_product_attention`, with each
     kernel's achieved TFLOP/s, its time over its bound and over SDPA's
     (forward for K1, backward for K2-K4).
 12. K7-K9 (the fused cross entropy's forward, dx and dw) against their
@@ -762,16 +770,16 @@ def sdpa_yardsticks(c: dict, H: int) -> tuple:
     return f, time_ms(fwd_bwd) - f
 
 
-def time_flash(c: dict, H: int) -> dict:
-    """ms / plain_ms / bound_ms / library_ms of K1-K4 on one case, with
-    the achieved TFLOP/s, ms over the bound and ms over SDPA's.  The
-    library call for K1 is SDPA's forward, for K2 its backward; no one
-    call computes K3's or K4's function alone, so they are set against
-    SDPA's backward (the pair's yardstick, also in the phase line) and
-    their library_ms stays null."""
+def time_flash(c: dict, H: int, names=FLASH) -> dict:
+    """ms / plain_ms / bound_ms / library_ms of the kernels `names` of
+    K1-K4 on one case, with the achieved TFLOP/s, ms over the bound and
+    ms over SDPA's.  The library call for K1 is SDPA's forward, for K2
+    its backward; no one call computes K3's or K4's function alone, so
+    they are set against SDPA's backward (the pair's yardstick, also in
+    the phase line) and their library_ms stays null."""
     lib_fwd, lib_bwd = sdpa_yardsticks(c, H)
     out = {}
-    for name in FLASH:
+    for name in names:
         bound, by = flash_bound(name, c)
         ms = time_ms(lambda: run_flash(name, c))
         sdpa = lib_fwd if name == "flash_fwd" else lib_bwd
@@ -880,9 +888,9 @@ def run_training(device, *, cfg=None, batch=32, seq=1024, warmup=2,
 
 
 def split_route(device, *, B=32, T=1024, H=12, D=64, block=256) -> dict:
-    """The flash op with blocks of 256 at the training shape (bf16),
-    forward and backward: K1, then K3 + K4 with delta from the wrapper.
-    Held against dense attention's autograd in f32 on the same inputs."""
+    """The flash op with blocks of `block` (bf16, causal), forward and
+    backward: K1, then K3 + K4 with delta from the wrapper.  Held against
+    dense attention's autograd in f32 on the same inputs."""
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
     q, k, v, w = (torch.randn((B, T, H, D), generator=gen, device=device)
@@ -1244,6 +1252,21 @@ def main() -> int:
             })
         emit(line)
         del case
+    # past the split walk's widths: hd 1,032 (the wide-head kernel) and
+    # tables of 65,540 blocks (splits of more than the 1,024 staged
+    # entries), each against the plain version
+    for what, kw in (("hd_1032", dict(B=4, max_pos=200, L=1, H=8, KV=2,
+                                      hd=1032, BS=16)),
+                     ("W_65540", dict(B=2, max_pos=65539, L=1, H=2, KV=1,
+                                      hd=64, BS=1))):
+        errs = {}
+        for kind_ in ("f32", "bf16"):
+            case = attention_case(kind_, device, seed=7, **kw)
+            errs[kind_] = check_attention(case, kind_)
+        emit({"phase": "K6_vs_plain_wide", "case": what, **kw,
+              "W": int(case["tables"].shape[1]), "splits": k6_splits(case),
+              "max_abs_err": errs, "tolerance": ATTN_TOL})
+        del case
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1305,12 +1328,15 @@ def main() -> int:
              for c in (True, False)]
             + [(64, 512, 128, k, c) for k in ("f32", "bf16")
                for c in (True, False)]
-            + [(48, 1000, 64, "bf16", True)]):
+            + [(48, 1000, 64, "bf16", True), (16, 1000, 128, "bf16", True)]
+            + [(2, 256, D, k, True) for D in (712, 1032)
+               for k in ("f32", "bf16")]):
         dt = {"f32": torch.float32, "bf16": torch.bfloat16}[kind_]
         case = flash_case(BH, T, D, dt, causal, device, seed=T + D)
         errs_ = check_flash(case, kind_)
         emit({"phase": "K1-K4_vs_plain", "BH": BH, "T": T, "D": D,
               "dtype": kind_, "causal": causal, "ragged": T % 64 != 0,
+              "column_slices": D > {"f32": 1024, "bf16": 704}[kind_],
               "max_abs_elementwise_relnorm": errs_,
               "tolerance": {n: flash_tol(n, kind_) for n in FLASH}})
         if (T, kind_, causal) == (1024, "bf16", True):
@@ -1323,8 +1349,14 @@ def main() -> int:
     trained = run_training(device)
     emit({**trained["line"], "wall_s": time.perf_counter() - t0})
     torch.cuda.empty_cache()
+    # the split route at the training shape with blocks of 256, and at the
+    # reference's own split route: default blocks (1,024) at T 4,096 with
+    # Llama-3-8B's head width
     split = split_route(device)
     emit(split["line"])
+    torch.cuda.empty_cache()
+    split_llama = split_route(device, B=1, T=4096, H=32, D=128, block=1024)
+    emit(split_llama["line"])
     emit(route_parity(device))
     torch.cuda.empty_cache()
 
@@ -1335,6 +1367,15 @@ def main() -> int:
               name: flash_t[name] for name in FLASH},
           "k3_plus_k4_ms": flash_t["flash_bwd_dq"]["ms"]
           + flash_t["flash_bwd_dkv"]["ms"], "sdpa_bwd_ms": sdpa_bwd})
+    del case
+    torch.cuda.empty_cache()
+    case = flash_case(32, 4096, 128, torch.bfloat16, True, device)
+    split_t, sdpa_bwd = time_flash(case, H=32,
+                                   names=("flash_bwd_dq", "flash_bwd_dkv"))
+    emit({"phase": "K3_K4_timed", "BH": 32, "T": 4096, "D": 128,
+          "dtype": "bf16", "causal": True, **split_t,
+          "k3_plus_k4_ms": split_t["flash_bwd_dq"]["ms"]
+          + split_t["flash_bwd_dkv"]["ms"], "sdpa_bwd_ms": sdpa_bwd})
     del case
     timings.update(flash_t)
     torch.cuda.empty_cache()
@@ -1378,8 +1419,8 @@ def main() -> int:
     del case
     timings.update(xent_t)
     launches = {**served["launches"], **trained["launches"],
-                "flash_bwd_dq": split["launches"]["flash_bwd_dq"],
-                "flash_bwd_dkv": split["launches"]["flash_bwd_dkv"],
+                **{n: split["launches"][n] + split_llama["launches"][n]
+                   for n in ("flash_bwd_dq", "flash_bwd_dkv")},
                 **xent_run["launches"]}
 
     errs = {"paged_kv_append": 0.0, "paged_decode_attention": attn_err,

@@ -15,15 +15,16 @@ the forward (FlashAttention-2, Dao 2023).
 
 `block_q` / `block_k` keep the reference's meaning for the route choice
 and for `_supported`; the CUDA kernels use their own Hopper tiles
-whatever the blocks say: in bf16, K1 128-row q tiles and K2 128-row kv
-tiles over 64-row q tiles (wgmma, TMA, registers); K3 / K4 64 rows in
-bf16, and every kernel 32 rows in f32; heads wider than 128 on the
-first design's kernels, their rows halved until the shared-memory plan
-fits (to 16 in bf16 and 8 in f32).  A shape `_supported`
-refuses (T not divisible by a block, or D % 8) goes to `plain_attention`,
-as the reference documents; `flash_attention.plain_dispatches` counts
-those calls.  On the card a head wider than `_MAX_D` of its dtype
-(704 in bf16, 1,024 in f32), where no row count fits, raises.
+whatever the blocks say: in bf16 at heads to 128 (wgmma, TMA,
+registers), K1 and K3 128-row q tiles, K2 and K4 128-row kv tiles over
+64-row q tiles (64-row kv tiles at D 128); every kernel 32 rows in f32;
+heads wider than 128 on the first design's kernels, their rows halved
+until the shared-memory plan fits (to 16 in bf16 and 8 in f32), and
+past 704 (bf16) or 1,024 (f32) columns cut into column slices, one a
+CTA, so every width the reference takes runs on the card.  A shape
+`_supported` refuses (T not divisible by a block, or D % 8) goes to
+`plain_attention`, as the reference documents;
+`flash_attention.plain_dispatches` counts those calls.
 
 Each wrapper works on folded `[BH, T, D]` tensors and launches its kernel
 for CUDA tensors, or raises; it takes its plain PyTorch version
@@ -43,9 +44,6 @@ from ray_tpu_torch.parallel.ring_attention import plain_attention
 
 _NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the widest heads the first design's least row count fits in shared
-# memory (Tile<T>::kMaxD in csrc/attention.cu)
-_MAX_D = {torch.float32: 1024, torch.bfloat16: 704}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -156,11 +154,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _on_card(t) -> bool:
+    return t.device.type == "cuda"
+
+
 def _check(q, **others):
     """The kernels take contiguous [BH, T, D] q/k/v/dO/O of one dtype
-    (f32 or bf16) with D % 8 == 0 and D <= `_MAX_D[dtype]`, and f32
-    [BH, T, 1] LSE / delta, all on q's CUDA device."""
-    if q.device.type != "cuda":
+    (f32 or bf16) with D % 8 == 0, and f32 [BH, T, 1] LSE / delta, all
+    on q's CUDA device."""
+    if not _on_card(q):
         raise ValueError(
             f"the flash kernels run on CUDA tensors (got {q.device}); CPU "
             "tensors take the plain version"
@@ -170,9 +172,8 @@ def _check(q, **others):
     if q.dim() != 3:
         raise ValueError(f"q must be folded [BH, T, D], got {tuple(q.shape)}")
     BH, T, D = q.shape
-    if D % 8 or D > _MAX_D[q.dtype]:
-        raise ValueError(f"head width {D} not supported: D % 8 == 0 and "
-                         f"D <= {_MAX_D[q.dtype]} in {q.dtype}")
+    if D % 8:
+        raise ValueError(f"head width {D} not supported: D % 8 == 0")
     for name, t in {"q": q, **others}.items():
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, expected {q.device}")

@@ -18,27 +18,31 @@
 // Hopper-sized tiles, whatever block_q / block_k the caller passed (those
 // choose only the route, in the wrapper).
 //
-// bf16 K1 and K2 (the training path) are Hopper kernels (PTX helpers in
-// hopper.cuh): a producer warpgroup issues TMA loads of 128-byte-swizzled
-// tiles into a shared-memory ring of two or three stages guarded by
-// mbarriers; two consumer warpgroups multiply with wgmma, S / P / O (K1)
-// and S^T / P^T / dP^T / dS^T / dK / dV (K2) accumulated in registers,
-// the softmax done in registers; P and dS^T feed the next product as
-// register A operands; K1's O leaves by TMA store and K2's dQ by TMA
-// reduce-adds, one a 32-column panel a tile pair.  Head widths 64 and 128
-// are instantiated; other widths with D % 8 == 0 and D <= 128 run on the
-// next larger one (zero-filled by the tensor maps, dropped on store).
-// Wider heads (the reference takes any width; no config of the repo has
-// one) run the first design below.  See each kernel's note.
+// The bf16 kernels at head widths to 128 (the training path, and the
+// split route's K3 and K4) are Hopper kernels (PTX helpers in hopper.cuh):
+// a producer warpgroup issues TMA loads of 128-byte-swizzled tiles into a
+// shared-memory ring guarded by mbarriers; consumer warpgroups multiply
+// with wgmma, S / P / O (K1), S^T / P^T / dP^T / dS^T / dK / dV (K2, K4)
+// and S / dP / dS / dQ (K3) accumulated in registers, the softmax done in
+// registers; P, dS and dS^T feed the next product as register A operands;
+// K1's O leaves by TMA store, K2's dQ by TMA reduce-adds, K3's dQ and K2 /
+// K4's dK and dV once from registers.  Head widths 64 and 128 are
+// instantiated; other widths with D % 8 == 0 and D <= 128 run on the next
+// larger one (zero-filled by the tensor maps, dropped on store).  Wider
+// heads (the reference takes any width; no config of the repo has one)
+// run the first design below.  See each kernel's note.
 //
-// K3, K4, the f32 instantiations of all four and the bf16 K1 / K2 past
-// D 128 are the first design: 64-row (bf16) or 32-row (f32) tiles, halved
-// until the shared-memory plan fits (down to wmma's 16 rows in bf16 and 8
-// in f32, which reach D 704 and D 1,024), bf16 products through
-// nvcuda::wmma (16x16x16) with the f32 accumulators and the score tile
-// staged in shared memory, f32 products through scalar FMA loops (the f32
-// path is where the algorithm is checked against the reference), tiles
-// loaded synchronously.  K3 and K4 are the next redesign.
+// The f32 instantiations of all four and the bf16 ones past D 128 are the
+// first design: 64-row (bf16) or 32-row (f32) tiles, halved until the
+// shared-memory plan fits (down to wmma's 16 rows in bf16 and 8 in f32),
+// bf16 products through nvcuda::wmma (16x16x16) with the f32 accumulators
+// and the score tile staged in shared memory, f32 products through scalar
+// FMA loops (the f32 path is where the algorithm is checked against the
+// reference), tiles loaded synchronously.  A head wider than the least row
+// count fits (704 in bf16, 1,024 in f32) is cut into column slices on a
+// third grid axis (struct Cols): each CTA sums S and dP over all the
+// columns, streamed a slice at a time through the same tiles in the same
+// order as every other CTA, and owns one slice of O, dQ, or dK and dV.
 //
 // Bound on this card.  At the training shape (BH 384, T 1024, D 64, causal,
 // bf16) K1 does 2 * (2*BH*T^2*D) / 2 = 52 GFLOP against 0.2 GB of q/k/v/o:
@@ -77,7 +81,7 @@ template <>
 struct Tile<bf16> {
   static constexpr int kRows = 64;
   static constexpr int kMinRows = 16;  // wmma's m16
-  static constexpr int kMaxD = 704;    // the widest head 16 rows fit
+  static constexpr int kMaxD = 704;  // the widest slice 16 rows fit
   static constexpr int kPadT = 8;  // bf16 tiles: ld = Dp + 8 (16 bytes)
   static constexpr int kPadF = 4;  // f32 accumulators: ld = Dp + 4
   // f32 score / dP tiles unpadded: with them the backward kernels' plan
@@ -88,7 +92,7 @@ template <>
 struct Tile<float> {
   static constexpr int kRows = 32;
   static constexpr int kMinRows = 8;  // scalar FMA: any count; 8 keeps a warp
-  static constexpr int kMaxD = 1024;  // the widest head 8 rows fit
+  static constexpr int kMaxD = 1024;  // the widest slice 8 rows fit
   static constexpr int kPadT = 1;
   static constexpr int kPadF = 1;
   static constexpr int kPadS = 1;
@@ -162,30 +166,45 @@ __device__ void gemm(float* C, int ldc, const T* A, int lda, const T* B,
   }
 }
 
-// rows [row0, row0 + rows) of a [T, D] slab into a [rows, Dp] shared tile
-// (ld lds); rows past T and columns past D read as zero.  bf16 moves as
-// 16-byte vectors (D % 8 == 0, so a vector never straddles a row).
+// rows [row0, row0 + rows) and columns [col0, col0 + nc) of a [T, D] slab
+// into a [rows, Dp] shared tile (ld lds); rows past T and columns past nc
+// read as zero.  bf16 moves as 16-byte vectors (D, col0 and nc are
+// multiples of 8, so a vector never straddles a row).
 template <typename T>
 __device__ void load_tile(T* s, int lds, const T* g, int row0, int T_, int D,
-                          int Dp, int rows) {
+                          int col0, int nc, int Dp, int rows) {
   if constexpr (std::is_same<T, bf16>::value) {
     const int cpr = Dp / 8;
     for (int i = threadIdx.x; i < rows * cpr; i += blockDim.x) {
       const int r = i / cpr, c = (i - r * cpr) * 8;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < T_ && c < D)
-        v = *reinterpret_cast<const uint4*>(g + (long long)(row0 + r) * D + c);
+      if (row0 + r < T_ && c < nc)
+        v = *reinterpret_cast<const uint4*>(g + (long long)(row0 + r) * D +
+                                            col0 + c);
       *reinterpret_cast<uint4*>(s + r * lds + c) = v;
     }
   } else {
     for (int i = threadIdx.x; i < rows * Dp; i += blockDim.x) {
       const int r = i / Dp, c = i - r * Dp;
-      s[r * lds + c] = (row0 + r < T_ && c < D)
-                           ? g[(long long)(row0 + r) * D + c]
+      s[r * lds + c] = (row0 + r < T_ && c < nc)
+                           ? g[(long long)(row0 + r) * D + col0 + c]
                            : 0.f;
     }
   }
 }
+
+// The head's columns as the first design cuts them: gridDim.z slices of
+// SW columns (the last one narrower); a CTA owns slice blockIdx.z of its
+// outputs.  S = Q K^T and dP = dO V^T need every column, so they are
+// summed over the slices' column ranges in order 0, 1, ..., the same
+// order in every CTA, which therefore sees the same scores and softmax.
+struct Cols {
+  int SW, ns, col0, nc;
+  __device__ explicit Cols(int D, int SW_)
+      : SW(SW_), ns(gridDim.z), col0(blockIdx.z * SW_),
+        nc(min(SW_, D - (int)blockIdx.z * SW_)) {}
+  __device__ int width(int c, int D) const { return min(SW, D - c * SW); }
+};
 
 // shared-memory plan, shared by the kernels and their launchers.  f32
 // regions come first, then the T tiles; every region size is a multiple of
@@ -260,9 +279,9 @@ template <typename T, int B>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int T_, int D, float scale,
-                     int causal) {
-  const Smem<T, B> sm(D);
+                     float* __restrict__ lse, int T_, int D, int SW,
+                     float scale, int causal) {
+  const Smem<T, B> sm(SW);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* ss = reinterpret_cast<float*>(smem_raw);  // [B, lds] scores
   float* acc = ss + sm.tile_s();                   // [B, lda]
@@ -279,8 +298,9 @@ __global__ void __launch_bounds__(kThreads)
   const int nwarps = blockDim.x >> 5;
   const long long base = (long long)bh * T_ * D;
   const int Dp = sm.Dp;
+  const Cols cs(D, SW);
 
-  load_tile(qs, sm.ldt, q + base, r0, T_, D, Dp, B);
+  if (cs.ns == 1) load_tile(qs, sm.ldt, q + base, r0, T_, D, 0, D, Dp, B);
   for (int i = tid; i < B * sm.lda; i += blockDim.x) acc[i] = 0.f;
   for (int r = tid; r < B; r += blockDim.x) {
     m_s[r] = kNegInf;
@@ -289,11 +309,21 @@ __global__ void __launch_bounds__(kThreads)
   const int n_kv = causal ? qt + 1 : (T_ + B - 1) / B;
   for (int kt = 0; kt < n_kv; ++kt) {
     const int c0 = kt * B;
-    __syncthreads();  // the previous step is done with ks / vs / ps
-    load_tile(ks, sm.ldt, k + base, c0, T_, D, Dp, B);
-    load_tile(vs, sm.ldt, v + base, c0, T_, D, Dp, B);
-    __syncthreads();
-    gemm<T, false, true>(ss, sm.lds, qs, sm.ldt, ks, sm.ldt, B, B, Dp, false);
+    // S = Q K^T over the column slices in order; V's slice comes with
+    // the last one
+    for (int c = 0; c < cs.ns; ++c) {
+      __syncthreads();  // the previous product is done with qs / ks / vs
+      if (cs.ns > 1)
+        load_tile(qs, sm.ldt, q + base, r0, T_, D, c * SW, cs.width(c, D),
+                  Dp, B);
+      load_tile(ks, sm.ldt, k + base, c0, T_, D, c * SW, cs.width(c, D), Dp,
+                B);
+      if (c == cs.ns - 1)
+        load_tile(vs, sm.ldt, v + base, c0, T_, D, cs.col0, cs.nc, Dp, B);
+      __syncthreads();
+      gemm<T, false, true>(ss, sm.lds, qs, sm.ldt, ks, sm.ldt, B, B, Dp,
+                           c > 0);
+    }
     __syncthreads();
     for (int r = warp; r < B; r += nwarps) {
       const int row = r0 + r;
@@ -331,18 +361,20 @@ __global__ void __launch_bounds__(kThreads)
     gemm<T, false, false>(acc, sm.lda, ps, sm.ldp, vs, sm.ldt, B, Dp, B, true);
   }
   __syncthreads();
-  for (int i = tid; i < B * D; i += blockDim.x) {
-    const int r = i / D, d = i - r * D;
+  for (int i = tid; i < B * cs.nc; i += blockDim.x) {
+    const int r = i / cs.nc, d = i - r * cs.nc;
     if (r0 + r < T_) {
       const float l = l_s[r];
-      o[base + (long long)(r0 + r) * D + d] =
+      o[base + (long long)(r0 + r) * D + cs.col0 + d] =
           from_f32<T>(acc[r * sm.lda + d] / (l == 0.f ? 1.f : l));
     }
   }
-  for (int r = tid; r < B; r += blockDim.x) {
-    if (r0 + r < T_) {
-      const float l = l_s[r];
-      lse[(long long)bh * T_ + r0 + r] = m_s[r] + logf(l == 0.f ? 1.f : l);
+  if (blockIdx.z == 0) {
+    for (int r = tid; r < B; r += blockDim.x) {
+      if (r0 + r < T_) {
+        const float l = l_s[r];
+        lse[(long long)bh * T_ + r0 + r] = m_s[r] + logf(l == 0.f ? 1.f : l);
+      }
     }
   }
 }
@@ -378,8 +410,8 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ delta,
                         const T* __restrict__ out, float* __restrict__ dq_acc,
                         T* __restrict__ dk, T* __restrict__ dv, int T_, int D,
-                        float scale, int causal) {
-  const Smem<T, B> sm(D);
+                        int SW, float scale, int causal) {
+  const Smem<T, B> sm(SW);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* pf = reinterpret_cast<float*>(smem_raw);  // [B, lds] P (f32)
   float* dpf = pf + sm.tile_s();                   // [B, lds] dP
@@ -399,45 +431,68 @@ __global__ void __launch_bounds__(kThreads)
   const long long base = (long long)bh * T_ * D;
   const long long vbase = (long long)bh * T_;
   const int Dp = sm.Dp;
+  const Cols cs(D, SW);
 
-  load_tile(ks, sm.ldt, k + base, c0, T_, D, Dp, B);
-  load_tile(vs, sm.ldt, v + base, c0, T_, D, Dp, B);
+  if (cs.ns == 1) {  // K and V stay for the walk
+    load_tile(ks, sm.ldt, k + base, c0, T_, D, 0, D, Dp, B);
+    load_tile(vs, sm.ldt, v + base, c0, T_, D, 0, D, Dp, B);
+  }
   for (int i = tid; i < 2 * sm.tile_a(); i += blockDim.x) dk_acc[i] = 0.f;
   const int n_q = (T_ + B - 1) / B;
   for (int qt = causal ? kt : 0; qt < n_q; ++qt) {
     const int r0 = qt * B;
-    __syncthreads();  // the previous step is done with every tile
-    load_tile(qs, sm.ldt, q + base, r0, T_, D, Dp, B);
-    load_tile(dos, sm.ldt, dout + base, r0, T_, D, Dp, B);
-    if constexpr (kFused) {
-      // delta = rowsum(dO * O) in f32 straight from HBM: kThreads / B
-      // neighbouring threads per row, each over every (kThreads / B)-th
-      // column, all rows at once, so the loads are in flight together
-      constexpr int kTpr = kThreads / B;
-      const int r = tid / kTpr, part = tid - r * kTpr, row = r0 + r;
-      float s = 0.f;
-      if (row < T_) {
-        const long long off = base + (long long)row * D;
+    // S = Q K^T and dP = dO V^T over the column slices in order
+    for (int c = 0; c < cs.ns; ++c) {
+      __syncthreads();  // the previous step is done with every tile
+      const int c_lo = c * SW, w = cs.width(c, D);
+      if (cs.ns > 1) {
+        load_tile(ks, sm.ldt, k + base, c0, T_, D, c_lo, w, Dp, B);
+        load_tile(vs, sm.ldt, v + base, c0, T_, D, c_lo, w, Dp, B);
+      }
+      load_tile(qs, sm.ldt, q + base, r0, T_, D, c_lo, w, Dp, B);
+      load_tile(dos, sm.ldt, dout + base, r0, T_, D, c_lo, w, Dp, B);
+      if (c == 0) {
+        if constexpr (kFused) {
+          // delta = rowsum(dO * O) in f32 straight from HBM: kThreads / B
+          // neighbouring threads per row, each over every (kThreads /
+          // B)-th column, all rows at once, so the loads are in flight
+          // together
+          constexpr int kTpr = kThreads / B;
+          const int r = tid / kTpr, part = tid - r * kTpr, row = r0 + r;
+          float s = 0.f;
+          if (row < T_) {
+            const long long off = base + (long long)row * D;
 #pragma unroll 8
-        for (int d = part; d < D; d += kTpr)
-          s += to_f32(dout[off + d]) * to_f32(out[off + d]);
+            for (int d = part; d < D; d += kTpr)
+              s += to_f32(dout[off + d]) * to_f32(out[off + d]);
+          }
+          for (int o = kTpr / 2; o > 0; o >>= 1)
+            s += __shfl_xor_sync(0xffffffffu, s, o);
+          if (part == 0) {
+            dl_s[r] = s;
+            lse_s[r] = row < T_ ? lse[vbase + row] : 0.f;
+          }
+        } else {
+          for (int r = tid; r < B; r += blockDim.x) {
+            const int row = r0 + r;
+            lse_s[r] = row < T_ ? lse[vbase + row] : 0.f;
+            dl_s[r] = row < T_ ? delta[vbase + row] : 0.f;
+          }
+        }
       }
-      for (int o = kTpr / 2; o > 0; o >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (part == 0) {
-        dl_s[r] = s;
-        lse_s[r] = row < T_ ? lse[vbase + row] : 0.f;
-      }
-    } else {
-      for (int r = tid; r < B; r += blockDim.x) {
-        const int row = r0 + r;
-        lse_s[r] = row < T_ ? lse[vbase + row] : 0.f;
-        dl_s[r] = row < T_ ? delta[vbase + row] : 0.f;
-      }
+      __syncthreads();
+      gemm<T, false, true>(pf, sm.lds, qs, sm.ldt, ks, sm.ldt, B, B, Dp,
+                           c > 0);
+      gemm<T, false, true>(dpf, sm.lds, dos, sm.ldt, vs, sm.ldt, B, B, Dp,
+                           c > 0);
     }
     __syncthreads();
-    gemm<T, false, true>(pf, sm.lds, qs, sm.ldt, ks, sm.ldt, B, B, Dp, false);
-    __syncthreads();
+    if (cs.ns > 1) {  // this CTA's slice of Q and dO (and K for K2's dQ)
+      load_tile(qs, sm.ldt, q + base, r0, T_, D, cs.col0, cs.nc, Dp, B);
+      load_tile(dos, sm.ldt, dout + base, r0, T_, D, cs.col0, cs.nc, Dp, B);
+      if constexpr (kFused)
+        load_tile(ks, sm.ldt, k + base, c0, T_, D, cs.col0, cs.nc, Dp, B);
+    }
     for (int i = tid; i < B * B; i += blockDim.x) {
       const int r = i / B, c = i - r * B;
       const int row = r0 + r, col = c0 + c;
@@ -448,11 +503,9 @@ __global__ void __launch_bounds__(kThreads)
       pc[r * sm.ldp + c] = from_f32<T>(p);
     }
     __syncthreads();
-    // dV += P^T dO  and  dP = dO V^T  (independent: no barrier between)
+    // dV += P^T dO
     gemm<T, true, false>(dv_acc, sm.lda, pc, sm.ldp, dos, sm.ldt, B, Dp, B,
                          true);
-    gemm<T, false, true>(dpf, sm.lds, dos, sm.ldt, vs, sm.ldt, B, B, Dp,
-                         false);
     __syncthreads();
     for (int i = tid; i < B * B; i += blockDim.x) {
       const int r = i / B, c = i - r * B;
@@ -467,25 +520,27 @@ __global__ void __launch_bounds__(kThreads)
       gemm<T, false, false>(dqt, sm.lda, pc, sm.ldp, ks, sm.ldt, B, Dp, B,
                             false);
       __syncthreads();
-      // four columns an atomic: sm_90's 16-byte vector atomic add (D % 8
-      // == 0 keeps every row's float4s aligned in the scratch)
-      const int d4 = D / 4;
+      // four columns an atomic: sm_90's 16-byte vector atomic add (D, col0
+      // and nc multiples of 8 keep every row's float4s aligned in the
+      // scratch)
+      const int d4 = cs.nc / 4;
       for (int i = tid; i < B * d4; i += blockDim.x) {
         const int r = i / d4, d = (i - r * d4) * 4;
         if (r0 + r < T_) {
           const float* src = dqt + r * sm.lda + d;
           atomicAdd(reinterpret_cast<float4*>(
-                        dq_acc + base + (long long)(r0 + r) * D + d),
+                        dq_acc + base + (long long)(r0 + r) * D + cs.col0 +
+                        d),
                     make_float4(src[0], src[1], src[2], src[3]));
         }
       }
     }
   }
   __syncthreads();
-  for (int i = tid; i < B * D; i += blockDim.x) {
-    const int r = i / D, d = i - r * D;
+  for (int i = tid; i < B * cs.nc; i += blockDim.x) {
+    const int r = i / cs.nc, d = i - r * cs.nc;
     if (c0 + r < T_) {
-      const long long off = base + (long long)(c0 + r) * D + d;
+      const long long off = base + (long long)(c0 + r) * D + cs.col0 + d;
       dk[off] = from_f32<T>(dk_acc[r * sm.lda + d]);
       dv[off] = from_f32<T>(dv_acc[r * sm.lda + d]);
     }
@@ -511,8 +566,8 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        int T_, int D, float scale, int causal) {
-  const Smem<T, B> sm(D);
+                        int T_, int D, int SW, float scale, int causal) {
+  const Smem<T, B> sm(SW);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* sf = reinterpret_cast<float*>(smem_raw);  // [B, lds] S
   float* dpf = sf + sm.tile_s();                   // [B, lds] dP
@@ -530,9 +585,12 @@ __global__ void __launch_bounds__(kThreads)
   const long long base = (long long)bh * T_ * D;
   const long long vbase = (long long)bh * T_;
   const int Dp = sm.Dp;
+  const Cols cs(D, SW);
 
-  load_tile(qs, sm.ldt, q + base, r0, T_, D, Dp, B);
-  load_tile(dos, sm.ldt, dout + base, r0, T_, D, Dp, B);
+  if (cs.ns == 1) {  // Q and dO stay for the walk
+    load_tile(qs, sm.ldt, q + base, r0, T_, D, 0, D, Dp, B);
+    load_tile(dos, sm.ldt, dout + base, r0, T_, D, 0, D, Dp, B);
+  }
   for (int i = tid; i < sm.tile_a(); i += blockDim.x) dq_accs[i] = 0.f;
   for (int r = tid; r < B; r += blockDim.x) {
     const int row = r0 + r;
@@ -542,14 +600,25 @@ __global__ void __launch_bounds__(kThreads)
   const int n_kv = causal ? qt + 1 : (T_ + B - 1) / B;
   for (int kt = 0; kt < n_kv; ++kt) {
     const int c0 = kt * B;
+    // S = Q K^T and dP = dO V^T over the column slices in order
+    for (int c = 0; c < cs.ns; ++c) {
+      __syncthreads();
+      const int c_lo = c * SW, w = cs.width(c, D);
+      if (cs.ns > 1) {
+        load_tile(qs, sm.ldt, q + base, r0, T_, D, c_lo, w, Dp, B);
+        load_tile(dos, sm.ldt, dout + base, r0, T_, D, c_lo, w, Dp, B);
+      }
+      load_tile(ks, sm.ldt, k + base, c0, T_, D, c_lo, w, Dp, B);
+      load_tile(vs, sm.ldt, v + base, c0, T_, D, c_lo, w, Dp, B);
+      __syncthreads();
+      gemm<T, false, true>(sf, sm.lds, qs, sm.ldt, ks, sm.ldt, B, B, Dp,
+                           c > 0);
+      gemm<T, false, true>(dpf, sm.lds, dos, sm.ldt, vs, sm.ldt, B, B, Dp,
+                           c > 0);
+    }
     __syncthreads();
-    load_tile(ks, sm.ldt, k + base, c0, T_, D, Dp, B);
-    load_tile(vs, sm.ldt, v + base, c0, T_, D, Dp, B);
-    __syncthreads();
-    gemm<T, false, true>(sf, sm.lds, qs, sm.ldt, ks, sm.ldt, B, B, Dp, false);
-    gemm<T, false, true>(dpf, sm.lds, dos, sm.ldt, vs, sm.ldt, B, B, Dp,
-                         false);
-    __syncthreads();
+    if (cs.ns > 1)  // this CTA's slice of K
+      load_tile(ks, sm.ldt, k + base, c0, T_, D, cs.col0, cs.nc, Dp, B);
     for (int i = tid; i < B * B; i += blockDim.x) {
       const int r = i / B, c = i - r * B;
       const int row = r0 + r, col = c0 + c;
@@ -564,10 +633,10 @@ __global__ void __launch_bounds__(kThreads)
                           true);
   }
   __syncthreads();
-  for (int i = tid; i < B * D; i += blockDim.x) {
-    const int r = i / D, d = i - r * D;
+  for (int i = tid; i < B * cs.nc; i += blockDim.x) {
+    const int r = i / cs.nc, d = i - r * cs.nc;
     if (r0 + r < T_)
-      dq[base + (long long)(r0 + r) * D + d] =
+      dq[base + (long long)(r0 + r) * D + cs.col0 + d] =
           from_f32<T>(dq_accs[r * sm.lda + d]);
   }
 }
@@ -877,13 +946,14 @@ __global__ void __launch_bounds__(FwdPlan<DP>::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// K2, bf16: the fused backward, seen from one kv tile.
+// K2 and K4, bf16: the backward seen from one kv tile (kFused: K2).
 //
-// Replaces ray_tpu/ops/attention.py:202 `_build_bwd_fused` (pallas_call at
-// l.238).
+// K2 replaces ray_tpu/ops/attention.py:202 `_build_bwd_fused` (pallas_call
+// at l.238); K4 (kFused = false) replaces ray_tpu/ops/attention.py:253
+// `_build_bwd_dkv` (pallas_call at l.296).
 //
-// Bound at the training shape: tensor-core operations, 0.130 ms (five
-// products over the causal pairs).  Design: one CTA per (bh, kv tile of
+// Bound at the training shape: tensor-core operations, K2 0.130 ms (five
+// products over the causal pairs), K4 0.104 ms (four).  Design (K2): one CTA per (bh, kv tile of
 // 64 * NWG rows), NWG consumer warpgroups of 64 kv rows each.  K and V are
 // loaded once; the producer warpgroup streams the q tiles of 64 rows, from
 // the diagonal down, as (Q, dO, O) into a ring (three stages at D = 64,
@@ -907,29 +977,40 @@ __global__ void __launch_bounds__(FwdPlan<DP>::kThreads, 1)
 // D = 64 runs two warpgroups on 128-row kv tiles; D = 128 one warpgroup
 // on 64-row tiles, which keeps dK, dV (64 registers each), S^T, dP^T and
 // dQ's 64 under the 255-register limit.
+// K4 is the same walk with less: delta is the wrapper's [BH, T] vector,
+// read by the row-data warps beside lse, so the ring carries Q and dO
+// only; there is no dQ product, so no dS^T tile, no f32 staging and no
+// reduce-adds, and the shared memory that frees deepens the ring to four
+// stages.  Its four products pipeline as K1's two do: S^T and dP^T of q
+// step i are issued together with dV and dK of step i - 1, and P^T and
+// dS^T of step i are computed while those run.
 // ---------------------------------------------------------------------------
-template <int DP, int NWG>
+template <int DP, int NWG, bool kFused>
 struct BwdPlan {
   static constexpr int kPanels = DP / kPanel;
   static constexpr int kKvRows = 64 * NWG;
   static constexpr int kQRows = 64;
   static constexpr int kKv = kPanels * kKvRows * kPanel;  // bf16 elements
   static constexpr int kQ = kPanels * kQRows * kPanel;
-  static constexpr int kStages = DP == 64 ? 3 : 2;  // the (Q, dO, O) ring
+  // the ring: (Q, dO, O) in K2, (Q, dO) in K4
+  static constexpr int kRing = kFused ? 3 : 2;
+  static constexpr int kStages = !kFused ? 4 : DP == 64 ? 3 : 2;
   static constexpr int kDqCols = DP / NWG;  // dQ columns a warpgroup owns
-  static constexpr int kStage = kQRows * kDqCols;  // its f32 dQ tile
+  // K2's dS^T tiles and f32 dQ staging tiles, in elements (none in K4)
+  static constexpr int kDst = kFused ? 2 * kKvRows * 64 : 0;
+  static constexpr int kStage = kFused ? kQRows * kDqCols : 0;
   static constexpr int kThreads = (NWG + 1) * kWarpgroup;
-  // K, V; the ring's Q, dO, O; two dS^T [kv, 64]; per warpgroup two f32
-  // dQ staging tiles; per stage lse and delta [64]; barriers; + 1 KB to
-  // align (171 KB at D = 64, 210 KB at D = 128)
+  // K, V; the ring; two dS^T [kv, 64]; per warpgroup two f32 dQ staging
+  // tiles; per stage lse and delta [64]; barriers; + 1 KB to align (K2:
+  // 171 KB at D = 64, 210 KB at D = 128; K4: 99 KB and 163 KB)
   static constexpr size_t kBytes =
-      2 * ((size_t)2 * kKv + 3 * kStages * kQ + 2 * kKvRows * 64) +
+      2 * ((size_t)2 * kKv + kRing * kStages * kQ + kDst) +
       4 * ((size_t)2 * NWG * kStage + kStages * 2 * 64) +
       8 * (1 + 3 * kStages) + 1024;
 };
 
-template <int DP, int NWG>
-__global__ void __launch_bounds__(BwdPlan<DP, NWG>::kThreads, 1)
+template <int DP, int NWG, bool kFused>
+__global__ void __launch_bounds__(BwdPlan<DP, NWG, kFused>::kThreads, 1)
     flash_bwd_fused_wgmma(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
@@ -937,21 +1018,22 @@ __global__ void __launch_bounds__(BwdPlan<DP, NWG>::kThreads, 1)
                           const __grid_constant__ CUtensorMap map_o,
                           const __grid_constant__ CUtensorMap map_dq,
                           const float* __restrict__ lse,
+                          const float* __restrict__ delta,
                           bf16* __restrict__ dk,
                           bf16* __restrict__ dv, int T_, int D, float scale,
                           int causal) {
-  using Plan = BwdPlan<DP, NWG>;
+  using Plan = BwdPlan<DP, NWG, kFused>;
   constexpr int BK = Plan::kKvRows, BQ = Plan::kQRows, S = Plan::kStages;
   constexpr int NC = NWG * kWarpgroup;  // consumer threads
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
   bf16* ks = reinterpret_cast<bf16*>(base);
   bf16* vs = ks + Plan::kKv;
-  bf16* qs = vs + Plan::kKv;  // ring: [stage] Q, then dO, then O
+  bf16* qs = vs + Plan::kKv;  // ring: [stage] Q, then dO, then O (K2)
   bf16* dos = qs + S * Plan::kQ;
   bf16* os = dos + S * Plan::kQ;
-  bf16* dst = os + S * Plan::kQ;  // [2] dS^T [BK, 64], swizzled
-  float* stage_dq = reinterpret_cast<float*>(dst + 2 * BK * 64);  // [NWG][2]
+  bf16* dst = qs + Plan::kRing * S * Plan::kQ;  // K2: [2] dS^T [BK, 64]
+  float* stage_dq = reinterpret_cast<float*>(dst + Plan::kDst);  // [NWG][2]
   float* rowdata = stage_dq + 2 * NWG * Plan::kStage;  // [S][lse, delta]
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(rowdata + S * 128);
   uint64_t* full = kv_full + 1;   // the stage's tiles have landed
@@ -989,32 +1071,34 @@ __global__ void __launch_bounds__(BwdPlan<DP, NWG>::kThreads, 1)
       for (int qi = q_first, i = 0; qi < n_q; ++qi, ++i) {
         const int s = i % S;
         hopper::mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
-        hopper::mbar_expect_tx(&full[s], 3 * Plan::kQ * 2);
+        hopper::mbar_expect_tx(&full[s], Plan::kRing * Plan::kQ * 2);
         for (int p = 0; p < Plan::kPanels; ++p) {
           const int off = s * Plan::kQ + p * BQ * kPanel;
           hopper::tma_load_3d(qs + off, &map_q, &full[s], p * kPanel,
                               qi * BQ, bh);
           hopper::tma_load_3d(dos + off, &map_do, &full[s], p * kPanel,
                               qi * BQ, bh);
-          hopper::tma_load_3d(os + off, &map_o, &full[s], p * kPanel,
-                              qi * BQ, bh);
+          if constexpr (kFused)
+            hopper::tma_load_3d(os + off, &map_o, &full[s], p * kPanel,
+                                qi * BQ, bh);
         }
       }
     } else if (pw == 1 || pw == 2) {
-      // row data of each q tile, one row a thread: lse (times log2 e)
-      // and delta = rowsum(dO * O) from the landed tiles (rows past T
-      // were zero-filled: delta 0)
+      // row data of each q tile, one row a thread: lse (times log2 e),
+      // and delta: K4's from the wrapper, K2's = rowsum(dO * O) from the
+      // landed tiles (rows past T were zero-filled: delta 0)
       const int r = (pw - 1) * 32 + lane;
       for (int qi = q_first, i = 0; qi < n_q; ++qi, ++i) {
         const int s = i % S, row = qi * BQ + r;
         const float l = row < T_ ? lse[head + row] : 0.f;
+        float d = 0.f;
+        if constexpr (!kFused) d = row < T_ ? delta[head + row] : 0.f;
         hopper::mbar_wait(&full[s], (i / S) & 1);
         const bf16* dot = dos + s * Plan::kQ;
         const bf16* ot = os + s * Plan::kQ;
-        float d = 0.f;
 #pragma unroll
         for (int c = 0; c < DP; c += 8) {
-          if (c < D) {
+          if (kFused && c < D) {
             const int off = (c / kPanel) * BQ * kPanel + swz(r, c % kPanel);
             const uint4 a = *reinterpret_cast<const uint4*>(dot + off);
             const uint4 b = *reinterpret_cast<const uint4*>(ot + off);
@@ -1044,135 +1128,233 @@ __global__ void __launch_bounds__(BwdPlan<DP, NWG>::kThreads, 1)
   // consumers: warpgroup wg owns kv rows [c0 + 64 wg, c0 + 64 wg + 64)
   if constexpr (NWG == 2) hopper::reg_alloc<kConsumerRegs>();
   const int wg = warp >> 2;
-  const bool leader = (threadIdx.x & (kWarpgroup - 1)) == 0;
   const int kv_base = c0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
   const float scale_log2 = scale * kLog2e;
   float dk_acc[DP / 2], dv_acc[DP / 2];
 #pragma unroll
   for (int j = 0; j < DP / 2; ++j) dk_acc[j] = dv_acc[j] = 0.f;
-  float st[32], dpt[32], dq[Plan::kDqCols / 2];
+  float st[32], dpt[32];
 #pragma unroll
   for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
+
+  if constexpr (kFused) {
+    const bool leader = (threadIdx.x & (kWarpgroup - 1)) == 0;
+    float dq[Plan::kDqCols / 2];
 #pragma unroll
-  for (int j = 0; j < Plan::kDqCols / 2; ++j) dq[j] = 0.f;
+    for (int j = 0; j < Plan::kDqCols / 2; ++j) dq[j] = 0.f;
+    hopper::mbar_wait(kv_full, 0);
+    for (int qi = q_first, i = 0; qi < n_q; ++qi, ++i) {
+      const int s = i % S, q0 = qi * BQ;
+      const uint32_t phase = (i / S) & 1;
+      const bf16* qt = qs + s * Plan::kQ;
+      const bf16* dot = dos + s * Plan::kQ;
+      const float* lse_s = rowdata + s * 128;
+      const float* dl_s = lse_s + 64;
+      hopper::mbar_wait(&full[s], phase);
 
-  hopper::mbar_wait(kv_full, 0);
-  for (int qi = q_first, i = 0; qi < n_q; ++qi, ++i) {
-    const int s = i % S, q0 = qi * BQ;
-    const uint32_t phase = (i / S) & 1;
-    const bf16* qt = qs + s * Plan::kQ;
-    const bf16* dot = dos + s * Plan::kQ;
-    const float* lse_s = rowdata + s * 128;
-    const float* dl_s = lse_s + 64;
-    hopper::mbar_wait(&full[s], phase);
+      // S^T = K Q^T and dP^T = V dO^T, kv rows as M
+      hopper::wgmma_fence();
+  #pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hopper::wgmma_ss<64, 0, 0>(st, desc_k(ks, BK, wg * 64, kk),
+                                   desc_k(qt, BQ, 0, kk), kk > 0);
+  #pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hopper::wgmma_ss<64, 0, 0>(dpt, desc_k(vs, BK, wg * 64, kk),
+                                   desc_k(dot, BQ, 0, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::mbar_wait(&rows_full[s], phase);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
 
-    // S^T = K Q^T and dP^T = V dO^T, kv rows as M
+      // P^T and dS^T in registers (st becomes P^T, dpt dS^T); p = exp(s *
+      // scale - lse) as one FMA into ex2
+      const bool edge = (causal && q0 < c0 + BK) || q0 + BQ > T_ || c0 + BK > T_;
+  #pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int c = acc_col(j, lane);
+        float p = hopper::ex2(fmaf(st[j], scale_log2, -lse_s[c]));
+        if (edge) {
+          const int kv = kv_base + 8 * acc_half(j), q = q0 + c;
+          if (kv >= T_ || q >= T_ || (causal && q < kv)) p = 0.f;
+        }
+        st[j] = p;
+        dpt[j] = p * (dpt[j] - dl_s[c]) * scale;
+      }
+
+      // dV += P^T dO and dK += dS^T Q, A from registers, B MN-major
+      uint32_t pa[BQ / 4], da[BQ / 4];
+  #pragma unroll
+      for (int t = 0; t < BQ / 16; ++t) {
+        a_frag(pa + 4 * t, st, t);
+        a_frag(da + 4 * t, dpt, t);
+      }
+      hopper::wgmma_fence();
+  #pragma unroll
+      for (int t = 0; t < BQ / 16; ++t)
+        hopper::wgmma_rs<DP, 1>(dv_acc, pa + 4 * t, desc_mn(dot, BQ, t, 0), 1);
+  #pragma unroll
+      for (int t = 0; t < BQ / 16; ++t)
+        hopper::wgmma_rs<DP, 1>(dk_acc, da + 4 * t, desc_mn(qt, BQ, t, 0), 1);
+      hopper::wgmma_commit();
+
+      // dS^T (bf16) to shared memory for dQ, while those run.  Every
+      // warpgroup's dQ reads all BK rows, so the buffer alternates by step:
+      // a warpgroup that runs ahead writes the other one, and can come back
+      // to this one only past the next step's barrier, which the slower
+      // warpgroup reaches after its dQ product here has completed
+      bf16* dst_i = dst + (i & 1) * BK * 64;
+  #pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        const int r = kv_base - c0 + 8 * acc_half(j), c = acc_col(j, lane);
+        *reinterpret_cast<__nv_bfloat162*>(dst_i + swz(r, c)) =
+            __floats2bfloat162_rn(dpt[j], dpt[j + 1]);
+      }
+      hopper::fence_proxy_async();
+      // this warpgroup's staging tile written below was last read by its
+      // reduce-adds two steps back
+      if (leader) hopper::bulk_wait_read<1>();
+      hopper::named_sync(3, NC);  // dS^T complete, from every warpgroup
+
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dv_acc);
+      hopper::fence_regs(dk_acc);
+      hopper::fence_regs(pa);
+      hopper::fence_regs(da);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+
+      // dQ[:, wg's columns] = dS K, both operands MN-major
+      hopper::wgmma_fence();
+  #pragma unroll
+      for (int t = 0; t < BK / 16; ++t)
+        hopper::wgmma_ss<Plan::kDqCols, 1, 1>(
+            dq, desc_mn(dst_i, BK, t, 0), desc_mn(ks, BK, t, wg * Plan::kDqCols),
+            t > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dq);
+
+      // stage this warpgroup's f32 columns in 32-column panels, 128-byte
+      // swizzled (16-byte chunk c of row r at c ^ (r % 8)), and add them to
+      // the scratch with one TMA reduce-add a panel, which drops rows past T
+      // and columns past D
+      float* stage = stage_dq + (wg * 2 + (i & 1)) * Plan::kStage;
+  #pragma unroll
+      for (int j = 0; j < Plan::kDqCols / 2; j += 2) {
+        const int r = (warp & 3) * 16 + (lane >> 2) + 8 * acc_half(j);
+        const int c = acc_col(j, lane);
+        *reinterpret_cast<float2*>(stage + (c >> 5) * BQ * 32 + r * 32 +
+                                   ((((c >> 2) ^ r) & 7) << 2) + (c & 3)) =
+            make_float2(dq[j], dq[j + 1]);
+      }
+      hopper::fence_proxy_async();
+      hopper::named_sync(1 + wg, kWarpgroup);
+      if (leader) {
+        for (int p = 0; p < Plan::kDqCols / 32; ++p)
+          hopper::tma_reduce_add_3d(&map_dq, stage + p * BQ * 32,
+                                    wg * Plan::kDqCols + p * 32, q0, bh);
+        hopper::bulk_commit();
+      }
+    }
+    if (leader) hopper::bulk_wait<0>();
+  } else {
+    // K4: the software pipeline of the file note
+    const int n = n_q - q_first;
+    uint32_t pa[BQ / 4], da[BQ / 4];
+    // S^T = K Q^T and dP^T = V dO^T of q step i, kv rows as M (one group)
+    auto issue_s = [&](int i) {
+      const int s = i % S;
+      const bf16* qt = qs + s * Plan::kQ;
+      const bf16* dot = dos + s * Plan::kQ;
+      hopper::mbar_wait(&full[s], (i / S) & 1);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hopper::wgmma_ss<64, 0, 0>(st, desc_k(ks, BK, wg * 64, kk),
+                                   desc_k(qt, BQ, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hopper::wgmma_ss<64, 0, 0>(dpt, desc_k(vs, BK, wg * 64, kk),
+                                   desc_k(dot, BQ, 0, kk), kk > 0);
+      hopper::wgmma_commit();
+    };
+    // dV += P^T dO and dK += dS^T Q of q step i, A from registers, B
+    // MN-major (one group)
+    auto issue_kv = [&](int i) {
+      const int s = i % S;
+      const bf16* qt = qs + s * Plan::kQ;
+      const bf16* dot = dos + s * Plan::kQ;
+#pragma unroll
+      for (int t = 0; t < BQ / 16; ++t)
+        hopper::wgmma_rs<DP, 1>(dv_acc, pa + 4 * t, desc_mn(dot, BQ, t, 0),
+                                1);
+#pragma unroll
+      for (int t = 0; t < BQ / 16; ++t)
+        hopper::wgmma_rs<DP, 1>(dk_acc, da + 4 * t, desc_mn(qt, BQ, t, 0), 1);
+      hopper::wgmma_commit();
+    };
+    // P^T and dS^T of q step i in st and dpt, as K2 computes them
+    auto probs = [&](int i) {
+      const int s = i % S, q0 = (q_first + i) * BQ;
+      const float* lse_s = rowdata + s * 128;
+      const float* dl_s = lse_s + 64;
+      hopper::mbar_wait(&rows_full[s], (i / S) & 1);
+      const bool edge =
+          (causal && q0 < c0 + BK) || q0 + BQ > T_ || c0 + BK > T_;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int c = acc_col(j, lane);
+        float p = hopper::ex2(fmaf(st[j], scale_log2, -lse_s[c]));
+        if (edge) {
+          const int kv = kv_base + 8 * acc_half(j), q = q0 + c;
+          if (kv >= T_ || q >= T_ || (causal && q < kv)) p = 0.f;
+        }
+        st[j] = p;
+        dpt[j] = p * (dpt[j] - dl_s[c]) * scale;
+      }
+    };
+    auto pack = [&] {
+#pragma unroll
+      for (int t = 0; t < BQ / 16; ++t) {
+        a_frag(pa + 4 * t, st, t);
+        a_frag(da + 4 * t, dpt, t);
+      }
+    };
+    auto done = [&](int i) {  // step i's products are in: release its stage
+      hopper::fence_regs(dv_acc);
+      hopper::fence_regs(dk_acc);
+      hopper::fence_regs(pa);
+      hopper::fence_regs(da);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[i % S]);
+    };
+
+    hopper::mbar_wait(kv_full, 0);
     hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      hopper::wgmma_ss<64, 0, 0>(st, desc_k(ks, BK, wg * 64, kk),
-                                 desc_k(qt, BQ, 0, kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      hopper::wgmma_ss<64, 0, 0>(dpt, desc_k(vs, BK, wg * 64, kk),
-                                 desc_k(dot, BQ, 0, kk), kk > 0);
-    hopper::wgmma_commit();
-    hopper::mbar_wait(&rows_full[s], phase);
+    issue_s(0);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(st);
     hopper::fence_regs(dpt);
-
-    // P^T and dS^T in registers (st becomes P^T, dpt dS^T); p = exp(s *
-    // scale - lse) as one FMA into ex2
-    const bool edge = (causal && q0 < c0 + BK) || q0 + BQ > T_ || c0 + BK > T_;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = acc_col(j, lane);
-      float p = hopper::ex2(fmaf(st[j], scale_log2, -lse_s[c]));
-      if (edge) {
-        const int kv = kv_base + 8 * acc_half(j), q = q0 + c;
-        if (kv >= T_ || q >= T_ || (causal && q < kv)) p = 0.f;
-      }
-      st[j] = p;
-      dpt[j] = p * (dpt[j] - dl_s[c]) * scale;
-    }
-
-    // dV += P^T dO and dK += dS^T Q, A from registers, B MN-major
-    uint32_t pa[BQ / 4], da[BQ / 4];
-#pragma unroll
-    for (int t = 0; t < BQ / 16; ++t) {
-      a_frag(pa + 4 * t, st, t);
-      a_frag(da + 4 * t, dpt, t);
+    probs(0);
+    pack();
+    for (int i = 1; i < n; ++i) {
+      hopper::wgmma_fence();
+      issue_s(i);
+      issue_kv(i - 1);
+      hopper::wgmma_wait<1>();  // S^T, dP^T of step i are in
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+      probs(i);
+      hopper::wgmma_wait<0>();
+      done(i - 1);
+      pack();
     }
     hopper::wgmma_fence();
-#pragma unroll
-    for (int t = 0; t < BQ / 16; ++t)
-      hopper::wgmma_rs<DP, 1>(dv_acc, pa + 4 * t, desc_mn(dot, BQ, t, 0), 1);
-#pragma unroll
-    for (int t = 0; t < BQ / 16; ++t)
-      hopper::wgmma_rs<DP, 1>(dk_acc, da + 4 * t, desc_mn(qt, BQ, t, 0), 1);
-    hopper::wgmma_commit();
-
-    // dS^T (bf16) to shared memory for dQ, while those run.  Every
-    // warpgroup's dQ reads all BK rows, so the buffer alternates by step:
-    // a warpgroup that runs ahead writes the other one, and can come back
-    // to this one only past the next step's barrier, which the slower
-    // warpgroup reaches after its dQ product here has completed
-    bf16* dst_i = dst + (i & 1) * BK * 64;
-#pragma unroll
-    for (int j = 0; j < 32; j += 2) {
-      const int r = kv_base - c0 + 8 * acc_half(j), c = acc_col(j, lane);
-      *reinterpret_cast<__nv_bfloat162*>(dst_i + swz(r, c)) =
-          __floats2bfloat162_rn(dpt[j], dpt[j + 1]);
-    }
-    hopper::fence_proxy_async();
-    // this warpgroup's staging tile written below was last read by its
-    // reduce-adds two steps back
-    if (leader) hopper::bulk_wait_read<1>();
-    hopper::named_sync(3, NC);  // dS^T complete, from every warpgroup
-
+    issue_kv(n - 1);
     hopper::wgmma_wait<0>();
-    hopper::fence_regs(dv_acc);
-    hopper::fence_regs(dk_acc);
-    hopper::fence_regs(pa);
-    hopper::fence_regs(da);
-    __syncwarp();
-    if (lane == 0) hopper::mbar_arrive(&empty[s]);
-
-    // dQ[:, wg's columns] = dS K, both operands MN-major
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int t = 0; t < BK / 16; ++t)
-      hopper::wgmma_ss<Plan::kDqCols, 1, 1>(
-          dq, desc_mn(dst_i, BK, t, 0), desc_mn(ks, BK, t, wg * Plan::kDqCols),
-          t > 0);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(dq);
-
-    // stage this warpgroup's f32 columns in 32-column panels, 128-byte
-    // swizzled (16-byte chunk c of row r at c ^ (r % 8)), and add them to
-    // the scratch with one TMA reduce-add a panel, which drops rows past T
-    // and columns past D
-    float* stage = stage_dq + (wg * 2 + (i & 1)) * Plan::kStage;
-#pragma unroll
-    for (int j = 0; j < Plan::kDqCols / 2; j += 2) {
-      const int r = (warp & 3) * 16 + (lane >> 2) + 8 * acc_half(j);
-      const int c = acc_col(j, lane);
-      *reinterpret_cast<float2*>(stage + (c >> 5) * BQ * 32 + r * 32 +
-                                 ((((c >> 2) ^ r) & 7) << 2) + (c & 3)) =
-          make_float2(dq[j], dq[j + 1]);
-    }
-    hopper::fence_proxy_async();
-    hopper::named_sync(1 + wg, kWarpgroup);
-    if (leader) {
-      for (int p = 0; p < Plan::kDqCols / 32; ++p)
-        hopper::tma_reduce_add_3d(&map_dq, stage + p * BQ * 32,
-                                  wg * Plan::kDqCols + p * 32, q0, bh);
-      hopper::bulk_commit();
-    }
+    done(n - 1);
   }
-  if (leader) hopper::bulk_wait<0>();
 
   // dK, dV: written once
 #pragma unroll
@@ -1188,6 +1370,248 @@ __global__ void __launch_bounds__(BwdPlan<DP, NWG>::kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3, bf16: dQ from the saved LSE and delta.
+//
+// Replaces ray_tpu/ops/attention.py:143 `_build_bwd_dq` (pallas_call at
+// l.179).
+//
+// Bound at the training shape (BH 384, T 1024, D 64, causal): tensor-core
+// operations, 0.0782 ms (three products over the causal pairs: S, dP and
+// dQ), against 0.061 ms of bytes.  Design: K1's shape.  Persistent CTAs,
+// one an SM, walk work items of (bh, 128-row q tile), longest causal tile
+// first.  The producer loads an item's Q and dO once, into one of two
+// slots, and streams K and V tiles (128 rows at D = 64; 64 at D = 128,
+// which keeps S, dP, dS and dQ inside the consumers' registers) through a
+// ring of three stages, K and V on their own full barriers, so S = Q K^T
+// starts before V lands.  Each consumer warpgroup owns 64 q rows, with
+// their lse and delta in registers.  Per kv tile: S = Q K^T and dP = dO
+// V^T by wgmma into registers; P = exp(S * scale - lse) (0 where masked
+// or past T) and dS = P (dP - delta) * scale in the reference's order,
+// cast to bf16 (as the reference casts it) straight into wgmma's A
+// registers; dQ += dS K by a register-A wgmma, K read through its
+// MN-major descriptor as K1's P V reads V.  S and dP of tile i are issued
+// together with dQ's product of tile i - 1, so dS is computed while the
+// tensor cores work.  dQ stays in f32 registers across the walk and is
+// written once in bf16: deterministic, with no f32 scratch and no atomics.
+// ---------------------------------------------------------------------------
+template <int DP>
+struct DqPlan {
+  static constexpr int kPanels = DP / kPanel;
+  static constexpr int kRows = 128;                    // q rows an item
+  static constexpr int kKvRows = DP == 64 ? 128 : 64;  // kv rows a tile
+  static constexpr int kQ = kPanels * kRows * kPanel;  // bf16 elements
+  static constexpr int kKv = kPanels * kKvRows * kPanel;
+  static constexpr int kStages = 3;
+  static constexpr int kThreads = 3 * kWarpgroup;
+  // two (Q, dO) slots, the K ring, the V ring, the barriers; + 1 KB to
+  // align the base (161 KB at D = 64, 225 KB at D = 128)
+  static constexpr size_t kBytes = 2 * ((size_t)4 * kQ + 2 * kStages * kKv) +
+                                   8 * (4 + 3 * kStages) + 1024;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(DqPlan<DP>::kThreads, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       int BH, int T_, int D, float scale, int causal) {
+  using Plan = DqPlan<DP>;
+  constexpr int R = Plan::kRows, BK = Plan::kKvRows, S = Plan::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  bf16* qs = reinterpret_cast<bf16*>(base);  // [2] Q slots
+  bf16* dos = qs + 2 * Plan::kQ;             // [2] dO slots
+  bf16* ks = dos + 2 * Plan::kQ;
+  bf16* vs = ks + S * Plan::kKv;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + S * Plan::kKv);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* k_full = q_empty + 2;
+  uint64_t* v_full = k_full + S;
+  uint64_t* empty = v_full + S;
+
+  // work items, longest first: item w is q tile nq - 1 - w / BH of head
+  // w % BH; CTA b takes items b, b + gridDim.x, ...
+  const int nq = (T_ + R - 1) / R, n_items = BH * nq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the kv tiles q tile qt needs: to its last row (and T) when causal
+  auto kv_tiles = [&](int qt) {
+    return ((causal ? min((qt + 1) * R, T_) : T_) + BK - 1) / BK;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&q_full[i], 1);
+      hopper::mbar_init(&q_empty[i], 8);  // every consumer warp
+    }
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup
+    hopper::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 2 * kWarpgroup) {
+      int g = 0, it = 0;  // ring position, item count
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++it) {
+        const int qt = nq - 1 - w / BH, bh = w % BH;
+        const int n_kv = kv_tiles(qt), slot = it & 1;
+        hopper::mbar_wait(&q_empty[slot], ((it >> 1) & 1) ^ 1);
+        hopper::mbar_expect_tx(&q_full[slot], 2 * Plan::kQ * 2);
+        for (int p = 0; p < Plan::kPanels; ++p) {
+          const int off = slot * Plan::kQ + p * R * kPanel;
+          hopper::tma_load_3d(qs + off, &map_q, &q_full[slot], p * kPanel,
+                              qt * R, bh);
+          hopper::tma_load_3d(dos + off, &map_do, &q_full[slot], p * kPanel,
+                              qt * R, bh);
+        }
+        for (int i = 0; i < n_kv; ++i, ++g) {
+          const int s = g % S;
+          hopper::mbar_wait(&empty[s], ((g / S) & 1) ^ 1);
+          hopper::mbar_expect_tx(&k_full[s], Plan::kKv * 2);
+          for (int p = 0; p < Plan::kPanels; ++p)
+            hopper::tma_load_3d(ks + s * Plan::kKv + p * BK * kPanel, &map_k,
+                                &k_full[s], p * kPanel, i * BK, bh);
+          hopper::mbar_expect_tx(&v_full[s], Plan::kKv * 2);
+          for (int p = 0; p < Plan::kPanels; ++p)
+            hopper::tma_load_3d(vs + s * Plan::kKv + p * BK * kPanel, &map_v,
+                                &v_full[s], p * kPanel, i * BK, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each q tile
+  hopper::reg_alloc<kConsumerRegs>();
+  const int wg = warp >> 2;
+  const float scale_log2 = scale * kLog2e;
+  float sc[BK / 2], dp[BK / 2], acc[DP / 2];
+  uint32_t da[BK / 4];  // dS in bf16, the A operand of dQ += dS K
+
+  int g = 0, it = 0;
+  for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++it) {
+    const int qt = nq - 1 - w / BH, bh = w % BH, r0 = qt * R;
+    const int n_kv = kv_tiles(qt), slot = it & 1;
+    const bf16* q_s = qs + slot * Plan::kQ;
+    const bf16* do_s = dos + slot * Plan::kQ;
+    const int row_base = r0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+    const long long head = (long long)bh * T_;
+    // the thread's two rows: lse (times log2 e) and delta; 0 past T
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_base + 8 * h;
+      lse2[h] = row < T_ ? lse[head + row] * kLog2e : 0.f;
+      dl[h] = row < T_ ? delta[head + row] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < DP / 2; ++j) acc[j] = 0.f;
+
+    // S = Q K_i^T into sc and dP = dO V_i^T into dp (one group)
+    auto issue_sd = [&](int i) {
+      const int s = (g + i) % S;
+      const uint32_t ph = ((g + i) / S) & 1;
+      const bf16* kt = ks + s * Plan::kKv;
+      const bf16* vt = vs + s * Plan::kKv;
+      hopper::mbar_wait(&k_full[s], ph);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hopper::wgmma_ss<BK, 0, 0>(sc, desc_k(q_s, R, wg * 64, kk),
+                                   desc_k(kt, BK, 0, kk), kk > 0);
+      hopper::mbar_wait(&v_full[s], ph);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hopper::wgmma_ss<BK, 0, 0>(dp, desc_k(do_s, R, wg * 64, kk),
+                                   desc_k(vt, BK, 0, kk), kk > 0);
+      hopper::wgmma_commit();
+    };
+    // dQ += dS K_i (one group)
+    auto issue_dq = [&](int i) {
+      const bf16* kt = ks + ((g + i) % S) * Plan::kKv;
+#pragma unroll
+      for (int t = 0; t < BK / 16; ++t)
+        hopper::wgmma_rs<DP, 1>(acc, da + 4 * t, desc_mn(kt, BK, t, 0), 1);
+      hopper::wgmma_commit();
+    };
+    // dS of kv tile i in dp; p = exp(s * scale - lse) as one FMA into ex2
+    auto dscores = [&](int i) {
+      const int c0 = i * BK;
+      const bool edge =
+          (causal && c0 + BK > r0) || c0 + BK > T_ || r0 + R > T_;
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) {
+        const int h = acc_half(j);
+        float p = hopper::ex2(fmaf(sc[j], scale_log2, -lse2[h]));
+        if (edge) {
+          const int col = c0 + acc_col(j, lane), row = row_base + 8 * h;
+          if (col >= T_ || row >= T_ || (causal && col > row)) p = 0.f;
+        }
+        dp[j] = p * (dp[j] - dl[h]) * scale;
+      }
+    };
+    auto pack = [&] {
+#pragma unroll
+      for (int t = 0; t < BK / 16; ++t) a_frag(da + 4 * t, dp, t);
+    };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(bar);
+    };
+
+    // Software pipeline, as K1's: the Q / dO slot is released once the
+    // item's last S and dP are in, each kv stage once its dQ product is.
+    hopper::mbar_wait(&q_full[slot], (it >> 1) & 1);
+    hopper::wgmma_fence();
+    issue_sd(0);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    if (n_kv == 1) release(&q_empty[slot]);
+    dscores(0);
+    pack();
+    for (int i = 1; i < n_kv; ++i) {
+      hopper::wgmma_fence();
+      issue_sd(i);
+      issue_dq(i - 1);
+      hopper::wgmma_wait<1>();  // S_i and dP_i are in; dQ's may still run
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      if (i == n_kv - 1) release(&q_empty[slot]);
+      dscores(i);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(da);
+      release(&empty[(g + i - 1) % S]);
+      pack();
+    }
+    hopper::wgmma_fence();
+    issue_dq(n_kv - 1);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(da);
+    release(&empty[(g + n_kv - 1) % S]);
+    g += n_kv;
+
+    // dQ in bf16, once, from registers; rows past T and columns past D
+    // are dropped
+#pragma unroll
+    for (int j = 0; j < DP / 2; j += 2) {
+      const int col = acc_col(j, lane), row = row_base + 8 * acc_half(j);
+      if (col < D && row < T_)
+        *reinterpret_cast<__nv_bfloat162*>(dq + (head + row) * D + col) =
+            __floats2bfloat162_rn(acc[j], acc[j + 1]);
+    }
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -1196,31 +1620,39 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-dim3 grid_of(int BH, int T_, int rows) {
-  return dim3(BH, (T_ + rows - 1) / rows);
+// The first design's launchers cut the head into column slices of width
+// SW (slice_width: one slice up to Tile<T>::kMaxD, the widest head the
+// least row count fits), take Tile<T>::kRows rows a tile and halve them
+// until the kernel's shared-memory plan at SW fits the opt-in, down to
+// Tile<T>::kMinRows (bf16 K2 / K4 at D 256: 32 rows, 170 KB; at D 512:
+// 16 rows, 160 KB).  The grid is (BH, row tiles, slices).
+template <typename T>
+int slice_width(int D) {
+  const int ns = (D + Tile<T>::kMaxD - 1) / Tile<T>::kMaxD;
+  return ((D + ns - 1) / ns + 7) / 8 * 8;
 }
 
-// The first design's launchers take Tile<T>::kRows rows a tile and halve
-// them until the kernel's shared-memory plan fits the opt-in, down to
-// Tile<T>::kMinRows (bf16 K2 / K4 at D 256: 32 rows, 170 KB; at D 512: 16
-// rows, 160 KB).  Past Tile<T>::kMaxD no row count fits and the launch
-// is refused (the wrapper raises first).
+dim3 grid_of(int BH, int T_, int rows, int D, int SW) {
+  return dim3(BH, (T_ + rows - 1) / rows, (D + SW - 1) / SW);
+}
+
 template <typename T, int B = Tile<T>::kRows>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int BH, int T_, int D, float scale,
                        int causal, cudaStream_t s) {
+  const int SW = slice_width<T>(D);
   if constexpr (B > Tile<T>::kMinRows)
-    if (Smem<T, B>(D).fwd_bytes() > kSmemOptIn)
+    if (Smem<T, B>(SW).fwd_bytes() > kSmemOptIn)
       return launch_fwd<T, B / 2>(q, k, v, o, lse, BH, T_, D, scale, causal,
                                   s);
-  const size_t bytes = Smem<T, B>(D).fwd_bytes();
+  const size_t bytes = Smem<T, B>(SW).fwd_bytes();
   if (bytes > kSmemOptIn) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(flash_fwd_kernel<T, B>, bytes);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, B><<<grid_of(BH, T_, B), kThreads, bytes, s>>>(
+  flash_fwd_kernel<T, B><<<grid_of(BH, T_, B, D, SW), kThreads, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      T_, D, scale, causal);
+      T_, D, SW, scale, causal);
   return cudaGetLastError();
 }
 
@@ -1230,22 +1662,24 @@ cudaError_t launch_bwd_kv(const void* q, const void* k, const void* v,
                           const void* delta, const void* out, void* dq_acc,
                           void* dk, void* dv, int BH, int T_, int D,
                           float scale, int causal, cudaStream_t s) {
+  const int SW = slice_width<T>(D);
   if constexpr (B > Tile<T>::kMinRows)
-    if (Smem<T, B>(D).bwd_kv_bytes() > kSmemOptIn)
+    if (Smem<T, B>(SW).bwd_kv_bytes() > kSmemOptIn)
       return launch_bwd_kv<T, kFused, B / 2>(q, k, v, dout, lse, delta, out,
                                              dq_acc, dk, dv, BH, T_, D,
                                              scale, causal, s);
-  const size_t bytes = Smem<T, B>(D).bwd_kv_bytes();
+  const size_t bytes = Smem<T, B>(SW).bwd_kv_bytes();
   if (bytes > kSmemOptIn) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(flash_bwd_kv_kernel<T, B, kFused>, bytes);
   if (err != cudaSuccess) return err;
   flash_bwd_kv_kernel<T, B, kFused>
-      <<<grid_of(BH, T_, B), kThreads, bytes, s>>>(
+      <<<grid_of(BH, T_, B, D, SW), kThreads, bytes, s>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const T*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
           static_cast<const T*>(out), static_cast<float*>(dq_acc),
-          static_cast<T*>(dk), static_cast<T*>(dv), T_, D, scale, causal);
+          static_cast<T*>(dk), static_cast<T*>(dv), T_, D, SW, scale,
+          causal);
   return cudaGetLastError();
 }
 
@@ -1254,21 +1688,32 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dq, int BH, int T_, int D,
                           float scale, int causal, cudaStream_t s) {
+  const int SW = slice_width<T>(D);
   if constexpr (B > Tile<T>::kMinRows)
-    if (Smem<T, B>(D).bwd_q_bytes() > kSmemOptIn)
+    if (Smem<T, B>(SW).bwd_q_bytes() > kSmemOptIn)
       return launch_bwd_dq<T, B / 2>(q, k, v, dout, lse, delta, dq, BH, T_,
                                      D, scale, causal, s);
-  const size_t bytes = Smem<T, B>(D).bwd_q_bytes();
+  const size_t bytes = Smem<T, B>(SW).bwd_q_bytes();
   if (bytes > kSmemOptIn) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(flash_bwd_dq_kernel<T, B>, bytes);
   if (err != cudaSuccess) return err;
   flash_bwd_dq_kernel<T, B>
-      <<<grid_of(BH, T_, B), kThreads, bytes, s>>>(
+      <<<grid_of(BH, T_, B, D, SW), kThreads, bytes, s>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const T*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<T*>(dq), T_, D, scale, causal);
+          static_cast<T*>(dq), T_, D, SW, scale, causal);
   return cudaGetLastError();
+}
+
+// persistent kernels: one CTA an SM, or one an item if fewer
+cudaError_t persistent_ctas(int items, int* ctas) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *ctas = items < sms ? items : sms;
+  return err;
 }
 
 template <int DP>
@@ -1283,48 +1728,75 @@ cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
       !hopper::map_3d(&mo, o, false, BH, T_, D, 64))
     return cudaErrorInvalidValue;
   cudaError_t err = set_smem(flash_fwd_wgmma<DP>, Plan::kBytes);
-  if (err != cudaSuccess) return err;
-  // persistent: one CTA an SM (or one an item, if fewer)
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
+  int ctas = 0;
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    err = persistent_ctas(BH * ((T_ + Plan::kRows - 1) / Plan::kRows), &ctas);
   if (err != cudaSuccess) return err;
-  const int items = BH * ((T_ + Plan::kRows - 1) / Plan::kRows);
-  flash_fwd_wgmma<DP>
-      <<<items < sms ? items : sms, Plan::kThreads, Plan::kBytes, s>>>(
-          mq, mk, mv, mo, static_cast<float*>(lse), BH, T_, scale, causal);
+  flash_fwd_wgmma<DP><<<ctas, Plan::kThreads, Plan::kBytes, s>>>(
+      mq, mk, mv, mo, static_cast<float*>(lse), BH, T_, scale, causal);
   return cudaGetLastError();
 }
 
-template <int DP, int NWG>
-cudaError_t launch_bwd_fused_bf16(const void* q, const void* k, const void* v,
-                                  const void* dout, const void* lse,
-                                  const void* out, void* dq_acc, void* dk,
-                                  void* dv, int BH, int T_, int D,
-                                  float scale, int causal, cudaStream_t s) {
-  using Plan = BwdPlan<DP, NWG>;
+// K2 (kFused: O in, dQ by reduce-adds into dq_acc) or K4 (delta in)
+template <int DP, int NWG, bool kFused>
+cudaError_t launch_bwd_kv_bf16(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, const void* out,
+                               void* dq_acc, void* dk, void* dv, int BH,
+                               int T_, int D, float scale, int causal,
+                               cudaStream_t s) {
+  using Plan = BwdPlan<DP, NWG, kFused>;
   CUtensorMap mq, mk, mv, mdo, mo, mdq;
-  if (!hopper::map_3d(&mdq, dq_acc, true, BH, T_, D, Plan::kQRows) ||
-      !hopper::map_3d(&mq, q, false, BH, T_, D, Plan::kQRows) ||
+  if (!hopper::map_3d(&mq, q, false, BH, T_, D, Plan::kQRows) ||
       !hopper::map_3d(&mk, k, false, BH, T_, D, Plan::kKvRows) ||
       !hopper::map_3d(&mv, v, false, BH, T_, D, Plan::kKvRows) ||
-      !hopper::map_3d(&mdo, dout, false, BH, T_, D, Plan::kQRows) ||
-      !hopper::map_3d(&mo, out, false, BH, T_, D, Plan::kQRows))
+      !hopper::map_3d(&mdo, dout, false, BH, T_, D, Plan::kQRows))
     return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(flash_bwd_fused_wgmma<DP, NWG>, Plan::kBytes);
+  mo = mdq = mq;  // K4 reads neither
+  if (kFused && (!hopper::map_3d(&mdq, dq_acc, true, BH, T_, D,
+                                 Plan::kQRows) ||
+                 !hopper::map_3d(&mo, out, false, BH, T_, D, Plan::kQRows)))
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      set_smem(flash_bwd_fused_wgmma<DP, NWG, kFused>, Plan::kBytes);
   if (err != cudaSuccess) return err;
-  flash_bwd_fused_wgmma<DP, NWG>
-      <<<grid_of(BH, T_, Plan::kKvRows), Plan::kThreads, Plan::kBytes, s>>>(
-          mq, mk, mv, mdo, mo, mdq, static_cast<const float*>(lse),
-          static_cast<bf16*>(dk),
-          static_cast<bf16*>(dv), T_, D, scale, causal);
+  flash_bwd_fused_wgmma<DP, NWG, kFused>
+      <<<dim3(BH, (T_ + Plan::kKvRows - 1) / Plan::kKvRows), Plan::kThreads,
+         Plan::kBytes, s>>>(mq, mk, mv, mdo, mo, mdq,
+                            static_cast<const float*>(lse),
+                            static_cast<const float*>(delta),
+                            static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                            T_, D, scale, causal);
   return cudaGetLastError();
 }
 
-bool bad_shape(int BH, int T_, int D, int dtype) {
-  const int max_d = dtype == kBF16 ? Tile<bf16>::kMaxD : Tile<float>::kMaxD;
-  return BH < 1 || T_ < 1 || D < 8 || D > max_d || D % 8 != 0;
+template <int DP>
+cudaError_t launch_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, int BH, int T_,
+                               int D, float scale, int causal,
+                               cudaStream_t s) {
+  using Plan = DqPlan<DP>;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!hopper::map_3d(&mq, q, false, BH, T_, D, Plan::kRows) ||
+      !hopper::map_3d(&mdo, dout, false, BH, T_, D, Plan::kRows) ||
+      !hopper::map_3d(&mk, k, false, BH, T_, D, Plan::kKvRows) ||
+      !hopper::map_3d(&mv, v, false, BH, T_, D, Plan::kKvRows))
+    return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(flash_bwd_dq_wgmma<DP>, Plan::kBytes);
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = persistent_ctas(BH * ((T_ + Plan::kRows - 1) / Plan::kRows), &ctas);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wgmma<DP><<<ctas, Plan::kThreads, Plan::kBytes, s>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), BH, T_, D,
+      scale, causal);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int BH, int T_, int D) {
+  return BH < 1 || T_ < 1 || D < 8 || D % 8 != 0;
 }
 
 }  // namespace
@@ -1338,7 +1810,7 @@ extern "C" {
 int rt_flash_fwd(const void* q, const void* k, const void* v, void* o,
                  void* lse, int BH, int T, int D, float scale, int causal,
                  int dtype, void* stream) {
-  if (bad_shape(BH, T, D, dtype)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(BH, T, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return (int)launch_fwd<float>(q, k, v, o, lse, BH, T, D, scale, causal, s);
@@ -1357,19 +1829,19 @@ int rt_flash_bwd_fused(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* out,
                        void* dq_acc, void* dk, void* dv, int BH, int T, int D,
                        float scale, int causal, int dtype, void* stream) {
-  if (bad_shape(BH, T, D, dtype)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(BH, T, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return (int)launch_bwd_kv<float, true>(q, k, v, dout, lse, nullptr, out,
                                            dq_acc, dk, dv, BH, T, D, scale,
                                            causal, s);
   if (dtype == kBF16)
-    return (int)(D <= 64    ? launch_bwd_fused_bf16<64, 2>(
-                                  q, k, v, dout, lse, out, dq_acc, dk, dv, BH,
-                                  T, D, scale, causal, s)
-                 : D <= 128 ? launch_bwd_fused_bf16<128, 1>(
-                                  q, k, v, dout, lse, out, dq_acc, dk, dv, BH,
-                                  T, D, scale, causal, s)
+    return (int)(D <= 64    ? launch_bwd_kv_bf16<64, 2, true>(
+                                  q, k, v, dout, lse, nullptr, out, dq_acc,
+                                  dk, dv, BH, T, D, scale, causal, s)
+                 : D <= 128 ? launch_bwd_kv_bf16<128, 1, true>(
+                                  q, k, v, dout, lse, nullptr, out, dq_acc,
+                                  dk, dv, BH, T, D, scale, causal, s)
                             : launch_bwd_kv<bf16, true>(
                                   q, k, v, dout, lse, nullptr, out, dq_acc,
                                   dk, dv, BH, T, D, scale, causal, s));
@@ -1381,14 +1853,21 @@ int rt_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dq, int BH, int T, int D, float scale, int causal,
                     int dtype, void* stream) {
-  if (bad_shape(BH, T, D, dtype)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(BH, T, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return (int)launch_bwd_dq<float>(q, k, v, dout, lse, delta, dq, BH, T, D,
                                      scale, causal, s);
   if (dtype == kBF16)
-    return (int)launch_bwd_dq<bf16>(q, k, v, dout, lse, delta, dq, BH, T, D,
-                                    scale, causal, s);
+    return (int)(D <= 64    ? launch_bwd_dq_bf16<64>(q, k, v, dout, lse,
+                                                      delta, dq, BH, T, D,
+                                                      scale, causal, s)
+                 : D <= 128 ? launch_bwd_dq_bf16<128>(q, k, v, dout, lse,
+                                                       delta, dq, BH, T, D,
+                                                       scale, causal, s)
+                            : launch_bwd_dq<bf16>(q, k, v, dout, lse, delta,
+                                                  dq, BH, T, D, scale,
+                                                  causal, s));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1397,16 +1876,22 @@ int rt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dk, void* dv, int BH, int T, int D, float scale,
                      int causal, int dtype, void* stream) {
-  if (bad_shape(BH, T, D, dtype)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(BH, T, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return (int)launch_bwd_kv<float, false>(q, k, v, dout, lse, delta,
                                             nullptr, nullptr, dk, dv, BH, T,
                                             D, scale, causal, s);
   if (dtype == kBF16)
-    return (int)launch_bwd_kv<bf16, false>(q, k, v, dout, lse, delta, nullptr,
-                                           nullptr, dk, dv, BH, T, D, scale,
-                                           causal, s);
+    return (int)(D <= 64    ? launch_bwd_kv_bf16<64, 2, false>(
+                                  q, k, v, dout, lse, delta, nullptr, nullptr,
+                                  dk, dv, BH, T, D, scale, causal, s)
+                 : D <= 128 ? launch_bwd_kv_bf16<128, 1, false>(
+                                  q, k, v, dout, lse, delta, nullptr, nullptr,
+                                  dk, dv, BH, T, D, scale, causal, s)
+                            : launch_bwd_kv<bf16, false>(
+                                  q, k, v, dout, lse, delta, nullptr, nullptr,
+                                  dk, dv, BH, T, D, scale, causal, s));
   return (int)cudaErrorInvalidValue;
 }
 

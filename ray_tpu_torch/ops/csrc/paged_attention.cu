@@ -147,6 +147,12 @@ __global__ void append_kernel(char* __restrict__ k_pool,
 // L): the same bits whichever CTA comes last.  P is rounded to q's dtype
 // against the split's running max at each step, where the Pallas kernel
 // rounds against a per-block one: a bf16 rounding difference only.
+//
+// Tables wider than the plan's 64 splits of 1,024 blocks (65,536 blocks, a
+// million tokens at 16 a block) give a split more than the kMaxPer entries
+// it stages at once: it stages them in rounds as the walk reaches them.
+// Heads wider than kMaxHD (the reference takes any width; no config of
+// the repo has one) run decode_attention_wide below.
 // ---------------------------------------------------------------------------
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -259,7 +265,7 @@ constexpr int kAttnThreads = 128;
 constexpr int kWarps = kAttnThreads / 32;
 constexpr int kMaxG = 8;           // query heads a CTA serves
 constexpr int kMaxSplits = 64;     // ops/paged_attention.py _MAX_SPLITS
-constexpr int kMaxPer = 1024;      // _MAX_PER: table entries a split stages
+constexpr int kMaxPer = 1024;      // table entries a split stages
 constexpr int kStepBytes = 16384;  // K bytes a step stages, where hd allows
 constexpr int kMaxStep = 128;      // tokens a step (step * parts == 128)
 constexpr int kMinStep = 4;
@@ -308,7 +314,7 @@ struct DecodePlan {
     if (ring < (size_t)kMaxSplits * kMaxG * 12) ring = kMaxSplits * kMaxG * 12;
     off_scale = ring;
     off_tbl = off_scale + (elem == 1 ? (size_t)stages * 2 * step * 4 : 0);
-    off_q = off_tbl + ((size_t)per * 4 + 15) / 16 * 16;
+    off_q = off_tbl + ((size_t)min(per, kMaxPer) * 4 + 15) / 16 * 16;
     off_s = off_q + (size_t)G * HD * 4;
     off_p = off_s + (size_t)kAttnThreads * kMaxG * 4;
     off_w = off_p + (size_t)step * kMaxG * 4;
@@ -361,7 +367,9 @@ __global__ void __launch_bounds__(kAttnThreads)
   // table and q in vain)
   const int p_b = __ldg(pos + b);
   const long long t_row = (long long)b * W + w0;
-  const int tw = tid < per && w0 + tid < W ? __ldg(tables + t_row + tid) : 0;
+  const int n_tbl = min(per, kMaxPer);  // the entries staged
+  const int tw =
+      tid < n_tbl && w0 + tid < W ? __ldg(tables + t_row + tid) : 0;
   // the mma path's q: each thread's bf16 pairs of its A fragments, from
   // device memory straight into registers (row g = lane / 4; rows past the
   // group are zeros)
@@ -380,8 +388,9 @@ __global__ void __launch_bounds__(kAttnThreads)
     for (int i = tid; i < G * HD; i += kAttnThreads)
       q_s[i] = to_f32<QT>(q[q_off + i]);
   }
-  if (tid < per) tbl_s[tid] = tw;
-  for (int w = tid + kAttnThreads; w < per && w0 + w < W; w += kAttnThreads)
+  if (tid < n_tbl) tbl_s[tid] = tw;
+  for (int w = tid + kAttnThreads; w < n_tbl && w0 + w < W;
+       w += kAttnThreads)
     tbl_s[w] = __ldg(tables + t_row + w);
   const int n_tok = p_b < 0 ? 0 : min(p_b + 1, W * BS);
   const int t_begin = w0 * BS;
@@ -488,12 +497,33 @@ __global__ void __launch_bounds__(kAttnThreads)
       if (i < n_steps) issue(i);
       cp_async_commit();
     }
+    // A split of more than kMaxPer blocks stages its table in rounds:
+    // before the first step whose columns pass the staged ones, every
+    // thread (past the barrier that ends the issue of the step before)
+    // restages from that step's first column, and shifts its copies'
+    // table columns (vw, sw: relative to the staged round) by as much.
+    int round0 = 0;  // the split's table column staged at tbl_s[0]
+    auto restage = [&](int j) {
+      const int c_new = j * pl.step / BS, last = ((j + 1) * pl.step - 1) / BS;
+      if (last - round0 < kMaxPer) return;
+      for (int w = tid; w < kMaxPer && c_new + w < per && w0 + c_new + w < W;
+           w += kAttnThreads)
+        tbl_s[w] = __ldg(tables + t_row + c_new + w);
+#pragma unroll
+      for (int k = 0; k < kMaxVecs; ++k) vw[k] -= c_new - round0;
+      sw -= c_new - round0;
+      round0 = c_new;
+      __syncthreads();
+    };
     // once every thread is done with step i - 1, refills its stage with
     // step i + stages - 1, then waits until step i has landed for every
     // thread: the refill does not wait on step i's arrival
     auto next_step = [&](int i) {
       __syncthreads();
-      if (i + pl.stages - 1 < n_steps) issue(i + pl.stages - 1);
+      if (i + pl.stages - 1 < n_steps) {
+        if (per > kMaxPer) restage(i + pl.stages - 1);
+        issue(i + pl.stages - 1);
+      }
       cp_async_commit();
       switch (pl.stages) {  // groups younger than step i's may be pending
         case 2: cp_async_wait<1>(); break;
@@ -883,6 +913,130 @@ __global__ void __launch_bounds__(kAttnThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K6 for heads wider than kMaxHD, where the walk above would hold more
+// than kWideSlots hd pairs a P.V thread and its tiles outgrow shared
+// memory.  A simple kernel, right before fast: the grid is (column part,
+// kv head x group chunk, row); each CTA walks its row's whole table, one
+// token a warp a step, K and V read straight from device memory (no
+// split, no workspace).  Scores q.k over the whole head (each warp one
+// token, lanes over hd, every CTA of the row the same sums in the same
+// order), the online softmax one thread a query head as the FMA path does
+// it (P rounded to q's dtype against the running max), and P.V for the
+// CTA's kWideCols columns, one thread a column, the accumulators in
+// shared memory.
+// ---------------------------------------------------------------------------
+constexpr int kWideCols = 1024;  // the columns of a wide head a CTA owns
+
+template <typename T>
+__device__ __forceinline__ float elem_f32(const T* p) {
+  if constexpr (sizeof(T) == 1)
+    return static_cast<float>(*reinterpret_cast<const signed char*>(p));
+  else
+    return to_f32<T>(*p);
+}
+
+template <typename QT, typename PT>
+__global__ void __launch_bounds__(kAttnThreads)
+    decode_attention_wide(QT* __restrict__ out, const QT* __restrict__ q,
+                          const PT* __restrict__ k_pool,
+                          const PT* __restrict__ v_pool,
+                          const float* __restrict__ k_scale,
+                          const float* __restrict__ v_scale,
+                          const int* __restrict__ tables,
+                          const int* __restrict__ pos, int layer, int NB,
+                          int BS, int KV, int HD, int group, int W,
+                          float scale) {
+  constexpr bool kQuant = sizeof(PT) == 1;
+  __shared__ float acc_s[kMaxG * kWideCols];
+  __shared__ float s_s[kWarps][kMaxG], p_s[kWarps][kMaxG];
+  __shared__ float m_s[kMaxG], l_s[kMaxG], c_s[kMaxG];
+  __shared__ long long row_s[kWarps];  // the step's pool rows (-1: none)
+  __shared__ float vsc_s[kWarps];
+  const int n_gc = (group + kMaxG - 1) / kMaxG;
+  const int part = blockIdx.x, hc = blockIdx.y, b = blockIdx.z;
+  const int kvh = hc / n_gc, g0 = (hc - kvh * n_gc) * kMaxG;
+  const int G = min(kMaxG, group - g0);
+  const int c_lo = part * kWideCols, nc = min(kWideCols, HD - c_lo);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long q_off =
+      ((long long)b * KV * group + (long long)kvh * group + g0) * HD;
+  const int p_b = pos[b];
+  const int n_tok = p_b < 0 ? 0 : min(p_b + 1, W * BS);
+  for (int i = tid; i < G * kWideCols; i += kAttnThreads) acc_s[i] = 0.f;
+  if (tid < kMaxG) {
+    m_s[tid] = kNegInf;
+    l_s[tid] = 0.f;
+  }
+  const long long layer_row = (long long)layer * NB;
+  for (int t0 = 0; t0 < n_tok; t0 += kWarps) {
+    const int t = t0 + warp;
+    long long row = -1;  // the pool row of token t, kv head kvh
+    if (t < n_tok)
+      row = ((layer_row + tables[(long long)b * W + t / BS]) * BS + t % BS) *
+                KV + kvh;
+    const float ksc = kQuant && row >= 0 ? k_scale[row] : 1.f;
+    for (int g = 0; g < G; ++g) {
+      float s = 0.f;
+      if (row >= 0) {
+        for (int d = lane; d < HD; d += 32) {
+          float kf = elem_f32(k_pool + row * HD + d);
+          if (kQuant) kf = round_q<QT>(kf * ksc);
+          s = fmaf(to_f32<QT>(q[q_off + (long long)g * HD + d]), kf, s);
+        }
+      }
+      s = warp_sum(s);
+      if (lane == 0) s_s[warp][g] = row >= 0 ? s * scale : kNegInf;
+    }
+    if (lane == 0) {
+      row_s[warp] = row;
+      vsc_s[warp] = kQuant && row >= 0 ? v_scale[row] : 1.f;
+    }
+    __syncthreads();
+    if (tid < G) {  // the online softmax of query head tid over the step
+      const float m_old = m_s[tid];
+      float m_new = m_old;
+      for (int w = 0; w < kWarps; ++w) m_new = fmaxf(m_new, s_s[w][tid]);
+      float sum = 0.f;
+      for (int w = 0; w < kWarps; ++w) {
+        const float e = row_s[w] >= 0 ? expf(s_s[w][tid] - m_new) : 0.f;
+        sum += e;
+        p_s[w][tid] = round_q<QT>(e);  // P in q's dtype
+      }
+      const float corr = expf(m_old - m_new);
+      c_s[tid] = corr;
+      m_s[tid] = m_new;
+      l_s[tid] = l_s[tid] * corr + sum;
+    }
+    __syncthreads();
+    for (int c = tid; c < nc; c += kAttnThreads) {
+      float v[kWarps];
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        v[w] = 0.f;
+        if (row_s[w] >= 0) {
+          v[w] = elem_f32(v_pool + row_s[w] * HD + c_lo + c);
+          if (kQuant) v[w] = round_q<QT>(v[w] * vsc_s[w]);
+        }
+      }
+      for (int g = 0; g < G; ++g) {
+        float a = acc_s[g * kWideCols + c] * c_s[g];
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) a = fmaf(p_s[w][g], v[w], a);
+        acc_s[g * kWideCols + c] = a;
+      }
+    }
+    __syncthreads();
+  }
+  __syncthreads();
+  for (int i = tid; i < G * nc; i += kAttnThreads) {
+    const int g = i / nc, c = i - g * nc;
+    const float l = l_s[g];
+    out[q_off + (long long)g * HD + c_lo + c] =
+        from_f32<QT>(acc_s[g * kWideCols + c] / (l == 0.f ? 1.f : l));
+  }
+}
+
 // One instantiation's launch.
 template <typename QT, typename PT, int kSlots, int kMmaHD>
 cudaError_t launch_variant(dim3 grid, size_t smem, cudaStream_t stream,
@@ -917,12 +1071,24 @@ cudaError_t launch_attention(void* out, const void* q, const void* k_pool,
                              int layer, int NB, int BS, int KV, int HD, int H,
                              int B, int W, int per, int splits, float scale,
                              cudaStream_t stream) {
-  if ((HD * (int)sizeof(PT)) % 16 != 0 || HD > kMaxHD || KV < 1 ||
-      H % KV != 0 || splits < 1 || splits > kMaxSplits || per < 1 ||
-      per > kMaxPer || (long long)(splits - 1) * per >= W ||
-      (long long)splits * per < W)
+  if ((HD * (int)sizeof(PT)) % 16 != 0 || KV < 1 || H % KV != 0 ||
+      splits < 1 || splits > kMaxSplits || per < 1 ||
+      (long long)(splits - 1) * per >= W || (long long)splits * per < W)
     return cudaErrorInvalidValue;
   const int group = H / KV, G = min(group, kMaxG);
+  if (HD > kMaxHD) {  // one CTA a (column part, kv head x group chunk, row)
+    decode_attention_wide<QT, PT>
+        <<<dim3((HD + kWideCols - 1) / kWideCols,
+                KV * ((group + kMaxG - 1) / kMaxG), B),
+           kAttnThreads, 0, stream>>>(
+            static_cast<QT*>(out), static_cast<const QT*>(q),
+            static_cast<const PT*>(k_pool), static_cast<const PT*>(v_pool),
+            static_cast<const float*>(k_scale),
+            static_cast<const float*>(v_scale),
+            static_cast<const int*>(tables), static_cast<const int*>(pos),
+            layer, NB, BS, KV, HD, group, W, scale);
+    return cudaGetLastError();
+  }
   int stages = 3;
   if (DecodePlan(HD, sizeof(PT), G, stages, per).bytes > kSmemOptIn)
     stages = 2;

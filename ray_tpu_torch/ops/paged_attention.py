@@ -15,6 +15,9 @@ the per-layer loop never slices (= copies) the pool.
   row's block table is cut into runs (`split_plan`, from shapes only),
   each run walked by its own CTA with an online softmax, the runs merged
   by the last CTA of each (row, kv head) to finish (same source, K6).
+  Any table width and any head width the reference takes run on the
+  card: heads wider than 1,024 on a simple kernel of their own, whole
+  rows a CTA, the head's columns cut over CTAs of 1,024.
 
 Each wrapper launches its kernel for CUDA tensors, or raises; it takes
 its plain PyTorch version (`*_reference`, same arguments, same
@@ -44,8 +47,6 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # K6's plan constants, mirrored from csrc/paged_attention.cu
 _MAX_GROUP = 8      # query heads a CTA serves (kMaxG)
 _MAX_SPLITS = 64    # kMaxSplits
-_MAX_PER = 1024     # kMaxPer: table entries a split stages in shared memory
-_MAX_HD = 1024      # kMaxHD: a P.V thread holds at most four hd pairs
 _CTAS_PER_SM = 2    # the split count's target
 # a split spans at least this many columns: below it a split's fixed cost
 # (prologue, first round trip, merge) outweighs the columns it takes off
@@ -148,15 +149,15 @@ def split_plan(B: int, H: int, KV: int, W: int, BS: int,
     engine's tick; a grid fixed by shapes is also what a CUDA graph per
     width bucket can capture.  It aims at about `_CTAS_PER_SM` CTAs an
     SM over the B * KV * ceil((H / KV) / 8) (row, kv head) cells, gives
-    each split at least `_MIN_SPLIT_TOKENS` columns' worth of blocks and
-    at most `_MAX_PER` blocks, and leaves no split empty by construction
-    (a split past a short row's last block is empty at run time and
-    costs the kernel one predicate).  Up to W = _MAX_SPLITS * _MAX_PER
-    there are at most `_MAX_SPLITS` splits a cell."""
+    each split at least `_MIN_SPLIT_TOKENS` columns' worth of blocks,
+    never more than `_MAX_SPLITS` splits a cell, and leaves no split
+    empty by construction (a split past a short row's last block is
+    empty at run time and costs the kernel one predicate).  Past
+    W = 65,536 a split holds more blocks than the 1,024 table entries
+    the kernel stages at once (kMaxPer); it stages them in rounds."""
     cells = B * KV * -(-(H // KV) // _MAX_GROUP)
     want = min(max(1, -(-_CTAS_PER_SM * sms // cells)), _MAX_SPLITS, W)
-    per = min(W, _MAX_PER,
-              max(-(-W // want), -(-_MIN_SPLIT_TOKENS // BS)))
+    per = min(W, max(-(-W // want), -(-_MIN_SPLIT_TOKENS // BS)))
     return -(-W // per), per
 
 
@@ -346,23 +347,18 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, layer, *,
                       or v_scale.shape != (L, NB, BS, KV)):
         raise ValueError("scale shapes disagree with the pool")
     _check_index(tables, pos, B)
-    # the kernel moves pool rows as 16-byte vectors and holds a P.V
-    # thread's hd pairs in registers
+    # the kernel moves pool rows as 16-byte vectors
     row_bytes = HD * k_pool.element_size()
-    if (row_bytes % 16 or HD > _MAX_HD or k_pool.data_ptr() % 16
-            or v_pool.data_ptr() % 16 or q.data_ptr() % 4):
+    if (row_bytes % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16
+            or q.data_ptr() % 4):
         raise ValueError(
             f"pool rows of {row_bytes} B (hd {HD}) are not 16-byte vectors "
-            f"at 16-byte aligned addresses (q at 4-byte) with hd <= "
-            f"{_MAX_HD}"
+            f"at 16-byte aligned addresses (q at 4-byte)"
         )
     layer = int(layer)
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range [0, {L})")
     W = tables.shape[1]
-    if W > _MAX_SPLITS * _MAX_PER:
-        raise ValueError(f"tables of {W} blocks a row: at most "
-                         f"{_MAX_SPLITS * _MAX_PER}")
     splits, per = split_plan(B, H, KV, W, BS, _sm_count(q.device))
     cells = B * KV * -(-(H // KV) // _MAX_GROUP)
     ws, counters = _workspace(

@@ -9,9 +9,10 @@ and the port only, so it runs on a machine with the card and no JAX:
 
 Shapes are small and ragged (positions past the table's reach, idle
 rows on the scratch block, shuffled tables, GQA, K6's table cut into
-three or more splits, pool blocks of 16 to 128 tokens; T not a multiple
-of the flash tiles, and heads of 136 to 512, past the bf16 K1 / K2's
-Hopper tiles; N and V not multiples of the xent tiles, E past one
+three or more splits, pool blocks of 16 to 128 tokens, K6 at hd 1,032
+and at tables of 65,540 blocks; T not a multiple of the flash tiles,
+and heads of 136 to 512, past the bf16 Hopper tiles, and of 712 and
+1,032, cut into column slices; N and V not multiples of the xent tiles, E past one
 K8 / K9 block, targets at 0, V - 1 and out of range on both sides).  Tolerances: K5 bit-equal outside the
 scratch block; K6 f32 1e-5, bf16 and int8 2e-2 (the reference's own).  K1-K4 against
 their plain versions element by element (`assert_close`) and by the
@@ -205,6 +206,68 @@ def test_attention_kernel_repeats_bit_equal(cuda_device, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,tol", [("f32", 1e-5), ("bf16", 2e-2)])
+def test_attention_kernel_wide_head_matches_plain(cuda_device, kind, tol):
+    """K6 at hd 1,032, past the 1,024 the split walk holds (the reference
+    takes any width): the wide-head kernel, its columns cut over two
+    CTAs, against the plain version, GQA group 4, ragged rows, one idle
+    and one past the table's reach."""
+    B, KV, group, W, BS, hd = 4, 2, 4, 5, 16, 1032
+    gen = torch.Generator().manual_seed(hd)
+    NB, tables, pos = _layout(B, W, BS, gen)
+    pos[0] = -1
+    q_dt = torch.float32 if kind == "f32" else torch.bfloat16
+    case = {"q": torch.randn((B, KV * group, hd), generator=gen).to(q_dt),
+            "k_pool": _rand((1, NB, BS, KV, hd), DTYPES[kind], gen),
+            "v_pool": _rand((1, NB, BS, KV, hd), DTYPES[kind], gen),
+            "tables": tables, "pos": pos}
+    want = _run_k6(pa.paged_decode_attention_reference, case)
+    n0 = pa.paged_decode_attention.launches
+    got = _run_k6(pa.paged_decode_attention, _to(case, cuda_device))
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == n0 + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,tol", [("f32", 1e-5), ("bf16", 2e-2)])
+def test_attention_kernel_long_table_matches_plain(cuda_device, kind, tol):
+    """K6 at tables of 65,540 blocks a row, past the 64 splits of 1,024
+    staged entries (blocks of one token, so the plain version's dense
+    gather stays small): 64 splits of 1,025 blocks, each staging its
+    table in two rounds; one row full, one ending on the second round's
+    entry, the last column of split 3.  A repeat gives the same bits."""
+    B, KV, group, W, BS, hd = 2, 1, 2, 65540, 1, 64
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    splits, per = pa.split_plan(B, KV * group, KV, W, BS, sms)
+    assert per > 1024 and splits <= 64
+    gen = torch.Generator().manual_seed(W)
+    NB = 1 + B * W
+    tables = (torch.randperm(NB - 1, generator=gen) + 1).reshape(B, W).to(
+        torch.int32)
+    pos = torch.tensor([W * BS - 1, (3 * per + 1024) * BS],
+                       dtype=torch.int32)
+    q_dt = torch.float32 if kind == "f32" else torch.bfloat16
+    case = {"q": torch.randn((B, KV * group, hd), generator=gen).to(q_dt),
+            "k_pool": _rand((1, NB, BS, KV, hd), DTYPES[kind], gen),
+            "v_pool": _rand((1, NB, BS, KV, hd), DTYPES[kind], gen),
+            "tables": tables, "pos": pos}
+    want = _run_k6(pa.paged_decode_attention_reference, case)
+    n0 = pa.paged_decode_attention.launches
+    dev = _to(case, cuda_device)
+    got = _run_k6(pa.paged_decode_attention, dev)
+    again = _run_k6(pa.paged_decode_attention, dev)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == n0 + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     """Dtypes, index types and pool rows that are not 16-byte vectors
     raise; a pool block of 128 tokens at hd 128 in bf16 (a 32 KB tile,
@@ -279,16 +342,20 @@ def _flash_inputs(BH, T, D, dtype, seed):
                                     (6, 1024, 64), (6, 48, 64), (3, 200, 64),
                                     (3, 200, 96), (3, 200, 256),
                                     (2, 72, 136), (2, 72, 264),
-                                    (2, 48, 512)])
+                                    (2, 48, 512), (2, 130, 64),
+                                    (2, 130, 128), (1, 40, 712),
+                                    (1, 40, 1032)])
 def test_flash_kernels_match_plain(cuda_device, kind, causal, BH, T, D):
     """K1, K2, K3 and K4 each against its plain version on the same
     inputs (the backward ones on the plain forward's O and LSE).  The
-    shapes stress the bf16 kernels' tiles (128 q rows in K1, 128 kv rows
-    and 64 q rows in K2): 8 full tiles (T 1024), T under one tile (48),
-    ragged over two (200, 100, 72), head widths that run on the 64 and
-    128 instantiations (16, 96), and past them (136 to 512: the first
-    design, its rows halved until its shared-memory plan fits: 16 bf16
-    rows for K2 / K4 at 512)."""
+    shapes stress the bf16 kernels' tiles (128 q rows in K1 and K3, 128
+    kv rows and 64 q rows in K2 and K4, 128 / 64 kv rows in K3 at D 64 /
+    128): 8 full tiles (T 1024), T under one tile (48), ragged over two
+    (200, 130, 100, 72), head widths that run on the 64 and 128
+    instantiations (16, 96), past them (136 to 512: the first design,
+    its rows halved until its shared-memory plan fits: 16 bf16 rows for
+    K2 / K4 at 512), and past the widest slice that fits (712 in bf16,
+    1,032 in both: two column slices)."""
     dt = torch.float32 if kind == "f32" else torch.bfloat16
     q, k, v, do = _flash_inputs(BH, T, D, dt, seed=T + D + causal)
     scale = D ** -0.5
@@ -345,6 +412,27 @@ def test_flash_bwd_fused_repeats(cuda_device, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_split_repeats(cuda_device, D, causal):
+    """K3's dQ and K4's dK and dV twice on the same inputs: bit-equal,
+    each summed in one CTA's registers in a fixed order and written
+    once."""
+    q, k, v, do = (t.to(cuda_device) for t in _flash_inputs(
+        4, 320, D, torch.bfloat16, seed=D + 1))
+    scale = D ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    first = (fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale))
+    second = (fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale),
+              *fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("blocks", [(1024, 1024), (32, 32)])
 def test_flash_attention_op_on_the_card(cuda_device, blocks):
     """The autograd op on CUDA tensors: forward and grads equal the CPU
@@ -373,14 +461,15 @@ def test_flash_attention_op_on_the_card(cuda_device, blocks):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [256, 512])
+@pytest.mark.parametrize("D", [256, 512, 1032])
 @pytest.mark.parametrize("blocks", [(1024, 1024), (16, 16)])
 def test_flash_attention_wide_head_on_the_card(cuda_device, blocks, D):
-    """D 256 and 512, wider than the bf16 K1 / K2's Hopper tiles (the
-    reference computes any width): the op launches K1 and K2 (or K3 +
-    K4), takes no plain branch, and its forward and grads equal the CPU
-    route's (the plain versions).  bf16 at these widths is held kernel
-    by kernel in `test_flash_kernels_match_plain`."""
+    """D 256 to 1,032, wider than the bf16 Hopper tiles (the reference
+    computes any width; 1,032 is cut into two column slices in f32): the
+    op launches K1 and K2 (or K3 + K4), takes no plain branch, and its
+    forward and grads equal the CPU route's (the plain versions).  bf16
+    at these widths is held kernel by kernel in
+    `test_flash_kernels_match_plain`."""
     gen = torch.Generator().manual_seed(D + blocks[0])
     q, k, v, w = (torch.randn((2, 32, 2, D), generator=gen)
                   for _ in range(4))
@@ -408,15 +497,6 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((2, 16, 8), device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="not supported"):
         fa.flash_fwd(q, q, q, True, 0.3)
-    # past the widest head the least row count fits: 1,024 in f32, 704
-    # in bf16
-    wide = torch.zeros((2, 16, 1032), device=cuda_device)
-    with pytest.raises(ValueError, match="head width"):
-        fa.flash_fwd(wide, wide, wide, True, 0.1)
-    wide = torch.zeros((2, 16, 712), device=cuda_device,
-                       dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head width"):
-        fa.flash_fwd(wide, wide, wide, True, 0.1)
     q = torch.zeros((2, 16, 8), device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd(q, q.transpose(0, 1).contiguous().transpose(0, 1), q,

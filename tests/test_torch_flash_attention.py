@@ -214,12 +214,73 @@ def test_unsupported_shapes_dispatch_to_plain_attention():
 
 @pytest.mark.parametrize("T,D,bq,bk", [(64, 128, 64, 64), (64, 256, 64, 64),
                                        (64, 264, 64, 64), (64, 12, 64, 64),
-                                       (60, 64, 16, 16)])
+                                       (60, 64, 16, 16), (64, 712, 64, 64),
+                                       (64, 1032, 64, 64)])
 def test_supported_matches_the_reference(T, D, bq, bk):
     """The op refuses what the reference's `_supported` refuses, and no
-    more: no bound on the head width (the kernels take D <= 256 on the
-    card and raise past it)."""
+    more: no bound on the head width (the card's kernels cut a wide head
+    into column slices)."""
     assert tattn._supported(T, D, bq, bk) is jattn._supported(T, D, bq, bk)
+
+
+def test_default_blocks_take_the_split_route_past_1024(monkeypatch):
+    """At T 2,048 the default blocks (1,024) do not cover T: the op takes
+    K3 + K4, as the reference's `_bwd` does, and no plain dispatch."""
+    calls = []
+    for name in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        real = getattr(tattn, name)
+        monkeypatch.setattr(
+            tattn, name,
+            lambda *a, _n=name, _f=real: calls.append(_n) or _f(*a))
+    q, k, v = (_t(a).requires_grad_(True)
+               for a in _arrays(3, (1, 2048, 1, 8), seed=13))
+    n0 = tattn.flash_attention.plain_dispatches
+    out = tattn.flash_attention(q, k, v)
+    torch.autograd.grad(out.sum(), (q, k, v))
+    assert tattn.flash_attention.plain_dispatches == n0
+    assert calls == ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
+
+
+def test_default_blocks_split_route_matches_jax(pallas):
+    """The op at T 2,048 with the default blocks (B 1, H 1, D 8, f32),
+    forward and grads, against JAX's `flash_attention` on its split
+    route (Pallas in interpret mode, blocks of 1,024)."""
+    q, k, v, w = _arrays(4, (1, 2048, 1, 8), seed=17)
+
+    def jloss(q, k, v):
+        out = jattn.flash_attention(q, k, v, True, 1024, 1024, True)
+        return jnp.sum(out * _j(w)), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(_j(q), _j(k), _j(v))
+    tq, tk, tv = (_t(a).requires_grad_(True) for a in (q, k, v))
+    out = tattn.flash_attention(tq, tk, tv)
+    grads = torch.autograd.grad((out * _t(w)).sum(), (tq, tk, tv))
+    _close(out, jout)
+    for g, jg in zip(grads, jgrads):
+        _close(g, jg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [712, 1032])
+def test_kernel_checks_take_any_head_width(monkeypatch, dtype, D):
+    """The CUDA wrappers' argument checks take heads past the first
+    design's widest tile (704 in bf16, 1,024 in f32): the kernels cut
+    them into column slices.  D % 8 != 0 is still refused there, and the
+    op sends it to `plain_attention`, as the reference does.  (The meta
+    device stands in for the card.)"""
+    monkeypatch.setattr(tattn, "_on_card", lambda t: True)
+    q = torch.zeros((2, 16, D), device="meta", dtype=dtype)
+    lse = torch.zeros((2, 16, 1), device="meta")
+    assert tattn._check(q, k=q, v=q, dout=q, lse=lse, delta=lse) == (2, 16, D)
+    with pytest.raises(ValueError, match="head width"):
+        tattn._check(torch.zeros((2, 16, D + 4), device="meta", dtype=dtype))
+    x = _t(_arrays(1, (1, 16, 1, D + 4), seed=D)[0], dtype)
+    n0 = tattn.flash_attention.plain_dispatches
+    got = tattn.flash_attention(x, x, x, True, 16, 16)
+    assert tattn.flash_attention.plain_dispatches == n0 + 1
+    _close(got, plain_attention(x, x, x, causal=True).float())
 
 
 def test_select_attention_flash_is_the_op():

@@ -238,16 +238,17 @@ def test_attention_plain_matches_jax_kernel_on_idle_rows(kind, tol):
 def test_split_plan_covers_every_block_once(sms):
     """K6's host-side cut of the block tables: for W 1 to 128 and B 1 to
     64, every block of a row falls in exactly one split, no split is
-    empty by construction, the split count stays in [1, _MAX_SPLITS]
-    and a split stages at most _MAX_PER table entries.  The plan takes shapes and the SM count only (no
-    positions, which live on the device), so equal shapes give equal
-    plans."""
+    empty by construction and the split count stays in [1,
+    _MAX_SPLITS]; tables past 65,536 blocks (64 splits of the 1,024
+    entries the kernel stages) too, with more blocks a split.  The plan
+    takes shapes and the SM count only (no positions, which live on the
+    device), so equal shapes give equal plans."""
     for B in (1, 2, 3, 8, 17, 32, 64):
-        for W in range(1, 129):
+        for W in [*range(1, 129), 65536, 65540, 200003]:
             for KV, H, BS in ((8, 32, 16), (2, 4, 128), (1, 24, 1)):
                 splits, per = tpa.split_plan(B, H, KV, W, BS, sms)
                 assert 1 <= splits <= tpa._MAX_SPLITS
-                assert 1 <= per <= min(W, tpa._MAX_PER)
+                assert 1 <= per <= W
                 owner = np.zeros(W, np.int64)
                 for s in range(splits):
                     run = np.arange(s * per, min((s + 1) * per, W))
