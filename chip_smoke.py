@@ -18,14 +18,22 @@ exits non-zero:
    shuffled tables; timed at B=32, bf16, beside its bound and SDPA over
    the same KV gathered dense, with K6's split plan; then at hd 1,032
    (the wide-head kernel) and at tables of 65,540 blocks (splits past
-   the 1,024 staged table entries), f32 and bf16.
+   the 1,024 staged table entries), f32 and bf16, the fused append +
+   attention there too.  The decode step launches neither K5 nor K6 on
+   its own, so their launch counts on the kernels line are these
+   checks'.
 5. main path: Llama-3-8B at full width and depth (bf16, random weights
    from a seed) served by `LlamaEngine` to 8 concurrent requests, three
    of them sharing a 64-token prefix; the kernel launch counts of that
-   run; decode_step_paged (kernels) against decode_step_vec (dense) at
-   a mid-decode state; K5/K6 timed at the main path's shapes (K6 with
-   the L2 cold and warm, beside its bound and SDPA, with its split
-   plan).
+   run (32 fused append + attention launches a decode step, no K5 or K6
+   of their own); decode_step_paged (kernels) against decode_step_vec
+   (dense) at a mid-decode state; K5/K6 timed at the main path's shapes
+   (K6 with the L2 cold and warm, beside its bound and SDPA, with its
+   split plan).  K5K6_fused_vs_pair: the fused op (K5 folded into K6's
+   launch) against K5 then K6 on cloned pools, bit-equal (outputs, and
+   pools outside the scratch block), and against its plain version, in
+   f32, bf16 and int8 at the mid-decode state and at B 32 with rows to
+   1,024; timed beside K5 then K6, K6 alone and an empty kernel.
 6. tiny parity: a tiny f32 engine on the card gives `generate`'s greedy
    tokens exactly.
 7. K1-K4 (flash attention forward, fused backward, split dQ and dK/dV)
@@ -113,11 +121,15 @@ PAGED_SRC = "ray_tpu_torch/ops/csrc/paged_attention.cu"
 FLASH_SRC = "ray_tpu_torch/ops/csrc/attention.cu"
 XENT_SRC = "ray_tpu_torch/ops/csrc/xent.cu"
 SOURCES = {"paged_kv_append": PAGED_SRC, "paged_decode_attention": PAGED_SRC,
+           "paged_append_decode_attention": PAGED_SRC,
            "flash_fwd": FLASH_SRC, "flash_bwd_fused": FLASH_SRC,
            "flash_bwd_dq": FLASH_SRC, "flash_bwd_dkv": FLASH_SRC,
            "xent_fwd": XENT_SRC, "xent_dx": XENT_SRC, "xent_dw": XENT_SRC}
 REPLACES = {"paged_kv_append": "ray_tpu/ops/paged_attention.py:93",
             "paged_decode_attention": "ray_tpu/ops/paged_attention.py:247",
+            "paged_append_decode_attention":
+                "ray_tpu/ops/paged_attention.py:93 + "
+                "ray_tpu/ops/paged_attention.py:247",
             "flash_fwd": "ray_tpu/ops/attention.py:61",
             "flash_bwd_fused": "ray_tpu/ops/attention.py:202",
             "flash_bwd_dq": "ray_tpu/ops/attention.py:143",
@@ -125,6 +137,8 @@ REPLACES = {"paged_kv_append": "ray_tpu/ops/paged_attention.py:93",
             "xent_fwd": "ray_tpu/ops/xent_pallas.py:51",
             "xent_dx": "ray_tpu/ops/xent_pallas.py:86",
             "xent_dw": "ray_tpu/ops/xent_pallas.py:114"}
+PAGED = ("paged_kv_append", "paged_decode_attention",
+         "paged_append_decode_attention")
 FLASH = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
 XENT = ("xent_fwd", "xent_dx", "xent_dw")
 # K6 tolerances: f32 to rounding; bf16 / int8 the reference's own
@@ -245,10 +259,11 @@ def append_bound(case) -> tuple:
     return _bound(n_bytes, 0.0, torch.bfloat16)
 
 
-def attention_bound(case) -> tuple:
-    """Bytes: q read and o written once, each row's live K and V
-    (pos + 1 columns, + int8 scales) read once, the table entries it
-    walks, pos.  Operations: 4 * H * hd per live column (QK and PV)."""
+def _attention_work(case) -> tuple:
+    """(bytes, operations) of K6 on `case`.  Bytes: q read and o written
+    once, each row's live K and V (pos + 1 columns, + int8 scales) read
+    once, the table entries it walks, pos.  Operations: 4 * H * hd per
+    live column (QK and PV)."""
     q, kp, tables, pos = case["q"], case["k_pool"], case["tables"], case["pos"]
     BS, KV, hd = kp.shape[2:]
     W = tables.shape[1]
@@ -259,7 +274,24 @@ def attention_bound(case) -> tuple:
         2 * KV * 4 if case["k_scale"] is not None else 0)
     n_bytes = (2 * q.numel() * q.element_size() + live * per_col
                + 4 * n_blocks + 4 * pos.numel())
-    return _bound(n_bytes, 4.0 * q.shape[1] * hd * live, q.dtype)
+    return n_bytes, 4.0 * q.shape[1] * hd * live
+
+
+def attention_bound(case) -> tuple:
+    return _bound(*_attention_work(case), case["q"].dtype)
+
+
+def fused_bound(case) -> tuple:
+    """The fused op: K6's work, with each written row's new K and V
+    (the live column it reads, counted there as read from the pool)
+    written once more into the pool."""
+    n_bytes, flops = _attention_work(case)
+    kp, pos = case["k_pool"], case["pos"]
+    BS, KV, hd = kp.shape[2:]
+    written = int(((pos >= 0) & (pos < case["tables"].shape[1] * BS)).sum())
+    row = KV * hd * kp.element_size() + (
+        KV * 4 if case["k_scale"] is not None else 0)
+    return _bound(n_bytes + 2 * written * row, flops, case["q"].dtype)
 
 
 # ----------------------------------------------------------------------
@@ -464,6 +496,105 @@ def time_kernels(app_case, attn_case) -> dict:
 
 
 # ----------------------------------------------------------------------
+# K5 folded into K6: the fused op against the pair
+# ----------------------------------------------------------------------
+_WRITTEN = ("k_pool", "v_pool", "k_scale", "v_scale")
+
+
+def with_new_rows(case, kind: str, gen) -> dict:
+    """An attention case with a decode step's new K / V rows (pool
+    dtype, + int8 scales) for every row."""
+    kp = case["k_pool"]
+    B, (KV, hd) = case["q"].shape[0], kp.shape[3:]
+    out = dict(case)
+    out["k_new"] = _pool_like((B, KV, hd), kp.dtype, gen, kp.device)
+    out["v_new"] = _pool_like((B, KV, hd), kp.dtype, gen, kp.device)
+    quant = kind == "int8"
+    out["k_new_scale"] = _scales((B, KV), gen, kp.device) if quant else None
+    out["v_new_scale"] = _scales((B, KV), gen, kp.device) if quant else None
+    return out
+
+
+def _run_fused(fn, case):
+    return fn(case["q"], case["k_pool"], case["v_pool"], case["k_new"],
+              case["v_new"], case["tables"], case["pos"], case["layer"],
+              k_scale=case["k_scale"], v_scale=case["v_scale"],
+              k_new_scale=case["k_new_scale"],
+              v_new_scale=case["v_new_scale"])
+
+
+def _run_pair(case):
+    _run_append(pa.paged_kv_append, case, clone=False)
+    return _run_attention(pa.paged_decode_attention, case)
+
+
+def _clone_written(case) -> dict:
+    return {k: (v.clone() if k in _WRITTEN and v is not None else v)
+            for k, v in case.items()}
+
+
+def check_fused(case, kind: str) -> float:
+    """The fused op against K5 then K6 on clones of the same pools:
+    outputs bit-equal on every row (no row of these cases shares a
+    block), pools and int8 scales bit-equal outside scratch block 0;
+    then against its plain version at K6's tolerance.  Returns the max
+    abs difference from the plain version."""
+    # every row inside the table's reach, its destination slot, and a
+    # check that the slot does not already hold the new row (else a fused
+    # op that wrote nothing would pass)
+    pos, BS = case["pos"].long(), case["k_pool"].shape[2]
+    rows = ((pos >= 0) & (pos < case["tables"].shape[1] * BS)).nonzero()[:, 0]
+    slot = (case["layer"], case["tables"][rows, pos[rows] // BS].long(),
+            pos[rows] % BS)
+    for pool, new in (("k_pool", "k_new"), ("v_pool", "v_new")):
+        same = (case[pool][slot] == case[new][rows]).flatten(1).all(1)
+        if bool(same.any()):
+            raise AssertionError(f"fused {kind}: {pool} already holds a "
+                                 "new row before the call")
+    f, p, r = (_clone_written(case) for _ in range(3))
+    got = _run_fused(pa.paged_append_decode_attention, f)
+    want = _run_pair(p)
+    plain = _run_fused(pa.paged_append_decode_attention_reference, r)
+    if not torch.equal(got, want):
+        raise AssertionError(f"fused {kind}: output differs from K5 then K6")
+    for n in _WRITTEN:
+        if f[n] is not None and not torch.equal(f[n][:, 1:], p[n][:, 1:]):
+            raise AssertionError(f"fused {kind}: {n} differs from K5's "
+                                 "outside the scratch block")
+    # every row inside the table's reach holds its new K and V now
+    if not (torch.equal(f["k_pool"][slot], case["k_new"][rows])
+            and torch.equal(f["v_pool"][slot], case["v_new"][rows])):
+        raise AssertionError(f"fused {kind}: a new row was not written")
+    tol = ATTN_TOL[kind]
+    torch.testing.assert_close(got.float(), plain.float(), rtol=tol, atol=tol)
+    return float((got.float() - plain.float()).abs().max())
+
+
+def time_fused(case) -> dict:
+    """Device ms of the fused op, of K5 then K6, and of K6 alone on one
+    case (each call rewrites the same rows with the same bytes)."""
+    return {
+        "fused_ms": time_ms(lambda: _run_fused(
+            pa.paged_append_decode_attention, case)),
+        "k5_then_k6_ms": time_ms(lambda: _run_pair(case)),
+        "k6_ms": time_ms(lambda: _run_attention(pa.paged_decode_attention,
+                                                case)),
+    }
+
+
+def launch_floor_ms(device) -> float:
+    """An empty kernel's device time, timed as the kernels are: the
+    floor of any launch of its own."""
+    lib = pa._lib()
+
+    def run():
+        rc = lib.rt_empty_launch(torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
+    return time_ms(run)
+
+
+# ----------------------------------------------------------------------
 # the main path
 # ----------------------------------------------------------------------
 def main_path_prompts(vocab: int, seed: int = 0):
@@ -488,8 +619,7 @@ def serve(engine: LlamaEngine, prompts, max_new_tokens: int) -> dict:
     futs = [engine.submit(p, max_new_tokens) for p in prompts]
     outs = [f.result(timeout=900) for f in futs]
     wall = time.perf_counter() - t0
-    launches = {"paged_kv_append": pa.paged_kv_append.launches,
-                "paged_decode_attention": pa.paged_decode_attention.launches}
+    launches = {name: getattr(pa, name).launches for name in PAGED}
     stats = engine.stats()
     return {"outs": outs, "wall_s": wall, "launches": launches,
             "dispatches": stats["decode_kernel_dispatch_total"] - d0,
@@ -591,10 +721,12 @@ def run_main_path(cfg, params, device, *, slots=8, chunk=8, block_size=16,
                              f"{st['decode_kernel']!r}")
     if run["dispatches"] <= 0 or st["decode_fallback_dispatch_total"] != 0:
         raise AssertionError("the run did not take the kernel route only")
-    for name, n in run["launches"].items():
-        if n < need:
-            raise AssertionError(f"{name}: {n} launches < L x chunk x "
-                                 f"dispatches = {need}")
+    # one fused launch a layer a decode step, and no K5 or K6 of its own
+    want = {"paged_kv_append": 0, "paged_decode_attention": 0,
+            "paged_append_decode_attention": need}
+    if run["launches"] != want:
+        raise AssertionError(f"serve launches {run['launches']}, want "
+                             f"{want} (L x chunk x dispatches = {need})")
     for out in run["outs"]:
         if len(out) != max_new_tokens or not all(
                 0 <= t < cfg.vocab_size for t in out):
@@ -613,6 +745,7 @@ def run_main_path(cfg, params, device, *, slots=8, chunk=8, block_size=16,
             "prompt_lens": [len(p) for p in prompts],
             "decode_kernel": st["decode_kernel"],
             "decode_kernel_dispatch_total": run["dispatches"],
+            "decode_steps": chunk * run["dispatches"],
             "decode_fallback_dispatch_total":
                 st["decode_fallback_dispatch_total"],
             "launches": run["launches"],
@@ -800,8 +933,8 @@ def reset_counts() -> None:
     for name in FLASH:
         getattr(fa, name).launches = 0
     fa.flash_attention.plain_dispatches = 0
-    pa.paged_kv_append.launches = 0
-    pa.paged_decode_attention.launches = 0
+    for name in PAGED:
+        getattr(pa, name).launches = 0
     for name in XENT:
         getattr(xp, name).launches = 0
 
@@ -1225,6 +1358,11 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": built})
 
+    # K5 and K6 on their own: the decode step no longer launches them (the
+    # fused op below does their work in one launch), so the kernels line
+    # carries the serve run's 0 for both and this section's own launches
+    # go on a line of their own
+    reset_counts()
     emit({"phase": "K5_vs_plain", "shape": "L=32 B=8 W=16 BS=16 KV=8 hd=128",
           **check_append(device)})
 
@@ -1233,40 +1371,46 @@ def main() -> int:
         for kind_ in ("f32", "bf16", "int8"):
             case = attention_case(kind_, device, B=B, seed=B)
             errs[kind_] = check_attention(case, kind_)
-        line = {"phase": "K6_vs_plain", "B": B, "H": 32, "KV": 8, "hd": 128,
-                "BS": 16, "max_pos": 1024, "max_abs_err": errs,
-                "tolerance": ATTN_TOL}
-        if B == 32:
-            case = attention_case("bf16", device, B=B, seed=B)
-            bound, by = attention_bound(case)
-            ms = time_ms(lambda: _run_attention(
-                pa.paged_decode_attention, case))
-            sdpa = time_ms(dense_sdpa(case))
-            line.update({
-                "bf16_ms": ms,
-                "bf16_plain_ms": time_ms(lambda: _run_attention(
-                    pa.paged_decode_attention_reference, case)),
-                "bf16_bound_ms": bound, "bf16_bound_by": by,
-                "bf16_library_ms": sdpa, "bf16_x_sdpa": ms / sdpa,
-                "bf16_x_bound": ms / bound, "splits": k6_splits(case),
-            })
-        emit(line)
+        emit({"phase": "K6_vs_plain", "B": B, "H": 32, "KV": 8, "hd": 128,
+              "BS": 16, "max_pos": 1024, "max_abs_err": errs,
+              "tolerance": ATTN_TOL})
         del case
     # past the split walk's widths: hd 1,032 (the wide-head kernel) and
     # tables of 65,540 blocks (splits of more than the 1,024 staged
-    # entries), each against the plain version
+    # entries), each against the plain version; the fused op there too
     for what, kw in (("hd_1032", dict(B=4, max_pos=200, L=1, H=8, KV=2,
                                       hd=1032, BS=16)),
                      ("W_65540", dict(B=2, max_pos=65539, L=1, H=2, KV=1,
                                       hd=64, BS=1))):
-        errs = {}
+        errs, fused_errs = {}, {}
         for kind_ in ("f32", "bf16"):
             case = attention_case(kind_, device, seed=7, **kw)
             errs[kind_] = check_attention(case, kind_)
+            gen = torch.Generator(device=device)
+            gen.manual_seed(7)
+            fused_errs[kind_] = check_fused(with_new_rows(case, kind_, gen),
+                                            kind_)
         emit({"phase": "K6_vs_plain_wide", "case": what, **kw,
               "W": int(case["tables"].shape[1]), "splits": k6_splits(case),
-              "max_abs_err": errs, "tolerance": ATTN_TOL})
+              "max_abs_err": errs, "fused_max_abs_err": fused_errs,
+              "fused_bit_equal_to_k5_then_k6": True,
+              "tolerance": ATTN_TOL})
         del case
+    emit({"phase": "K5_K6_checks",
+          "check_launches": {name: getattr(pa, name).launches
+                             for name in PAGED}})
+    case = attention_case("bf16", device, B=32, seed=32)
+    bound, by = attention_bound(case)
+    ms = time_ms(lambda: _run_attention(pa.paged_decode_attention, case))
+    sdpa = time_ms(dense_sdpa(case))
+    emit({"phase": "K6_timed", "B": 32, "H": 32, "KV": 8, "hd": 128,
+          "BS": 16, "max_pos": 1024, "bf16_ms": ms,
+          "bf16_plain_ms": time_ms(lambda: _run_attention(
+              pa.paged_decode_attention_reference, case)),
+          "bf16_bound_ms": bound, "bf16_bound_by": by,
+          "bf16_library_ms": sdpa, "bf16_x_sdpa": ms / sdpa,
+          "bf16_x_bound": ms / bound, "splits": k6_splits(case)})
+    del case
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1307,6 +1451,55 @@ def main() -> int:
         # latency from the walk's per-step compute and barriers
         k6_warm = time_ms(lambda: _run_attention(pa.paged_decode_attention,
                                                  attn_case), cold=False)
+        # K5 folded into K6, against K5 then K6 and its plain version,
+        # at the mid-decode state (the real pools in bf16; f32 and int8
+        # pools of the same shapes and positions) and at B 32 with rows to
+        # 1,024; timed beside the pair, K6 alone and an empty launch
+        # fresh new rows: time_kernels already appended app_case's rows
+        # into these pools, where a fused op that wrote nothing would
+        # still match the pair
+        mid = with_new_rows(attn_case, "bf16", gen)
+        fused_t = {"launch_floor_ms": launch_floor_ms(device)}
+        fused_errs = {}
+        for shape in ("mid_decode", "B32"):
+            errs = fused_errs[shape] = {}
+            ms_ = {}
+            for kind_ in ("f32", "bf16", "int8"):
+                if shape == "mid_decode" and kind_ == "bf16":
+                    case = mid
+                else:
+                    if shape == "mid_decode":
+                        case = attention_case(
+                            kind_, device, B=B, seed=8,
+                            max_pos=int(state["tables"].shape[1]) * 16 - 1)
+                        case["pos"] = state["pos"].clone()
+                    else:
+                        case = attention_case(kind_, device, B=32, seed=32)
+                    case = with_new_rows(case, kind_, gen)
+                errs[kind_] = check_fused(case, kind_)
+                ms_[kind_] = time_fused(case)
+                if kind_ == "bf16":
+                    bound = fused_bound(case)
+            emit({"phase": "K5K6_fused_vs_pair", "shape": shape,
+                  "B": int(case["q"].shape[0]),
+                  "W": int(case["tables"].shape[1]), "H": cfg.n_heads,
+                  "KV": KV, "hd": hd, "BS": 16,
+                  "pos": case["pos"].tolist() if shape == "mid_decode"
+                  else "0-1024", "splits": k6_splits(case),
+                  "bit_equal_to_k5_then_k6": True,
+                  "max_abs_err_vs_plain": errs, "tolerance": ATTN_TOL,
+                  "ms": ms_, "bf16_bound_ms": bound[0],
+                  "bf16_bound_by": bound[1],
+                  "launch_floor_ms": fused_t["launch_floor_ms"]})
+            fused_t[shape] = ms_
+            del case
+        f_bound, f_by = fused_bound(mid)
+        timings["paged_append_decode_attention"] = {
+            "ms": fused_t["mid_decode"]["bf16"]["fused_ms"],
+            "plain_ms": time_ms(lambda: _run_fused(
+                pa.paged_append_decode_attention_reference, mid)),
+            "bound_ms": f_bound, "bound_by": f_by, "library_ms": None,
+        }
     k6 = timings["paged_decode_attention"]
     emit({"phase": "mid_decode_routes", **routes,
           "paged_decode_attention_ms": k6["ms"],
@@ -1424,13 +1617,13 @@ def main() -> int:
                 **xent_run["launches"]}
 
     errs = {"paged_kv_append": 0.0, "paged_decode_attention": attn_err,
+            "paged_append_decode_attention": fused_errs["mid_decode"]["bf16"],
             **flash_errs, **xent_errs}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errs[name], **timings[name]}
-        for name in ("paged_kv_append", "paged_decode_attention", *FLASH,
-                     *XENT)
+        for name in (*PAGED, *FLASH, *XENT)
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -438,12 +438,15 @@ def decode_step_paged(cfg: LlamaConfig, params: Dict, token: torch.Tensor,
 
     token [B] int; k_pool/v_pool [L, NB, BS, KV, hd] (passed WHOLE —
     the layer index rides the kernels as a scalar); tables [B, W]
-    int32 (scratch-block padded); pos [B] int32.  Per layer,
-    `paged_kv_append` writes the new KV row, then
-    `paged_decode_attention` walks each row's blocks.  The pools (and,
-    for int8 pools, the `kv_scales` = (k_scale, v_scale) sidecar) are
-    updated IN PLACE.  Returns (logits [B, vocab] f32, k_pool, v_pool)
-    plus (k_scale, v_scale) when `kv_scales` is given."""
+    int32 (scratch-block padded); pos [B] int32.  Per layer, one
+    `paged_append_decode_attention` writes the new KV row and walks
+    each row's blocks (`paged_kv_append` then `paged_decode_attention`
+    as one op; on the card, one kernel launch).  Int8 pools quantize
+    the new row here first, as the reference does outside its kernels.
+    The pools (and, for int8 pools, the `kv_scales` = (k_scale,
+    v_scale) sidecar) are updated IN PLACE.  Returns (logits [B, vocab]
+    f32, k_pool, v_pool) plus (k_scale, v_scale) when `kv_scales` is
+    given."""
     B = token.shape[0]
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     ks, vs = kv_scales if kv_scales is not None else (None, None)
@@ -456,14 +459,13 @@ def decode_step_paged(cfg: LlamaConfig, params: Dict, token: torch.Tensor,
         if ks is not None:
             kq, k_sc = _pa.quantize_int8(k_new)
             vq, v_sc = _pa.quantize_int8(v_new)
-            _pa.paged_kv_append(k_pool, v_pool, kq, vq, tables, pos, li,
-                                k_scale=ks, v_scale=vs, k_new_scale=k_sc,
-                                v_new_scale=v_sc)
+            o = _pa.paged_append_decode_attention(
+                q[:, 0], k_pool, v_pool, kq, vq, tables, pos, li,
+                k_scale=ks, v_scale=vs, k_new_scale=k_sc, v_new_scale=v_sc)
         else:
-            _pa.paged_kv_append(k_pool, v_pool, k_new.to(k_pool.dtype),
-                                v_new.to(v_pool.dtype), tables, pos, li)
-        o = _pa.paged_decode_attention(q[:, 0], k_pool, v_pool, tables, pos,
-                                       li, k_scale=ks, v_scale=vs)
+            o = _pa.paged_append_decode_attention(
+                q[:, 0], k_pool, v_pool, k_new.to(k_pool.dtype),
+                v_new.to(v_pool.dtype), tables, pos, li)
         o = o.to(cfg.dtype).reshape(B, 1, H * hd)
         x1 = x + _apply(o, layer["wo"], cfg.dtype, layer.get("wo_scale"))
         x = _mlp(cfg, layer, x1)

@@ -38,9 +38,11 @@ enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 // Replaces ray_tpu/ops/paged_attention.py:93 `_build_append` (pallas_call at
 // l.202, entry `paged_kv_append` l.216).
 //
-// Bound on this card: bytes.  A call reads B*KV*HD new elements per pool and
-// writes as many (plus B*KV f32 scales each way for int8): kilobytes, so the
-// launch itself is the floor, not the 3.35 TB/s of HBM.
+// Bound on this card: not bytes.  A call reads B*KV*HD new elements per
+// pool and writes as many (plus B*KV f32 scales each way for int8):
+// kilobytes, ~20 ns of HBM at the serve shape.  What a launch of its own
+// costs is the launch and a three-step dependent chain, pos[b] -> tables[b,
+// p / BS] -> the store, each step a round trip to memory: microseconds.
 //
 // Design: one block per (row, kv head).  A row's new K (or V) for one kv
 // head is a contiguous run of HD elements both in `k_new` and in the pool,
@@ -50,17 +52,75 @@ enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 // because Pallas stages whole blocks; an in-place scatter has neither, so
 // rows run in parallel.  Two idle rows may write the same slot of scratch
 // block 0: benign, scratch content is garbage by contract.
+//
+// This kernel stays for `paged_kv_append`.  The decode step does not launch
+// it: K6's `kAppend` instantiation below does the same writes (one store
+// body, `store_new_row`, serves both) in K6's own launch, where K6 already pays the chain's first two steps (pos and the
+// table entries come in its prologue's one round trip, beside the new row),
+// so the append costs K6 a few stores and a barrier instead of a launch.
 // ---------------------------------------------------------------------------
+// The fused append's operands (kAppend): the new rows [B, KV, HD] in the
+// pool dtype, their int8 scales [B, KV] (null for model-dtype pools), the
+// pools and scale sidecars written through, and the copy unit in bytes (16,
+// 8, 4, 2 or 1: dividing the row and every pointer).  K5 takes it too;
+// plain K6 passes it zeroed and never reads it.
+struct NewRow {
+  const char* k_new;
+  const char* v_new;
+  const float* k_new_scale;
+  const float* v_new_scale;
+  char* k_pool;
+  char* v_pool;
+  float* k_scale;
+  float* v_scale;
+  int vb;
+};
+
 template <typename V>
-__global__ void append_kernel(char* __restrict__ k_pool,
-                              char* __restrict__ v_pool,
-                              const char* __restrict__ k_new,
-                              const char* __restrict__ v_new,
-                              float* __restrict__ k_scale,
-                              float* __restrict__ v_scale,
-                              const float* __restrict__ k_new_scale,
-                              const float* __restrict__ v_new_scale,
-                              const int* __restrict__ tables,
+__device__ __forceinline__ void copy_units(char* dst, const char* src, int n,
+                                           int tid, int nt) {
+  for (int i = tid; i < n; i += nt)
+    reinterpret_cast<V*>(dst)[i] = reinterpret_cast<const V*>(src)[i];
+}
+
+// nt threads of the CTA (tid < nt) copy n bytes from src to dst in units
+// of vb bytes
+__device__ __forceinline__ void copy_bytes(char* dst, const char* src, int n,
+                                           int vb, int tid, int nt) {
+  switch (vb) {
+    case 16: copy_units<uint4>(dst, src, n / 16, tid, nt); break;
+    case 8: copy_units<uint2>(dst, src, n / 8, tid, nt); break;
+    case 4: copy_units<unsigned>(dst, src, n / 4, tid, nt); break;
+    case 2: copy_units<unsigned short>(dst, src, n / 2, tid, nt); break;
+    default: copy_units<unsigned char>(dst, src, n, tid, nt); break;
+  }
+}
+
+// the pool slot (layer, block blk, offset p % BS) that position p of a row
+// goes to
+__device__ __forceinline__ long long pool_slot(int layer, int NB, int BS,
+                                               long long blk, int p) {
+  return ((long long)layer * NB + blk) * BS + p % BS;
+}
+
+// K5's store, the one body of every append: row b's new K and V of kv head
+// h (rb bytes each) into pool slot `slot`, and for int8 pools their scales
+// into the sidecars, by nt threads of the CTA
+__device__ __forceinline__ void store_new_row(const NewRow& nr,
+                                              long long slot, int b, int h,
+                                              int KV, int rb, int tid,
+                                              int nt) {
+  const long long dst = (slot * KV + h) * rb;
+  const long long src = ((long long)b * KV + h) * rb;
+  copy_bytes(nr.k_pool + dst, nr.k_new + src, rb, nr.vb, tid, nt);
+  copy_bytes(nr.v_pool + dst, nr.v_new + src, rb, nr.vb, tid, nt);
+  if (nr.k_scale != nullptr && tid == 0) {
+    nr.k_scale[slot * KV + h] = nr.k_new_scale[(long long)b * KV + h];
+    nr.v_scale[slot * KV + h] = nr.v_new_scale[(long long)b * KV + h];
+  }
+}
+
+__global__ void append_kernel(NewRow nr, const int* __restrict__ tables,
                               const int* __restrict__ pos, int layer, int NB,
                               int BS, int KV, int row_bytes, int W) {
   const int b = blockIdx.x, h = blockIdx.y;
@@ -68,23 +128,9 @@ __global__ void append_kernel(char* __restrict__ k_pool,
   // a position past the table's reach writes nothing (the reference's
   // `p_b < view` guard); within reach, p / BS <= W - 1 already
   if (p < 0 || p >= W * BS) return;
-  const long long blk = tables[(long long)b * W + p / BS];
-  const long long slot = ((long long)layer * NB + blk) * BS + p % BS;
-  const long long dst = (slot * KV + h) * row_bytes;
-  const long long src = ((long long)b * KV + h) * row_bytes;
-  const int n = row_bytes / (int)sizeof(V);
-  const V* ks = reinterpret_cast<const V*>(k_new + src);
-  const V* vs = reinterpret_cast<const V*>(v_new + src);
-  V* kd = reinterpret_cast<V*>(k_pool + dst);
-  V* vd = reinterpret_cast<V*>(v_pool + dst);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    kd[i] = ks[i];
-    vd[i] = vs[i];
-  }
-  if (k_scale != nullptr && threadIdx.x == 0) {
-    k_scale[slot * KV + h] = k_new_scale[b * KV + h];
-    v_scale[slot * KV + h] = v_new_scale[b * KV + h];
-  }
+  store_new_row(nr,
+                pool_slot(layer, NB, BS, tables[(long long)b * W + p / BS], p),
+                b, h, KV, row_bytes, threadIdx.x, blockDim.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -153,6 +199,26 @@ __global__ void append_kernel(char* __restrict__ k_pool,
 // it stages at once: it stages them in rounds as the walk reaches them.
 // Heads wider than kMaxHD (the reference takes any width; no config of
 // the repo has one) run decode_attention_wide below.
+//
+// The fused append (kAppend; `paged_append_decode_attention`, one launch a
+// layer on the decode step in place of K5 then K6).  The new token's column
+// p = pos[b] lies in exactly one split, (p / BS) / per: only that split's
+// CTAs of (row b, kv head) write, and they write before their walk reads
+// anything.  No other split reads column p, so no ordering across CTAs is
+// needed; the writing CTA is the only reader, and the barrier between its
+// stores and its walk's first copies orders the two.  The row's new K and V
+// for the kv head (and the int8 scales) come in the prologue's one round
+// trip beside pos, the table entries and q; the destination block is the
+// staged table entry, so the append adds no dependent trip to memory.
+// With a GQA group past kMaxG, each group-chunk CTA of the split writes the
+// same bytes to the same slot and reads back its own store: identical
+// concurrent stores are benign, and the walk needs no second source for
+// column p.  A position past the table's reach, or below 0, writes nothing.
+// Output and pools are bit-equal to K5 then K6 for every row whose live
+// blocks no other row of the call writes (the engine shares only full
+// prompt blocks and parks released and idle slots on scratch block 0);
+// idle rows that read scratch block 0 while another idle row writes it are
+// garbage by contract, in both routes.
 // ---------------------------------------------------------------------------
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -327,9 +393,20 @@ struct DecodePlan {
   }
 };
 
+// 16-byte vectors of a new K and V row (hd * itemsize / 16 each) a thread
+// holds in the fused append's prologue: the FMA path's widest head over 128
+// threads, one on the mma path
+template <typename PT, int kMmaHD>
+__host__ __device__ constexpr int new_row_vecs() {
+  return kMmaHD > 0 ? 1
+                    : (2 * kMaxHD * (int)sizeof(PT) / 16 + kAttnThreads - 1) /
+                          kAttnThreads;
+}
+
 // kMmaHD: the head width of the mma.sync path (bf16 q and pool), or 0 for
-// the FMA path
-template <typename QT, typename PT, int kSlots, int kMmaHD>
+// the FMA path.  kAppend: the fused append (see above) writes the row's new
+// K and V before the walk; off, the kernel is K6 alone.
+template <typename QT, typename PT, int kSlots, int kMmaHD, bool kAppend>
 __global__ void __launch_bounds__(kAttnThreads)
     decode_attention_kernel(QT* __restrict__ out, const QT* __restrict__ q,
                             const PT* __restrict__ k_pool,
@@ -341,7 +418,7 @@ __global__ void __launch_bounds__(kAttnThreads)
                             float* __restrict__ ws, int* __restrict__ counters,
                             int layer, int NB, int BS, int KV, int HD,
                             int group, int W, int per, int splits, int stages,
-                            float scale) {
+                            float scale, NewRow nr) {
   constexpr bool kQuant = sizeof(PT) == 1;  // int8 pools carry scales
   const int n_gc = (group + kMaxG - 1) / kMaxG;
   const int split = blockIdx.x, hc = blockIdx.y, b = blockIdx.z;
@@ -370,6 +447,31 @@ __global__ void __launch_bounds__(kAttnThreads)
   const int n_tbl = min(per, kMaxPer);  // the entries staged
   const int tw =
       tid < n_tbl && w0 + tid < W ? __ldg(tables + t_row + tid) : 0;
+  // the fused append's new K and V row for this kv head (vector v < vpr of
+  // K, then of V) and, on threads 0 and 1, its int8 scales: loaded before
+  // pos is known, in the same round trip, ahead of q (whose FMA-path loop
+  // stores each load); only 16-byte units are held, a narrower unit is
+  // copied after the barrier below
+  const int rb = pl.vpr * 16;  // bytes in a pool row
+  [[maybe_unused]] const long long new_off = ((long long)b * KV + kvh) * rb;
+  constexpr int kNV = kAppend ? new_row_vecs<PT, kMmaHD>() : 1;
+  [[maybe_unused]] uint4 nrow[kNV];
+  [[maybe_unused]] float nsc = 0.f;
+  if constexpr (kAppend) {
+    if (nr.vb == 16) {
+#pragma unroll
+      for (int j = 0; j < kNV; ++j) {
+        const int v = tid + j * kAttnThreads;
+        if (v < 2 * pl.vpr)
+          nrow[j] = __ldg(reinterpret_cast<const uint4*>(
+                              (v < pl.vpr ? nr.k_new : nr.v_new) + new_off) +
+                          (v < pl.vpr ? v : v - pl.vpr));
+      }
+    }
+    if (kQuant && tid < 2)
+      nsc = __ldg((tid == 0 ? nr.k_new_scale : nr.v_new_scale) +
+                  (long long)b * KV + kvh);
+  }
   // the mma path's q: each thread's bf16 pairs of its A fragments, from
   // device memory straight into registers (row g = lane / 4; rows past the
   // group are zeros)
@@ -409,12 +511,45 @@ __global__ void __launch_bounds__(kAttnThreads)
     }
     __syncthreads();
 
+    if constexpr (kAppend) {
+      // the split that holds column p writes it (uniform over the CTA: p_b
+      // and the split are), into the block of the staged table entry or,
+      // past the kMaxPer entries staged, of the table itself.  The barrier
+      // after the stores orders them before the walk's cp.async reads of
+      // the same row by other threads of the CTA: __syncthreads() makes
+      // every global and shared write made before it visible to the whole
+      // block, which is all a __threadfence_block() would add, and no
+      // other CTA reads column p
+      const int col = p_b / BS;
+      if (p_b >= 0 && p_b < W * BS && col >= w0 && col < w0 + per) {
+        const int wc = col - w0;
+        const long long slot = pool_slot(
+            layer, NB, BS,
+            wc < kMaxPer ? tbl_s[wc] : __ldg(tables + t_row + wc), p_b);
+        if (nr.vb == 16) {  // K5's store, from the registers loaded above
+          const long long dst = (slot * KV + kvh) * rb;
+#pragma unroll
+          for (int j = 0; j < kNV; ++j) {
+            const int v = tid + j * kAttnThreads;
+            if (v < 2 * pl.vpr)
+              reinterpret_cast<uint4*>((v < pl.vpr ? nr.k_pool : nr.v_pool) +
+                                       dst)[v < pl.vpr ? v : v - pl.vpr] =
+                  nrow[j];
+          }
+          if (kQuant && tid < 2)
+            (tid == 0 ? nr.k_scale : nr.v_scale)[slot * KV + kvh] = nsc;
+        } else {
+          store_new_row(nr, slot, b, kvh, KV, rb, tid, kAttnThreads);
+        }
+        __syncthreads();
+      }
+    }
+
     // Copy k of a step (k < kMaxVecs) is row vr[k], chunk vc of the step's
     // tiles; vw / vo, its table column (from w0) and offset in the block
     // for the next step to issue, advance by the step as steps issue in
     // order, so the walk divides nothing.  Thread tid < step also copies
     // the int8 scales of row tid.
-    const int rb = pl.vpr * 16;  // bytes in a pool row
     const int dq = pl.step / BS, dr = pl.step - dq * BS;
     int vr[kMaxVecs], vd[kMaxVecs], vs[kMaxVecs], vw[kMaxVecs], vo[kMaxVecs];
     {
@@ -924,19 +1059,26 @@ __global__ void __launch_bounds__(kAttnThreads)
 // order), the online softmax one thread a query head as the FMA path does
 // it (P rounded to q's dtype against the running max), and P.V for the
 // CTA's kWideCols columns, one thread a column, the accumulators in
-// shared memory.
+// shared memory.  With kAppend, every column-part CTA of (row, kv head x
+// group chunk) reads every K column for its scores, so each writes the
+// whole new row (K, V and the int8 scales: identical bytes) and then reads
+// the pools through L2 (ld.global.cg), never the read-only path, whose
+// cache does not see a store of the same launch.
 // ---------------------------------------------------------------------------
 constexpr int kWideCols = 1024;  // the columns of a wide head a CTA owns
 
-template <typename T>
+// one pool element as f32; kCg: through L2, for pools this launch writes
+template <bool kCg, typename T>
 __device__ __forceinline__ float elem_f32(const T* p) {
-  if constexpr (sizeof(T) == 1)
-    return static_cast<float>(*reinterpret_cast<const signed char*>(p));
-  else
-    return to_f32<T>(*p);
+  if constexpr (sizeof(T) == 1) {
+    const signed char* c = reinterpret_cast<const signed char*>(p);
+    return static_cast<float>(kCg ? __ldcg(c) : *c);
+  } else {
+    return to_f32<T>(kCg ? __ldcg(p) : *p);
+  }
 }
 
-template <typename QT, typename PT>
+template <typename QT, typename PT, bool kAppend>
 __global__ void __launch_bounds__(kAttnThreads)
     decode_attention_wide(QT* __restrict__ out, const QT* __restrict__ q,
                           const PT* __restrict__ k_pool,
@@ -946,7 +1088,7 @@ __global__ void __launch_bounds__(kAttnThreads)
                           const int* __restrict__ tables,
                           const int* __restrict__ pos, int layer, int NB,
                           int BS, int KV, int HD, int group, int W,
-                          float scale) {
+                          float scale, NewRow nr) {
   constexpr bool kQuant = sizeof(PT) == 1;
   __shared__ float acc_s[kMaxG * kWideCols];
   __shared__ float s_s[kWarps][kMaxG], p_s[kWarps][kMaxG];
@@ -969,18 +1111,29 @@ __global__ void __launch_bounds__(kAttnThreads)
     l_s[tid] = 0.f;
   }
   const long long layer_row = (long long)layer * NB;
+  if constexpr (kAppend) {
+    if (p_b >= 0 && p_b < W * BS) {
+      store_new_row(
+          nr,
+          pool_slot(layer, NB, BS, tables[(long long)b * W + p_b / BS], p_b),
+          b, kvh, KV, HD * (int)sizeof(PT), tid, kAttnThreads);
+      __syncthreads();  // the stores, before any warp reads the row
+    }
+  }
   for (int t0 = 0; t0 < n_tok; t0 += kWarps) {
     const int t = t0 + warp;
     long long row = -1;  // the pool row of token t, kv head kvh
     if (t < n_tok)
       row = ((layer_row + tables[(long long)b * W + t / BS]) * BS + t % BS) *
                 KV + kvh;
-    const float ksc = kQuant && row >= 0 ? k_scale[row] : 1.f;
+    const float ksc =
+        kQuant && row >= 0 ? (kAppend ? __ldcg(k_scale + row) : k_scale[row])
+                           : 1.f;
     for (int g = 0; g < G; ++g) {
       float s = 0.f;
       if (row >= 0) {
         for (int d = lane; d < HD; d += 32) {
-          float kf = elem_f32(k_pool + row * HD + d);
+          float kf = elem_f32<kAppend>(k_pool + row * HD + d);
           if (kQuant) kf = round_q<QT>(kf * ksc);
           s = fmaf(to_f32<QT>(q[q_off + (long long)g * HD + d]), kf, s);
         }
@@ -990,7 +1143,9 @@ __global__ void __launch_bounds__(kAttnThreads)
     }
     if (lane == 0) {
       row_s[warp] = row;
-      vsc_s[warp] = kQuant && row >= 0 ? v_scale[row] : 1.f;
+      vsc_s[warp] =
+          kQuant && row >= 0 ? (kAppend ? __ldcg(v_scale + row) : v_scale[row])
+                             : 1.f;
     }
     __syncthreads();
     if (tid < G) {  // the online softmax of query head tid over the step
@@ -1015,7 +1170,7 @@ __global__ void __launch_bounds__(kAttnThreads)
       for (int w = 0; w < kWarps; ++w) {
         v[w] = 0.f;
         if (row_s[w] >= 0) {
-          v[w] = elem_f32(v_pool + row_s[w] * HD + c_lo + c);
+          v[w] = elem_f32<kAppend>(v_pool + row_s[w] * HD + c_lo + c);
           if (kQuant) v[w] = round_q<QT>(v[w] * vsc_s[w]);
         }
       }
@@ -1038,7 +1193,7 @@ __global__ void __launch_bounds__(kAttnThreads)
 }
 
 // One instantiation's launch.
-template <typename QT, typename PT, int kSlots, int kMmaHD>
+template <typename QT, typename PT, int kSlots, int kMmaHD, bool kAppend>
 cudaError_t launch_variant(dim3 grid, size_t smem, cudaStream_t stream,
                            void* out, const void* q, const void* k_pool,
                            const void* v_pool, const void* k_scale,
@@ -1046,8 +1201,8 @@ cudaError_t launch_variant(dim3 grid, size_t smem, cudaStream_t stream,
                            const void* pos, void* ws, void* counters,
                            int layer, int NB, int BS, int KV, int HD,
                            int group, int W, int per, int splits, int stages,
-                           float scale) {
-  auto kernel = decode_attention_kernel<QT, PT, kSlots, kMmaHD>;
+                           float scale, const NewRow& nr) {
+  auto kernel = decode_attention_kernel<QT, PT, kSlots, kMmaHD, kAppend>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1059,25 +1214,27 @@ cudaError_t launch_variant(dim3 grid, size_t smem, cudaStream_t stream,
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const int*>(tables), static_cast<const int*>(pos),
       static_cast<float*>(ws), static_cast<int*>(counters), layer, NB, BS, KV,
-      HD, group, W, per, splits, stages, scale);
+      HD, group, W, per, splits, stages, scale, nr);
   return cudaGetLastError();
 }
 
-template <typename QT, typename PT>
+template <typename QT, typename PT, bool kAppend>
 cudaError_t launch_attention(void* out, const void* q, const void* k_pool,
                              const void* v_pool, const void* k_scale,
                              const void* v_scale, const void* tables,
                              const void* pos, void* ws, void* counters,
                              int layer, int NB, int BS, int KV, int HD, int H,
                              int B, int W, int per, int splits, float scale,
-                             cudaStream_t stream) {
+                             const NewRow& nr, cudaStream_t stream) {
   if ((HD * (int)sizeof(PT)) % 16 != 0 || KV < 1 || H % KV != 0 ||
       splits < 1 || splits > kMaxSplits || per < 1 ||
       (long long)(splits - 1) * per >= W || (long long)splits * per < W)
     return cudaErrorInvalidValue;
+  if (kAppend && (nr.vb < 1 || nr.vb > 16 || (nr.vb & (nr.vb - 1)) != 0))
+    return cudaErrorInvalidValue;
   const int group = H / KV, G = min(group, kMaxG);
   if (HD > kMaxHD) {  // one CTA a (column part, kv head x group chunk, row)
-    decode_attention_wide<QT, PT>
+    decode_attention_wide<QT, PT, kAppend>
         <<<dim3((HD + kWideCols - 1) / kWideCols,
                 KV * ((group + kMaxG - 1) / kMaxG), B),
            kAttnThreads, 0, stream>>>(
@@ -1086,7 +1243,7 @@ cudaError_t launch_attention(void* out, const void* q, const void* k_pool,
             static_cast<const float*>(k_scale),
             static_cast<const float*>(v_scale),
             static_cast<const int*>(tables), static_cast<const int*>(pos),
-            layer, NB, BS, KV, HD, group, W, scale);
+            layer, NB, BS, KV, HD, group, W, scale, nr);
     return cudaGetLastError();
   }
   int stages = 3;
@@ -1099,11 +1256,11 @@ cudaError_t launch_attention(void* out, const void* q, const void* k_pool,
     return cudaErrorInvalidValue;
   const dim3 grid(splits, KV * ((group + kMaxG - 1) / kMaxG), B);
   constexpr bool kBf16 = sizeof(QT) == 2 && sizeof(PT) == 2;
-#define RT_VARIANT(SLOTS, MMA)                                              \
-  launch_variant<QT, PT, SLOTS, MMA>(grid, smem, stream, out, q, k_pool,    \
-                                     v_pool, k_scale, v_scale, tables, pos, \
-                                     ws, counters, layer, NB, BS, KV, HD,   \
-                                     group, W, per, splits, stages, scale)
+#define RT_VARIANT(SLOTS, MMA)                                             \
+  launch_variant<QT, PT, SLOTS, MMA, kAppend>(                             \
+      grid, smem, stream, out, q, k_pool, v_pool, k_scale, v_scale, tables, \
+      pos, ws, counters, layer, NB, BS, KV, HD, group, W, per, splits,     \
+      stages, scale, nr)
   if constexpr (kBf16) {
     if (HD == 128) return RT_VARIANT(1, 128);
     if (HD == 64) return RT_VARIANT(1, 64);
@@ -1112,6 +1269,33 @@ cudaError_t launch_attention(void* out, const void* q, const void* k_pool,
   return RT_VARIANT(kWideSlots, 0);
 #undef RT_VARIANT
 }
+
+// K6, or with kAppend K5 and K6 in one launch, for the dtype pair
+template <bool kAppend>
+int launch_by_dtype(void* out, const void* q, const void* k_pool,
+                    const void* v_pool, const void* k_scale,
+                    const void* v_scale, const void* tables, const void* pos,
+                    void* ws, void* counters, int layer, int NB, int BS,
+                    int KV, int HD, int H, int B, int W, int per, int splits,
+                    float scale, int q_dtype, int pool_dtype, const NewRow& nr,
+                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RT_ATTN(QT, PT)                                                    \
+  launch_attention<QT, PT, kAppend>(out, q, k_pool, v_pool, k_scale,       \
+                                    v_scale, tables, pos, ws, counters,    \
+                                    layer, NB, BS, KV, HD, H, B, W, per,   \
+                                    splits, scale, nr, s)
+  if (q_dtype == kF32 && pool_dtype == kF32) return (int)RT_ATTN(float, float);
+  if (q_dtype == kBF16 && pool_dtype == kBF16)
+    return (int)RT_ATTN(__nv_bfloat16, __nv_bfloat16);
+  if (q_dtype == kF32 && pool_dtype == kI8) return (int)RT_ATTN(float, int8_t);
+  if (q_dtype == kBF16 && pool_dtype == kI8)
+    return (int)RT_ATTN(__nv_bfloat16, int8_t);
+#undef RT_ATTN
+  return (int)cudaErrorInvalidValue;
+}
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -1126,32 +1310,20 @@ int rt_paged_kv_append(void* k_pool, void* v_pool, const void* k_new,
                        const void* tables, const void* pos, int layer, int NB,
                        int BS, int KV, int row_bytes, int B, int W,
                        int vec_bytes, void* stream) {
-  const dim3 grid(B, KV);
-  const int threads = 32;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  char* kp = static_cast<char*>(k_pool);
-  char* vp = static_cast<char*>(v_pool);
-  const char* kn = static_cast<const char*>(k_new);
-  const char* vn = static_cast<const char*>(v_new);
-  float* ks = static_cast<float*>(k_scale);
-  float* vs = static_cast<float*>(v_scale);
-  const float* kns = static_cast<const float*>(k_new_scale);
-  const float* vns = static_cast<const float*>(v_new_scale);
-  const int* tb = static_cast<const int*>(tables);
-  const int* ps = static_cast<const int*>(pos);
-#define RT_APPEND(V)                                                       \
-  append_kernel<V><<<grid, threads, 0, s>>>(kp, vp, kn, vn, ks, vs, kns,  \
-                                            vns, tb, ps, layer, NB, BS, KV, \
-                                            row_bytes, W)
-  switch (vec_bytes) {
-    case 16: RT_APPEND(uint4); break;
-    case 8: RT_APPEND(uint2); break;
-    case 4: RT_APPEND(unsigned int); break;
-    case 2: RT_APPEND(unsigned short); break;
-    case 1: RT_APPEND(unsigned char); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef RT_APPEND
+  if (vec_bytes < 1 || vec_bytes > 16 || (vec_bytes & (vec_bytes - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const NewRow nr{static_cast<const char*>(k_new),
+                  static_cast<const char*>(v_new),
+                  static_cast<const float*>(k_new_scale),
+                  static_cast<const float*>(v_new_scale),
+                  static_cast<char*>(k_pool),
+                  static_cast<char*>(v_pool),
+                  static_cast<float*>(k_scale),
+                  static_cast<float*>(v_scale),
+                  vec_bytes};
+  append_kernel<<<dim3(B, KV), 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      nr, static_cast<const int*>(tables), static_cast<const int*>(pos), layer,
+      NB, BS, KV, row_bytes, W);
   return (int)cudaGetLastError();
 }
 
@@ -1168,19 +1340,43 @@ int rt_paged_decode_attention(void* out, const void* q, const void* k_pool,
                               int layer, int NB, int BS, int KV, int HD, int H,
                               int B, int W, int per, int splits, float scale,
                               int q_dtype, int pool_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RT_ATTN(QT, PT)                                                     \
-  launch_attention<QT, PT>(out, q, k_pool, v_pool, k_scale, v_scale, tables, \
-                           pos, ws, counters, layer, NB, BS, KV, HD, H, B, W, \
-                           per, splits, scale, s)
-  if (q_dtype == kF32 && pool_dtype == kF32) return (int)RT_ATTN(float, float);
-  if (q_dtype == kBF16 && pool_dtype == kBF16)
-    return (int)RT_ATTN(__nv_bfloat16, __nv_bfloat16);
-  if (q_dtype == kF32 && pool_dtype == kI8) return (int)RT_ATTN(float, int8_t);
-  if (q_dtype == kBF16 && pool_dtype == kI8)
-    return (int)RT_ATTN(__nv_bfloat16, int8_t);
-#undef RT_ATTN
-  return (int)cudaErrorInvalidValue;
+  return launch_by_dtype<false>(out, q, k_pool, v_pool, k_scale, v_scale,
+                                tables, pos, ws, counters, layer, NB, BS, KV,
+                                HD, H, B, W, per, splits, scale, q_dtype,
+                                pool_dtype, NewRow{}, stream);
+}
+
+// K5 folded into K6: rt_paged_kv_append's writes, then
+// rt_paged_decode_attention's output, in one launch.  The arguments are
+// the union of the two entries'; vec_bytes is the copy unit (16, 8, 4, 2
+// or 1) dividing the row and every pointer, as for K5.
+int rt_paged_append_decode_attention(
+    void* out, const void* q, void* k_pool, void* v_pool, void* k_scale,
+    void* v_scale, const void* k_new, const void* v_new,
+    const void* k_new_scale, const void* v_new_scale, const void* tables,
+    const void* pos, void* ws, void* counters, int layer, int NB, int BS,
+    int KV, int HD, int H, int B, int W, int per, int splits, float scale,
+    int q_dtype, int pool_dtype, int vec_bytes, void* stream) {
+  const NewRow nr{static_cast<const char*>(k_new),
+                  static_cast<const char*>(v_new),
+                  static_cast<const float*>(k_new_scale),
+                  static_cast<const float*>(v_new_scale),
+                  static_cast<char*>(k_pool),
+                  static_cast<char*>(v_pool),
+                  static_cast<float*>(k_scale),
+                  static_cast<float*>(v_scale),
+                  vec_bytes};
+  return launch_by_dtype<true>(out, q, k_pool, v_pool, k_scale, v_scale,
+                               tables, pos, ws, counters, layer, NB, BS, KV,
+                               HD, H, B, W, per, splits, scale, q_dtype,
+                               pool_dtype, nr, stream);
+}
+
+// An empty kernel on `stream`: the floor of a launch of its own, for
+// timing beside K5 (chip_smoke.py).
+int rt_empty_launch(void* stream) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

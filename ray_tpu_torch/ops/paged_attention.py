@@ -18,6 +18,10 @@ the per-layer loop never slices (= copies) the pool.
   Any table width and any head width the reference takes run on the
   card: heads wider than 1,024 on a simple kernel of their own, whole
   rows a CTA, the head's columns cut over CTAs of 1,024.
+- `paged_append_decode_attention`: the two above on the same arguments
+  as one op, the decode step's per-layer call: on the card one launch
+  of K6 that does K5's writes in its prologue, so the append costs no
+  launch and no dependent trip to memory of its own.
 
 Each wrapper launches its kernel for CUDA tensors, or raises; it takes
 its plain PyTorch version (`*_reference`, same arguments, same
@@ -136,6 +140,22 @@ def paged_decode_attention_reference(q, k_pool, v_pool, tables, pos, layer,
     return o.reshape(B, H, HD).to(q.dtype)
 
 
+def paged_append_decode_attention_reference(q, k_pool, v_pool, k_new,
+                                            v_new, tables, pos, layer, *,
+                                            k_scale=None, v_scale=None,
+                                            k_new_scale=None,
+                                            v_new_scale=None):
+    """`paged_append_decode_attention` in plain PyTorch: the two plain
+    versions in turn, on the same arguments."""
+    paged_kv_append_reference(k_pool, v_pool, k_new, v_new, tables, pos,
+                              layer, k_scale=k_scale, v_scale=v_scale,
+                              k_new_scale=k_new_scale,
+                              v_new_scale=v_new_scale)
+    return paged_decode_attention_reference(q, k_pool, v_pool, tables, pos,
+                                            layer, k_scale=k_scale,
+                                            v_scale=v_scale)
+
+
 # ----------------------------------------------------------------------
 # kernel wrappers
 # ----------------------------------------------------------------------
@@ -191,6 +211,11 @@ def _lib() -> ctypes.CDLL:
         lib.rt_paged_decode_attention.argtypes = (
             [_P] * 10 + [_I] * 10 + [ctypes.c_float, _I, _I, _P])
         lib.rt_paged_decode_attention.restype = _I
+        lib.rt_paged_append_decode_attention.argtypes = (
+            [_P] * 14 + [_I] * 10 + [ctypes.c_float, _I, _I, _I, _P])
+        lib.rt_paged_append_decode_attention.restype = _I
+        lib.rt_empty_launch.argtypes = [_P]
+        lib.rt_empty_launch.restype = _I
         lib._rt_typed = True
     return lib
 
@@ -240,6 +265,104 @@ def _vec_bytes(row_bytes: int, *tensors) -> int:
     return 1
 
 
+def _check_new_rows(k_pool, k_new, v_new, k_new_scale, v_new_scale,
+                    B: int) -> None:
+    """The new rows' checks against a checked pool: device, dtype, shape
+    and, for int8 pools, their per-row scales."""
+    KV, HD = k_pool.shape[3:]
+    _check_cuda(k_pool.device, k_new=k_new, v_new=v_new,
+                k_new_scale=k_new_scale, v_new_scale=v_new_scale)
+    if not k_new.dtype == v_new.dtype == k_pool.dtype:
+        raise ValueError("k_pool, v_pool, k_new and v_new must share a dtype")
+    if k_new.shape != (B, KV, HD) or v_new.shape != (B, KV, HD):
+        raise ValueError("pool / new-row shapes disagree")
+    _check_scales(k_new_scale is not None, k_pool.dtype,
+                  k_new_scale=k_new_scale, v_new_scale=v_new_scale)
+    if k_new_scale is not None and (k_new_scale.shape != (B, KV)
+                                    or v_new_scale.shape != (B, KV)):
+        raise ValueError("scale shapes disagree with the pool")
+
+
+def _check_append(k_pool, v_pool, k_new, v_new, tables, pos, layer,
+                  k_scale, v_scale, k_new_scale, v_new_scale) -> int:
+    """`paged_kv_append`'s checks of CUDA operands; returns the layer."""
+    L, NB, BS, KV, HD = k_pool.shape
+    B = k_new.shape[0]
+    _check_cuda(k_pool.device, k_pool=k_pool, v_pool=v_pool, tables=tables,
+                pos=pos, k_scale=k_scale, v_scale=v_scale)
+    if k_pool.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"pool dtype {k_pool.dtype} not supported")
+    if v_pool.dtype != k_pool.dtype or v_pool.shape != k_pool.shape:
+        raise ValueError("k_pool and v_pool must share a dtype and shape")
+    _check_scales(k_scale is not None, k_pool.dtype, k_scale=k_scale,
+                  v_scale=v_scale)
+    if k_scale is not None and (k_scale.shape != (L, NB, BS, KV)
+                                or v_scale.shape != (L, NB, BS, KV)):
+        raise ValueError("scale shapes disagree with the pool")
+    _check_new_rows(k_pool, k_new, v_new, k_new_scale, v_new_scale, B)
+    _check_index(tables, pos, B)
+    return _check_layer(layer, L)
+
+
+def _check_attention(q, k_pool, v_pool, tables, pos, layer, k_scale,
+                     v_scale) -> int:
+    """`paged_decode_attention`'s checks of CUDA operands; returns the
+    layer."""
+    L, NB, BS, KV, HD = k_pool.shape
+    B, H = q.shape[0], q.shape[1]
+    _check_cuda(k_pool.device, q=q, k_pool=k_pool, v_pool=v_pool,
+                tables=tables, pos=pos, k_scale=k_scale, v_scale=v_scale)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q dtype {q.dtype} not supported")
+    if v_pool.dtype != k_pool.dtype or k_pool.dtype not in (q.dtype,
+                                                            torch.int8):
+        raise ValueError(f"pool dtype {k_pool.dtype} does not serve q "
+                         f"dtype {q.dtype}")
+    if (v_pool.shape != k_pool.shape or q.dim() != 3 or q.shape[2] != HD
+            or H % KV):
+        raise ValueError("q / pool shapes disagree")
+    _check_scales(k_scale is not None, k_pool.dtype, k_scale=k_scale,
+                  v_scale=v_scale)
+    if k_scale is not None and (k_scale.shape != (L, NB, BS, KV)
+                                or v_scale.shape != (L, NB, BS, KV)):
+        raise ValueError("scale shapes disagree with the pool")
+    _check_index(tables, pos, B)
+    # the kernel moves pool rows as 16-byte vectors
+    row_bytes = HD * k_pool.element_size()
+    if (row_bytes % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16
+            or q.data_ptr() % 4):
+        raise ValueError(
+            f"pool rows of {row_bytes} B (hd {HD}) are not 16-byte vectors "
+            f"at 16-byte aligned addresses (q at 4-byte)"
+        )
+    return _check_layer(layer, L)
+
+
+def _check_layer(layer, L: int) -> int:
+    layer = int(layer)
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range [0, {L})")
+    return layer
+
+
+def _attention_plan(q, k_pool, tables):
+    """K6's launch arguments past the tensors: (splits, per, workspace,
+    counters, out)."""
+    HD = k_pool.shape[4]
+    B, H = q.shape[0], q.shape[1]
+    KV = k_pool.shape[3]
+    splits, per = split_plan(B, H, KV, tables.shape[1], k_pool.shape[2],
+                             _sm_count(q.device))
+    cells = B * KV * -(-(H // KV) // _MAX_GROUP)
+    ws, counters = _workspace(
+        q.device, cells * splits * _MAX_GROUP * (2 + HD), cells)
+    return splits, per, ws, counters, torch.empty_like(q)
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def paged_kv_append(k_pool, v_pool, k_new, v_new, tables, pos, layer, *,
                     k_scale=None, v_scale=None, k_new_scale=None,
                     v_new_scale=None):
@@ -258,41 +381,15 @@ def paged_kv_append(k_pool, v_pool, k_new, v_new, tables, pos, layer, *,
             k_scale=k_scale, v_scale=v_scale, k_new_scale=k_new_scale,
             v_new_scale=v_new_scale,
         )
-    L, NB, BS, KV, HD = k_pool.shape
-    B = k_new.shape[0]
-    quantized = k_scale is not None
-    _check_cuda(k_pool.device, k_pool=k_pool, v_pool=v_pool, k_new=k_new,
-                v_new=v_new, tables=tables, pos=pos, k_scale=k_scale,
-                v_scale=v_scale, k_new_scale=k_new_scale,
-                v_new_scale=v_new_scale)
-    if k_pool.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"pool dtype {k_pool.dtype} not supported")
-    if not (v_pool.dtype == k_new.dtype == v_new.dtype == k_pool.dtype):
-        raise ValueError("k_pool, v_pool, k_new and v_new must share a dtype")
-    if (v_pool.shape != k_pool.shape or k_new.shape != (B, KV, HD)
-            or v_new.shape != (B, KV, HD)):
-        raise ValueError("pool / new-row shapes disagree")
-    _check_scales(quantized, k_pool.dtype, k_scale=k_scale, v_scale=v_scale,
-                  k_new_scale=k_new_scale, v_new_scale=v_new_scale)
-    if quantized and (k_scale.shape != (L, NB, BS, KV)
-                      or v_scale.shape != (L, NB, BS, KV)
-                      or k_new_scale.shape != (B, KV)
-                      or v_new_scale.shape != (B, KV)):
-        raise ValueError("scale shapes disagree with the pool")
-    _check_index(tables, pos, B)
-    layer = int(layer)
-    if not 0 <= layer < L:
-        raise ValueError(f"layer {layer} out of range [0, {L})")
+    layer = _check_append(k_pool, v_pool, k_new, v_new, tables, pos, layer,
+                          k_scale, v_scale, k_new_scale, v_new_scale)
+    _, NB, BS, KV, HD = k_pool.shape
     row_bytes = HD * k_pool.element_size()
     rc = _lib().rt_paged_kv_append(
         k_pool.data_ptr(), v_pool.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(),
-        k_scale.data_ptr() if quantized else None,
-        v_scale.data_ptr() if quantized else None,
-        k_new_scale.data_ptr() if quantized else None,
-        v_new_scale.data_ptr() if quantized else None,
-        tables.data_ptr(), pos.data_ptr(), layer, NB, BS, KV, row_bytes, B,
-        tables.shape[1],
+        v_new.data_ptr(), _ptr(k_scale), _ptr(v_scale), _ptr(k_new_scale),
+        _ptr(v_new_scale), tables.data_ptr(), pos.data_ptr(), layer, NB, BS,
+        KV, row_bytes, k_new.shape[0], tables.shape[1],
         _vec_bytes(row_bytes, k_pool, v_pool, k_new, v_new),
         torch.cuda.current_stream(k_pool.device).cuda_stream,
     )
@@ -300,7 +397,7 @@ def paged_kv_append(k_pool, v_pool, k_new, v_new, tables, pos, layer, *,
         raise RuntimeError(f"paged_kv_append kernel launch failed: "
                            f"CUDA error {rc}")
     paged_kv_append.launches += 1
-    if quantized:
+    if k_scale is not None:
         return k_pool, v_pool, k_scale, v_scale
     return k_pool, v_pool
 
@@ -328,50 +425,17 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, layer, *,
             q, k_pool, v_pool, tables, pos, layer,
             k_scale=k_scale, v_scale=v_scale,
         )
-    L, NB, BS, KV, HD = k_pool.shape
+    layer = _check_attention(q, k_pool, v_pool, tables, pos, layer, k_scale,
+                             v_scale)
+    _, NB, BS, KV, HD = k_pool.shape
     B, H = q.shape[0], q.shape[1]
-    quantized = k_scale is not None
-    _check_cuda(k_pool.device, q=q, k_pool=k_pool, v_pool=v_pool,
-                tables=tables, pos=pos, k_scale=k_scale, v_scale=v_scale)
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"q dtype {q.dtype} not supported")
-    if v_pool.dtype != k_pool.dtype or k_pool.dtype not in (q.dtype,
-                                                            torch.int8):
-        raise ValueError(f"pool dtype {k_pool.dtype} does not serve q "
-                         f"dtype {q.dtype}")
-    if (v_pool.shape != k_pool.shape or q.dim() != 3 or q.shape[2] != HD
-            or H % KV):
-        raise ValueError("q / pool shapes disagree")
-    _check_scales(quantized, k_pool.dtype, k_scale=k_scale, v_scale=v_scale)
-    if quantized and (k_scale.shape != (L, NB, BS, KV)
-                      or v_scale.shape != (L, NB, BS, KV)):
-        raise ValueError("scale shapes disagree with the pool")
-    _check_index(tables, pos, B)
-    # the kernel moves pool rows as 16-byte vectors
-    row_bytes = HD * k_pool.element_size()
-    if (row_bytes % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16
-            or q.data_ptr() % 4):
-        raise ValueError(
-            f"pool rows of {row_bytes} B (hd {HD}) are not 16-byte vectors "
-            f"at 16-byte aligned addresses (q at 4-byte)"
-        )
-    layer = int(layer)
-    if not 0 <= layer < L:
-        raise ValueError(f"layer {layer} out of range [0, {L})")
-    W = tables.shape[1]
-    splits, per = split_plan(B, H, KV, W, BS, _sm_count(q.device))
-    cells = B * KV * -(-(H // KV) // _MAX_GROUP)
-    ws, counters = _workspace(
-        q.device, cells * splits * _MAX_GROUP * (2 + HD), cells)
-    out = torch.empty_like(q)
+    splits, per, ws, counters, out = _attention_plan(q, k_pool, tables)
     rc = _lib().rt_paged_decode_attention(
         out.data_ptr(), q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr() if quantized else None,
-        v_scale.data_ptr() if quantized else None,
-        tables.data_ptr(), pos.data_ptr(), ws.data_ptr(),
-        counters.data_ptr(), layer, NB, BS, KV, HD, H, B, W, per, splits,
-        float(HD ** -0.5), _KERNEL_DTYPES[q.dtype],
-        _KERNEL_DTYPES[k_pool.dtype],
+        _ptr(k_scale), _ptr(v_scale), tables.data_ptr(), pos.data_ptr(),
+        ws.data_ptr(), counters.data_ptr(), layer, NB, BS, KV, HD, H, B,
+        tables.shape[1], per, splits, float(HD ** -0.5),
+        _KERNEL_DTYPES[q.dtype], _KERNEL_DTYPES[k_pool.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
@@ -382,3 +446,55 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, layer, *,
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_append_decode_attention(q, k_pool, v_pool, k_new, v_new, tables,
+                                  pos, layer, *, k_scale=None, v_scale=None,
+                                  k_new_scale=None, v_new_scale=None):
+    """`paged_kv_append` then `paged_decode_attention` on the same
+    arguments, as one op: the decode step's append and attention for
+    one layer.  The pools (and, for int8 pools, the scale sidecars) are
+    updated IN PLACE, as `paged_kv_append` updates them; returns the
+    attention output [B, H, hd] in q's dtype.  Int8 `k_new` / `v_new`
+    come quantized, with their per-row `k_new_scale` / `v_new_scale`.
+
+    On the card it is one launch: K6 with K5's writes in its prologue
+    (`csrc/paged_attention.cu`, `kAppend`).  Output and pools equal the
+    pair's, bit for bit, on every row whose live blocks no other row of
+    the call writes.  A row that reads a block another row of the same
+    call appends into sees either content: rows parked on scratch block
+    0 (idle slots) read garbage by contract, in both routes.  Shares
+    K6's workspace: two streams must not run the K6 kernels at once on
+    one device."""
+    if k_pool.device.type == "cpu":
+        return paged_append_decode_attention_reference(
+            q, k_pool, v_pool, k_new, v_new, tables, pos, layer,
+            k_scale=k_scale, v_scale=v_scale, k_new_scale=k_new_scale,
+            v_new_scale=v_new_scale,
+        )
+    layer = _check_attention(q, k_pool, v_pool, tables, pos, layer, k_scale,
+                             v_scale)
+    _check_new_rows(k_pool, k_new, v_new, k_new_scale, v_new_scale,
+                    q.shape[0])
+    _, NB, BS, KV, HD = k_pool.shape
+    B, H = q.shape[0], q.shape[1]
+    splits, per, ws, counters, out = _attention_plan(q, k_pool, tables)
+    row_bytes = HD * k_pool.element_size()
+    rc = _lib().rt_paged_append_decode_attention(
+        out.data_ptr(), q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        _ptr(k_scale), _ptr(v_scale), k_new.data_ptr(), v_new.data_ptr(),
+        _ptr(k_new_scale), _ptr(v_new_scale), tables.data_ptr(),
+        pos.data_ptr(), ws.data_ptr(), counters.data_ptr(), layer, NB, BS,
+        KV, HD, H, B, tables.shape[1], per, splits, float(HD ** -0.5),
+        _KERNEL_DTYPES[q.dtype], _KERNEL_DTYPES[k_pool.dtype],
+        _vec_bytes(row_bytes, k_pool, v_pool, k_new, v_new),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"paged_append_decode_attention kernel launch "
+                           f"failed: CUDA error {rc}")
+    paged_append_decode_attention.launches += 1
+    return out
+
+
+paged_append_decode_attention.launches = 0

@@ -10,11 +10,17 @@ and the port only, so it runs on a machine with the card and no JAX:
 Shapes are small and ragged (positions past the table's reach, idle
 rows on the scratch block, shuffled tables, GQA, K6's table cut into
 three or more splits, pool blocks of 16 to 128 tokens, K6 at hd 1,032
-and at tables of 65,540 blocks; T not a multiple of the flash tiles,
+and at tables of 65,540 blocks; the fused append + attention against K5
+then K6 at heads of 64 to 1,040, groups of 1 to 16, new tokens on a
+later split's first column and past 1,024 staged table entries, new
+rows 2 bytes off 16-byte alignment; T not a multiple of the flash tiles,
 and heads of 136 to 512, past the bf16 Hopper tiles, and of 712 and
 1,032, cut into column slices; N and V not multiples of the xent tiles, E past one
 K8 / K9 block, targets at 0, V - 1 and out of range on both sides).  Tolerances: K5 bit-equal outside the
-scratch block; K6 f32 1e-5, bf16 and int8 2e-2 (the reference's own).  K1-K4 against
+scratch block; K6 f32 1e-5, bf16 and int8 2e-2 (the reference's own);
+the fused op bit-equal to K5 then K6 (outputs on live rows, pools
+outside the scratch block) and within K6's tolerance of its plain
+version.  K1-K4 against
 their plain versions element by element (`assert_close`) and by the
 norm of the difference over the plain version's norm, with the limits
 of `chip_smoke.py`: f32 rtol 1e-4, atol 1e-5, norm 3e-6 (tiled online
@@ -305,6 +311,200 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     assert pa.paged_decode_attention.launches == n0 + 1
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+# ----------------------------------------------------------------------
+# K5 folded into K6: paged_append_decode_attention
+# ----------------------------------------------------------------------
+def _new_rows(case, kind, gen):
+    """The case's new K / V rows (and int8 scales) for every row."""
+    B = case["q"].shape[0]
+    KV, hd = case["k_pool"].shape[3:]
+    case["k_new"] = _rand((B, KV, hd), DTYPES[kind], gen)
+    case["v_new"] = _rand((B, KV, hd), DTYPES[kind], gen)
+    if kind == "int8":
+        case["k_new_scale"] = torch.rand((B, KV), generator=gen) / 20
+        case["v_new_scale"] = torch.rand((B, KV), generator=gen) / 20
+    return case
+
+
+def _fused_vs_pair(case, device, layer=0):
+    """The fused op and K5 then K6 on clones of the same pools: (fused
+    out, pair out, fused pools, pair pools), pools = [k, v (, k_scale,
+    v_scale)], all on the card."""
+    written = ("k_pool", "v_pool", "k_scale", "v_scale")
+
+    def fresh():  # the inputs on the card, the written ones cloned
+        return {k: (v.to(device).clone() if k in written else
+                    v.to(device) if torch.is_tensor(v) else v)
+                for k, v in case.items()}
+
+    f, p = fresh(), fresh()
+    sc = {n: f.get(n) for n in ("k_scale", "v_scale", "k_new_scale",
+                                "v_new_scale")}
+    n0 = (pa.paged_append_decode_attention.launches,
+          pa.paged_kv_append.launches, pa.paged_decode_attention.launches)
+    out = pa.paged_append_decode_attention(
+        f["q"], f["k_pool"], f["v_pool"], f["k_new"], f["v_new"],
+        f["tables"], f["pos"], layer, **sc)
+    pa.paged_kv_append(p["k_pool"], p["v_pool"], p["k_new"], p["v_new"],
+                       p["tables"], p["pos"], layer,
+                       **{n: p.get(n) for n in sc})
+    want = pa.paged_decode_attention(
+        p["q"], p["k_pool"], p["v_pool"], p["tables"], p["pos"], layer,
+        k_scale=p.get("k_scale"), v_scale=p.get("v_scale"))
+    torch.cuda.synchronize()
+    assert (pa.paged_append_decode_attention.launches,
+            pa.paged_kv_append.launches,
+            pa.paged_decode_attention.launches) == (n0[0] + 1, n0[1] + 1,
+                                                    n0[2] + 1)
+    names = ["k_pool", "v_pool"] + (["k_scale", "v_scale"]
+                                    if "k_scale" in case else [])
+    return out, want, [f[n] for n in names], [p[n] for n in names]
+
+
+def _assert_fused_equals_pair(case, device, live, layer=0):
+    """Bit-equal outputs on the live rows, pools bit-equal outside
+    scratch block 0, and the output within the plain version's
+    tolerance on those rows."""
+    out, want, pools, p_pools = _fused_vs_pair(case, device, layer)
+    assert out.dtype == want.dtype and out.shape == want.shape
+    assert torch.equal(out[live], want[live])
+    for g, w in zip(pools, p_pools, strict=True):
+        assert torch.equal(g[:, 1:], w[:, 1:])
+    plain = {k: (v.detach().cpu().clone() if torch.is_tensor(v) else v)
+             for k, v in case.items()}
+    ref = pa.paged_append_decode_attention_reference(
+        plain["q"], plain["k_pool"], plain["v_pool"], plain["k_new"],
+        plain["v_new"], plain["tables"], plain["pos"], layer,
+        **{n: plain.get(n) for n in ("k_scale", "v_scale", "k_new_scale",
+                                     "v_new_scale")})
+    tol = 1e-5 if case["q"].dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.cpu()[live].float(), ref[live].float(),
+                               rtol=tol, atol=tol)
+    return out, pools
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("hd,group,BS", [(64, 1, 16), (128, 4, 16),
+                                         (128, 16, 128), (64, 16, 16),
+                                         (128, 1, 128), (1040, 4, 16)])
+def test_fused_append_attention_bit_equals_pair(cuda_device, kind, hd,
+                                                group, BS):
+    """The fused op against K5 then K6 on cloned pools: heads of 64, 128
+    and 1,040 (the wide kernel, each column-part CTA writing the row;
+    16-byte int8 rows, which K6 needs),
+    GQA groups of 1, 4 and 16 (16: two group-chunk CTAs writing the same
+    slot), pool blocks of 16 and 128 tokens; rows at pos -1, 0, a
+    block's first column and past the table's reach, and two idle rows
+    parked on scratch block 0, both writing it (their outputs are
+    garbage by contract and not compared)."""
+    gen = torch.Generator().manual_seed(hd + 7 * group + BS)
+    L, B, W, KV = 2, 7, 3, 2
+    NB, tables, pos = _layout(B, W, BS, gen)
+    pos[:5] = torch.tensor([-1, W * BS + 3, 0, BS, W * BS - 1])
+    tables[5:] = 0
+    q_dt = torch.float32 if kind == "f32" else torch.bfloat16
+    case = {"q": torch.randn((B, KV * group, hd), generator=gen).to(q_dt),
+            "k_pool": _rand((L, NB, BS, KV, hd), DTYPES[kind], gen),
+            "v_pool": _rand((L, NB, BS, KV, hd), DTYPES[kind], gen),
+            "tables": tables, "pos": pos}
+    if kind == "int8":
+        case["k_scale"] = torch.rand((L, NB, BS, KV), generator=gen) / 20
+        case["v_scale"] = torch.rand((L, NB, BS, KV), generator=gen) / 20
+    _new_rows(case, kind, gen)
+    _assert_fused_equals_pair(case, cuda_device, live=slice(0, 5), layer=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_fused_append_on_a_later_split(cuda_device, kind):
+    """K6's table cut into three or more splits: new tokens on the first
+    column of split 1 and of the last split, on split 0's last column,
+    at 0, -1 and past the table's reach; only the split that holds the
+    column writes it, and the other splits' partials merge as K6's."""
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    case, splits = _split_case(kind, 16, 128, sms, seed=3)
+    assert splits >= 3
+    _new_rows(case, kind, torch.Generator().manual_seed(3))
+    out, _ = _assert_fused_equals_pair(case, cuda_device,
+                                       live=slice(None))
+    assert bool((out[0] == 0).all())  # pos -1 attends to nothing
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_fused_append_long_table(cuda_device, kind):
+    """Tables of 65,540 blocks of one token: 64 splits of 1,025 blocks,
+    each staging 1,024 table entries.  One new token lands on the
+    1,025th entry of split 3 (past the staged ones: its block id comes
+    from the table in device memory), one on the table's last column."""
+    B, KV, group, W, BS, hd = 2, 1, 2, 65540, 1, 64
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    splits, per = pa.split_plan(B, KV * group, KV, W, BS, sms)
+    assert per > 1024 and splits <= 64
+    gen = torch.Generator().manual_seed(W + 1)
+    NB = 1 + B * W
+    tables = (torch.randperm(NB - 1, generator=gen) + 1).reshape(B, W).to(
+        torch.int32)
+    pos = torch.tensor([W * BS - 1, (3 * per + 1024) * BS],
+                       dtype=torch.int32)
+    q_dt = torch.float32 if kind == "f32" else torch.bfloat16
+    case = {"q": torch.randn((B, KV * group, hd), generator=gen).to(q_dt),
+            "k_pool": _rand((1, NB, BS, KV, hd), DTYPES[kind], gen),
+            "v_pool": _rand((1, NB, BS, KV, hd), DTYPES[kind], gen),
+            "tables": tables, "pos": pos}
+    _new_rows(case, kind, gen)
+    _assert_fused_equals_pair(case, cuda_device, live=slice(None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_fused_append_repeats_bit_equal(cuda_device, kind):
+    """Two calls on the same inputs give the same bits: the second
+    rewrites the bytes the first wrote and reads them back."""
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    case, _ = _split_case(kind, 16, 128, sms, seed=11)
+    _new_rows(case, kind, torch.Generator().manual_seed(11))
+    dev = _to(case, cuda_device)
+    sc = {n: dev.get(n) for n in ("k_scale", "v_scale", "k_new_scale",
+                                  "v_new_scale")}
+    args = [dev[n] for n in ("q", "k_pool", "v_pool", "k_new", "v_new",
+                             "tables", "pos")]
+    first = pa.paged_append_decode_attention(*args, 0, **sc)
+    pools = dev["k_pool"].clone()
+    again = pa.paged_append_decode_attention(*args, 0, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(pools, dev["k_pool"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 1032])
+def test_fused_append_narrow_copy_unit(cuda_device, hd):
+    """New rows at an address 2 bytes past 16-byte alignment: the copy
+    unit narrows to 2 bytes (K5's rule) and the rows are copied after
+    the barrier instead of held from the prologue; still bit-equal to
+    the pair, on the split walk and on the wide kernel."""
+    gen = torch.Generator().manual_seed(hd + 2)
+    L, B, W, BS, KV, group = 1, 4, 3, 16, 2, 4
+    NB, tables, pos = _layout(B, W, BS, gen)
+    case = {"q": torch.randn((B, KV * group, hd), generator=gen).to(
+                torch.bfloat16),
+            "k_pool": _rand((L, NB, BS, KV, hd), torch.bfloat16, gen),
+            "v_pool": _rand((L, NB, BS, KV, hd), torch.bfloat16, gen),
+            "tables": tables, "pos": pos}
+    _new_rows(case, "bf16", gen)
+    for n in ("k_new", "v_new"):
+        buf = torch.empty(case[n].numel() + 1, dtype=torch.bfloat16,
+                          device=cuda_device)
+        case[n] = buf[1:].view(case[n].shape).copy_(case[n])
+        assert case[n].data_ptr() % 16 == 2 and case[n].is_contiguous()
+    _assert_fused_equals_pair(case, cuda_device, live=slice(None))
 
 
 FLASH_TOL = {"f32": {"rtol": 1e-4, "atol": 1e-5, "rel": 3e-6},

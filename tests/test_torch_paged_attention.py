@@ -270,6 +270,7 @@ def test_wrappers_route_cpu_tensors_to_plain_and_count_no_launch():
     names = ("k_pool", "v_pool", "k_new", "v_new", "tables", "pos")
     n_app = tpa.paged_kv_append.launches
     n_att = tpa.paged_decode_attention.launches
+    n_fused = tpa.paged_append_decode_attention.launches
     got = tpa.paged_kv_append(*[_t(arrs[n]) for n in names], 1)
     ref = tpa.paged_kv_append_reference(*[_t(arrs[n]) for n in names], 1)
     for g, r in zip(got, ref):
@@ -278,8 +279,22 @@ def test_wrappers_route_cpu_tensors_to_plain_and_count_no_launch():
     args = (_t(q), _t(kp), _t(vp), _t(tables), _t(pos), 0)
     assert torch.equal(tpa.paged_decode_attention(*args),
                        tpa.paged_decode_attention_reference(*args))
+    # the fused op: output and pools as its plain version leaves them
+    rng = np.random.default_rng(5)
+    new = [_t(np.asarray(jnp.asarray(rng.standard_normal(
+        (5, 2, 16)).astype(np.float32), jnp.bfloat16))) for _ in range(2)]
+    fused = [_t(a) for a in (kp, vp)]
+    plain = [_t(a) for a in (kp, vp)]
+    out = tpa.paged_append_decode_attention(
+        _t(q), *fused, *new, _t(tables), _t(pos), 0)
+    want = tpa.paged_append_decode_attention_reference(
+        _t(q), *plain, *new, _t(tables), _t(pos), 0)
+    assert torch.equal(out, want)
+    for f, p in zip(fused, plain):
+        assert torch.equal(f, p)
     assert tpa.paged_kv_append.launches == n_app
     assert tpa.paged_decode_attention.launches == n_att
+    assert tpa.paged_append_decode_attention.launches == n_fused
 
 
 def test_non_cpu_tensors_never_fall_back_to_plain():
@@ -288,6 +303,7 @@ def test_non_cpu_tensors_never_fall_back_to_plain():
     no launch counted."""
     n_app = tpa.paged_kv_append.launches
     n_att = tpa.paged_decode_attention.launches
+    n_fused = tpa.paged_append_decode_attention.launches
 
     def meta(*shape, dtype=torch.bfloat16):
         return torch.empty(shape, dtype=dtype, device="meta")
@@ -300,8 +316,13 @@ def test_non_cpu_tensors_never_fall_back_to_plain():
                             tables, pos, 0)
     with pytest.raises(ValueError, match="CUDA"):
         tpa.paged_decode_attention(meta(2, 4, 8), pool, pool, tables, pos, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpa.paged_append_decode_attention(meta(2, 4, 8), pool, pool,
+                                          meta(2, 2, 8), meta(2, 2, 8),
+                                          tables, pos, 0)
     assert tpa.paged_kv_append.launches == n_app
     assert tpa.paged_decode_attention.launches == n_att
+    assert tpa.paged_append_decode_attention.launches == n_fused
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
