@@ -24,9 +24,15 @@ exits non-zero:
    checks'.
 5. main path: Llama-3-8B at full width and depth (bf16, random weights
    from a seed) served by `LlamaEngine` to 8 concurrent requests, three
-   of them sharing a 64-token prefix; the kernel launch counts of that
-   run (32 fused append + attention launches a decode step, no K5 or K6
-   of their own); decode_step_paged (kernels) against decode_step_vec
+   of them sharing a 64-token prefix, its decode chunks replayed from
+   one CUDA graph a gather width (each width's capture ms, split into
+   prepare / record / instantiate, its reserved device bytes, the host
+   memory and CPU seconds it took, and its replays; the same for the
+   throwaway engine that precedes it, whose captures are the process's
+   first; the engine's admit / dispatch / harvest seconds); the kernel launch
+   counts of that run (32 fused append + attention launches a decode
+   step, replays counted, no K5 or K6 of their own; every chunk stepper
+   a captured graph, at least one replay); decode_step_paged (kernels) against decode_step_vec
    (dense) at a mid-decode state; K5/K6 timed at the main path's shapes
    (K6 with the L2 cold and warm, beside its bound and SDPA, with its
    split plan).  K5K6_fused_vs_pair: the fused op (K5 folded into K6's
@@ -34,9 +40,13 @@ exits non-zero:
    pools outside the scratch block), and against its plain version, in
    f32, bf16 and int8 at the mid-decode state and at B 32 with rows to
    1,024; timed beside K5 then K6, K6 alone and an empty kernel.
-6. tiny parity: a tiny f32 engine on the card gives `generate`'s greedy
+6. graph vs eager: the mid-decode state loaded into an idle engine (bf16
+   KV, and int8 KV quantized from it): the chunk replayed from its CUDA
+   graph bit-equal to the eager chunk (token rows, tokens, positions,
+   whole pools), twice; both timed, with the capture's ms and bytes.
+7. tiny parity: a tiny f32 engine on the card gives `generate`'s greedy
    tokens exactly.
-7. serve plane: the driver's Llama-3-8B is freed, the port's runtime
+8. serve plane: the driver's Llama-3-8B is freed, the port's runtime
    boots one node (its GPU count detected, not given), and
    `ContinuousLlamaService` (Llama-3-8B, slots 8, chunk 8, block 16)
    is deployed as a `num_gpus=1` replica actor through `serve.run`;
@@ -46,38 +56,51 @@ exits non-zero:
    took the kernel route only, and its fused append + attention
    launches (read from the replica: the driver's counters cannot see
    another process) equal L x chunk x its decode dispatches, with no K5
-   or K6 of their own.  Then a tiny replica with f32 compute answers
+   or K6 of their own, and its chunk steppers are captured graphs, at
+   least one replayed (held as the main path's; with its tick phases,
+   and the CPU cores the replica's process kept busy over each window
+   and over 2 s with no request in flight).  Then a tiny replica with f32 compute answers
    over HTTP with `generate`'s greedy tokens exactly.  HTTP wall time,
    tokens/s, per-request latency, the engine's TTFT and the replica's
    start-up seconds are recorded.
-8. K1-K4 (flash attention forward, fused backward, split dQ and dK/dV)
+9. K1-K4 (flash attention forward, fused backward, split dQ and dK/dV)
    against their plain versions at the training shape (BH 32*12, T
    1024, D 64) and at Llama's head width (BH 64, T 512, D 128), causal
    and full, f32 and bf16, plus a ragged T of 1000 (bf16, causal, D 64
    and 128), and heads of 712 and 1,032 (f32 and bf16, BH 2, T 256: the
    first design cut into column slices): element by element and by the
    relative norm of the difference.
-9. training main path: GPT-2 124M at full width and depth (bf16 compute,
+10. training main path: GPT-2 124M at full width and depth (bf16 compute,
    f32 master weights, flash attention, full remat, bf16 logits),
    batch 32 x 1024, through `make_train_step`: 2 warm-up steps, then 5
    timed steps with the launch counts of exactly those steps (12 layers
    x (forward + remat replay) K1 and 12 K2 a step, no K3/K4, no plain
    dispatch); at full size, the step-0 loss and the gradients of the
    attention weights on the flash and dense routes.
-10. split route: the flash op at the training shape with blocks of 256,
+11. split route: the flash op at the training shape with blocks of 256,
    and at the reference's own split route (default blocks of 1,024 at T
    4,096, B 1, H 32, D 128: Llama-3-8B's head width), forward and
    backward, so K3 + K4 run once each per case (their launch counts are
    these runs', summed in the kernels line), against dense attention's
    autograd in f32.
-11. route parity: tiny GPT-2 in f32, 3 train steps on the flash kernels
+12. route parity: tiny GPT-2 in f32, 3 train steps on the flash kernels
     against 3 on dense attention from the same params and tokens.
-12. K1-K4 timed at the training shape (bf16, causal), and K3 and K4 at
+13. Llama LoRA training: `scripts/train_llama_lora.py` at the JAX
+    bench's `bench_llama_lora` size (1.26e9 params, dim 2,048, 22
+    layers, head width 128, 8 x 1,024 tokens, flash, full remat, frozen
+    bf16 base, rank-8 LoRA on wq wk wv wo, adamw(2e-4)): the flash
+    route's step-0 loss and LoRA-B gradients against the dense route's
+    at 4 layers (the train line's limits), 1 warm-up + 6 timed steps
+    with the launches of exactly those steps (22 x 2 K1 and 22 K2 a
+    step, no K3 / K4, no plain dispatch), step-0 loss within 0.5 of ln
+    32,000, the loss falling; K1 / K2 held and timed at that shape (BH
+    128, T 1,024, D 128) beside SDPA and their bounds.
+14. K1-K4 timed at the training shape (bf16, causal), and K3 and K4 at
     the second split shape (BH 32, T 4,096, D 128), beside their bounds,
     plain versions and `scaled_dot_product_attention`, with each
     kernel's achieved TFLOP/s, its time over its bound and over SDPA's
     (forward for K1, backward for K2-K4).
-13. K7-K9 (the fused cross entropy's forward, dx and dw) against their
+15. K7-K9 (the fused cross entropy's forward, dx and dw) against their
     plain versions at GPT-2 124M's head (N 32,768, E 768, V 50,257;
     bf16 x with the f32 master w, and all f32), at Llama-3-8B's head (N
     4,096, E 4,096, V 128,256, bf16), at a ragged N 200, E 128, V 300
@@ -86,7 +109,7 @@ exits non-zero:
     element by element and by the relative norm of the difference;
     K7-K9 timed at Llama's head (E wider than a CTA holds) beside the
     one `torch.matmul` of each kernel's main product.
-14. xent main path: `pallas_cross_entropy` forward and backward at
+16. xent main path: `pallas_cross_entropy` forward and backward at
     GPT-2 124M's full head (x = the seeded model's final hidden states
     in bf16, w = the f32 master `wte`, targets = the shifted tokens),
     with the launch counts of exactly that call (K7, K8, K9 once each,
@@ -94,10 +117,10 @@ exits non-zero:
     form under autograd, and so the row-chunked `fused_cross_entropy`
     (plain PyTorch, f32 products: a yardstick, not a kernel route); all
     three timed forward + backward, each with its peak memory.
-15. K7-K9 timed at GPT-2's head (bf16), beside their bounds, plain
+17. K7-K9 timed at GPT-2's head (bf16), beside their bounds, plain
     versions and the one `torch.matmul` of each kernel's main product,
     with each kernel's achieved TFLOP/s.
-16. the kernels line, the `nvidia-smi` line, and the final result line.
+18. the kernels line, the `nvidia-smi` line, and the final result line.
 
 Times are medians of CUDA-event timings of device work, with the 50 MB
 L2 flushed (a 1 GiB write) before each launch.  Bounds use the H100 SXM's published 3.35 TB/s of
@@ -133,8 +156,8 @@ from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.ops import fused_cross_entropy, pallas_cross_entropy
 from ray_tpu_torch.ops import xent_pallas as xp
 from ray_tpu_torch.parallel.ring_attention import plain_attention
-from ray_tpu_torch.scripts import train_gpt2
-from ray_tpu_torch.serve.llm_engine import LlamaEngine
+from ray_tpu_torch.scripts import train_gpt2, train_llama_lora
+from ray_tpu_torch.serve.llm_engine import ChunkGraph, LlamaEngine
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -714,6 +737,138 @@ def compare_routes(cfg, params, state) -> dict:
             "argmax_equal_rows": int(same.sum())}
 
 
+def chunk_graphs(engine: LlamaEngine) -> dict:
+    """The engine's chunk steppers: per gather width, whether it is a
+    captured CUDA graph, the capture's ms and reserved bytes, and its
+    replays; with the cache's size and evictions."""
+    st = engine.stats()
+    return {
+        "chunk_cache_size": st["chunk_cache_size"],
+        "chunk_cache_evictions": st["chunk_cache_evictions"],
+        "widths": {str(W): {"graph": isinstance(s, ChunkGraph)
+                            and s.captured,
+                            "capture_ms": getattr(s, "capture_ms", None),
+                            "capture_phases_ms":
+                                getattr(s, "capture_phases_ms", None),
+                            "graph_bytes": getattr(s, "graph_bytes", None),
+                            "capture_host_bytes":
+                                getattr(s, "capture_host_bytes", None),
+                            "capture_cpu_s": getattr(s, "capture_cpu_s", None),
+                            "replays": getattr(s, "replays", 0)}
+                   for W, s in engine._chunk_cache.items()},
+    }
+
+
+def tick_phases(stats: dict, after: int, upto: int) -> dict:
+    """The engine's tick ring over the ticks whose dispatch count lies
+    in (after, upto]: how many, and the seconds they spent admitting
+    (prefills), dispatching (chunks) and harvesting (waiting on the
+    previous chunk's tokens)."""
+    ring = [t for t in stats["tick_ring"] if after < t["seq"] <= upto]
+    return {"ticks": len(ring),
+            **{k: sum(t[k] for t in ring)
+               for k in ("admit_s", "dispatch_s", "harvest_s")}}
+
+
+def on_graphs(graphs: dict, what: str) -> None:
+    """Every chunk stepper of the run is a captured graph, and the run
+    replayed at least one."""
+    widths = graphs["widths"].values()
+    if (not widths or not all(w["graph"] for w in widths)
+            or sum(w["replays"] for w in widths) < 1):
+        raise AssertionError(f"{what} did not run on captured chunk "
+                             f"graphs: {graphs}")
+
+
+_ENGINE_STATE = ("_k_pool", "_v_pool", "_k_scale", "_v_scale", "_tok",
+                 "_pos")
+
+
+def _engine_snapshot(engine: LlamaEngine) -> dict:
+    return {k: getattr(engine, k).clone() for k in _ENGINE_STATE
+            if getattr(engine, k) is not None}
+
+
+def _engine_restore(engine: LlamaEngine, snap: dict) -> None:
+    for k, v in snap.items():
+        getattr(engine, k).copy_(v)
+
+
+def graph_vs_eager(cfg, params, state, device, *, chunk=8, block_size=16,
+                   max_len=512, reps=5) -> dict:
+    """The engine's chunk replayed from its CUDA graph against its eager
+    chunk, from the main path's mid-decode state loaded into an idle
+    engine (bf16 KV, and int8 KV quantized from it): token rows,
+    tokens, positions and the whole pools bit-equal, on the first replay
+    and on a repeat.  Both timed from the restored state (host wall to
+    a device sync, medians of `reps`, in turns), with the capture's ms
+    and the graph's reserved bytes."""
+    B, W = state["tables"].shape
+    NB = state["k_pool"].shape[1]
+    out = {}
+    for kv_dtype in ("model", "int8"):
+        eng = LlamaEngine(cfg, params, slots=B, chunk=chunk,
+                          block_size=block_size, max_len=max_len,
+                          kv_dtype=kv_dtype, device=device)
+        try:
+            for pool, scale, src in ((eng._k_pool, eng._k_scale, "k_pool"),
+                                     (eng._v_pool, eng._v_scale, "v_pool")):
+                if kv_dtype == "int8":
+                    q, sc = pa.quantize_int8(state[src])
+                    pool[:, :NB].copy_(q)
+                    scale[:, :NB].copy_(sc)
+                else:
+                    pool[:, :NB].copy_(state[src])
+            eng._tok.copy_(state["tok"])
+            eng._pos.copy_(state["pos"])
+            tables = state["tables"]
+            snap = _engine_snapshot(eng)
+            rows = eng._run_chunk(tables).clone()
+            want = _engine_snapshot(eng)
+            step = eng._chunk_step_for(W)
+            _engine_restore(eng, snap)
+            step(tables)  # eager, then the capture
+            for _ in range(2):  # a replay, and a repeat
+                _engine_restore(eng, snap)
+                got_rows = step(tables).clone()
+                got = _engine_snapshot(eng)
+                if not torch.equal(got_rows, rows) or not all(
+                        torch.equal(got[k], want[k]) for k in want):
+                    raise AssertionError(
+                        f"graph replay differs from the eager chunk "
+                        f"({kv_dtype} KV): rows "
+                        f"{torch.equal(got_rows, rows)}, state "
+                        f"{[k for k in want if not torch.equal(got[k], want[k])]}")
+            times = {"eager": [], "graph": []}
+            for _ in range(reps):
+                for route, fn in (("eager", eng._run_chunk),
+                                  ("graph", step), ("graph", step),
+                                  ("eager", eng._run_chunk)):
+                    _engine_restore(eng, snap)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn(tables)
+                    torch.cuda.synchronize()
+                    times[route].append((time.perf_counter() - t0) * 1e3)
+            out[kv_dtype] = {
+                "bit_equal": True,
+                "eager_chunk_ms": statistics.median(times["eager"]),
+                "graph_chunk_ms": statistics.median(times["graph"]),
+                "capture_ms": step.capture_ms,
+                "capture_phases_ms": step.capture_phases_ms,
+                "graph_bytes": step.graph_bytes,
+                "capture_host_bytes": step.capture_host_bytes,
+                "launches_per_replay": step.launches,
+                **{k: eng.stats()[k] for k in ("chunk_cache_size",
+                                               "chunk_cache_evictions")},
+            }
+        finally:
+            eng.shutdown()
+        del eng
+    return {"phase": "graph_vs_eager", "B": B, "W": W, "chunk": chunk,
+            "pos": state["pos"].tolist(), **out}
+
+
 def run_main_path(cfg, params, device, *, slots=8, chunk=8, block_size=16,
                   max_len=512, max_new_tokens=32) -> dict:
     def make_engine():
@@ -722,17 +877,19 @@ def run_main_path(cfg, params, device, *, slots=8, chunk=8, block_size=16,
                            decode_kernel="auto", device=device)
 
     # a throwaway engine takes the first-use costs (library handles,
-    # kernel load), so the measured engine's TTFT window and counts
-    # hold only the measured requests
+    # kernel load, the process's first graph captures), so the measured
+    # engine's TTFT window and counts hold only the measured requests
     engine = make_engine()
     try:
         engine.submit(list(range(1, 9)), 4).result(timeout=900)
+        first_graphs = chunk_graphs(engine)
     finally:
         engine.shutdown()
     prompts = main_path_prompts(cfg.vocab_size)
     engine = make_engine()
     try:
         run = serve(engine, prompts, max_new_tokens)
+        graphs = chunk_graphs(engine)
     finally:
         engine.shutdown()
     st = run["stats"]
@@ -740,6 +897,7 @@ def run_main_path(cfg, params, device, *, slots=8, chunk=8, block_size=16,
     if st["decode_kernel"] != "kernel":
         raise AssertionError(f"decode_kernel resolved to "
                              f"{st['decode_kernel']!r}")
+    on_graphs(graphs, "the main path")
     if run["dispatches"] <= 0 or st["decode_fallback_dispatch_total"] != 0:
         raise AssertionError("the run did not take the kernel route only")
     # one fused launch a layer a decode step, and no K5 or K6 of its own
@@ -770,6 +928,9 @@ def run_main_path(cfg, params, device, *, slots=8, chunk=8, block_size=16,
             "decode_fallback_dispatch_total":
                 st["decode_fallback_dispatch_total"],
             "launches": run["launches"],
+            "chunk_graphs": graphs,
+            "throwaway_engine_chunk_graphs": first_graphs,
+            "tick_phases": tick_phases(st, 0, st["ticks"]),
             "prefix_hit_tokens": st["prefix_hit_tokens"],
             "wall_s": run["wall_s"],
             "tokens_per_s": n_tok / run["wall_s"],
@@ -840,11 +1001,29 @@ class SmokeLlamaService(ContinuousLlamaService.func_or_class):
     def launches(self) -> dict:
         return {name: getattr(pa, name).launches for name in PAGED}
 
+    def graphs(self) -> dict:
+        return chunk_graphs(self.engine)
+
+    def cpu_s(self) -> float:
+        """CPU seconds the replica's process has used, all threads."""
+        return time.process_time()
+
     def card(self) -> dict:
         return {"CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES"),
                 "device_count": torch.cuda.device_count(),
                 "name": torch.cuda.get_device_name(0),
                 "engine_device": str(self.engine.device)}
+
+
+def cpu_window(h, fn) -> tuple:
+    """fn()'s result, and its wall seconds and the CPU cores the
+    replica's process kept busy over it."""
+    rep0 = h.cpu_s.remote().result(timeout_s=120)
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    rep1 = h.cpu_s.remote().result(timeout_s=120)
+    return out, {"wall_s": wall, "replica_cpu_cores": (rep1 - rep0) / wall}
 
 
 def post(addr, route: str, body: dict, timeout: float = 900.0) -> tuple:
@@ -933,22 +1112,26 @@ def serve_plane(cfg, prompts, main_outs, *, slots=8, chunk=8,
         _, warm_s = post(addr, "/llm", {"tokens": [list(range(1, 9))],
                                         "max_new_tokens": 4})
         hop = hop_cost(addr, prompts[0])
+        # what the replica burns with no request in flight
+        _, idle_cpu = cpu_window(h, lambda: time.sleep(2.0))
         d0 = h.reset_counts.remote().result(timeout_s=120)
-        outs, batch_s = post(addr, "/llm", {"tokens": prompts,
-                                            "max_new_tokens": max_new_tokens})
+        (outs, batch_s), batch_cpu = cpu_window(h, lambda: post(
+            addr, "/llm", {"tokens": prompts,
+                           "max_new_tokens": max_new_tokens}))
         _well_formed(outs, max_new_tokens, cfg.vocab_size)
         batch_stats = h.stats.remote().result(timeout_s=120)
         with ThreadPoolExecutor(len(prompts)) as pool:
-            t0 = time.perf_counter()
-            single = list(pool.map(
+            single, conc_cpu = cpu_window(h, lambda: list(pool.map(
                 lambda p: post(addr, "/llm", {
                     "tokens": [p], "max_new_tokens": max_new_tokens}),
-                prompts))
-            conc_s = time.perf_counter() - t0
+                prompts)))
+        conc_s = conc_cpu["wall_s"]
         _well_formed([o[0][0] for o in single], max_new_tokens,
                      cfg.vocab_size)
         stats = h.stats.remote().result(timeout_s=120)
         launches = h.launches.remote().result(timeout_s=120)
+        graphs = h.graphs.remote().result(timeout_s=120)
+        on_graphs(graphs, "the replica")
         dispatches = stats["decode_kernel_dispatch_total"] - d0
         need = cfg.n_layers * chunk * dispatches
         if stats["decode_kernel"] != "kernel" or dispatches <= 0 \
@@ -985,14 +1168,14 @@ def serve_plane(cfg, prompts, main_outs, *, slots=8, chunk=8,
         "max_len": max_len, "gpus_detected": gpus,
         "gpus_by_nvml": accelerators._nvml_count(), "replica_card": card,
         "mem_free_gb_before": free_gb, "deploy_s": deploy_s,
-        "first_request_s": warm_s, "hop": hop,
+        "first_request_s": warm_s, "hop": hop, "idle_cpu": idle_cpu,
         "batch_post": {"requests": len(prompts), "wall_s": batch_s,
-                       "tokens_per_s": n_tok / batch_s,
+                       "tokens_per_s": n_tok / batch_s, "cpu": batch_cpu,
                        "ttft_p50_s": batch_stats["ttft_p50_s"],
                        "ttft_p90_s": batch_stats["ttft_p90_s"]},
         "concurrent_posts": {
             "requests": len(prompts), "wall_s": conc_s,
-            "tokens_per_s": n_tok / conc_s,
+            "tokens_per_s": n_tok / conc_s, "cpu": conc_cpu,
             "latency_p50_s": lat[len(lat) // 2],
             "latency_p90_s": lat[min(len(lat) - 1, int(len(lat) * 0.9))],
             "ttft_p50_s": stats["ttft_p50_s"],
@@ -1002,6 +1185,11 @@ def serve_plane(cfg, prompts, main_outs, *, slots=8, chunk=8,
         "decode_fallback_dispatch_total":
             stats["decode_fallback_dispatch_total"],
         "launches": launches, "fused_launches_want": need,
+        "chunk_graphs": graphs,
+        "tick_phases": {
+            "batch_post": tick_phases(batch_stats, d0, batch_stats["ticks"]),
+            "concurrent_posts": tick_phases(stats, batch_stats["ticks"],
+                                            stats["ticks"])},
         "tokens_equal_main_path_share": same / n_tok,
         "tiny_f32": tiny,
     }
@@ -1345,6 +1533,101 @@ def route_parity(device, steps=3) -> dict:
 # ----------------------------------------------------------------------
 # the fused cross entropy (K7-K9)
 # ----------------------------------------------------------------------
+# ----------------------------------------------------------------------
+# Llama's training half: the LoRA trainer
+# ----------------------------------------------------------------------
+def lora_route_grads(cfg, state) -> tuple:
+    """Step 0 on `cfg`'s attention route: the loss and the gradients of
+    the adapters' B leaves (every A gradient is zero while B is)."""
+    lora = state["lora"]
+    names = sorted(n for n in lora["blocks"] if n.endswith("_b"))
+    ws = [lora["blocks"][n].requires_grad_(True) for n in names]
+    loss = llama.loss_fn(cfg, state["params"], state["tokens"], lora=lora)
+    grads = torch.autograd.grad(loss, ws)
+    for w in ws:
+        w.requires_grad_(False)
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def llama_lora_train(device, *, batch=8, seq=1024, warmup=1, steps=6,
+                     route_layers=4) -> dict:
+    """`scripts/train_llama_lora.py`'s run at full size (the JAX bench's
+    `bench_llama_lora` config, frozen bf16 base, rank-8 LoRA): the
+    flash route's step-0 loss and LoRA-B gradients against the dense
+    route's at `route_layers` layers, then `warmup` + `steps` steps
+    with the flash launches of exactly the timed steps (K1 twice a
+    layer, forward and remat replay; K2 once; no K3 / K4, no plain
+    dispatch), the loss near ln V at step 0 and falling on the repeated
+    batch; K1 and K2 held and timed at this path's attention shape."""
+    cfg_r = train_llama_lora.lora_config(n_layers=route_layers)
+    st = train_llama_lora.build(device, batch, seq, seed=0, cfg=cfg_r)
+    routes = {a: lora_route_grads(dataclasses.replace(cfg_r, attention=a),
+                                  st) for a in ("flash", "dense")}
+    (loss_flash, g_flash), (loss_dense, g_dense) = (routes["flash"],
+                                                    routes["dense"])
+    grad_err = {n: float(torch.linalg.vector_norm(g_flash[n] - g_dense[n])
+                         / torch.linalg.vector_norm(g_dense[n]))
+                for n in g_dense}
+    del st, routes, g_flash, g_dense
+    if (abs(loss_flash - loss_dense) > FULL_LOSS_TOL
+            or max(grad_err.values()) > FULL_GRAD_TOL):
+        raise AssertionError(f"LoRA step 0, flash vs dense: loss "
+                             f"{loss_flash} vs {loss_dense}, B grads "
+                             f"{grad_err}")
+    torch.cuda.empty_cache()
+    res = train_llama_lora.bench_llama_lora(device, batch, seq, steps,
+                                            warmup)
+    cfg = res.pop("state")["cfg"]
+    torch.cuda.empty_cache()
+    launches = res["launches"]
+    want = {"flash_fwd": steps * cfg.n_layers * 2,
+            "flash_bwd_fused": steps * cfg.n_layers, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "plain_dispatches": 0}
+    if launches != want:
+        raise AssertionError(f"LoRA training launches {launches}, want "
+                             f"{want}")
+    losses = res["warmup_losses"] + res["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite LoRA losses: {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError(f"LoRA step-0 loss {losses[0]} far from "
+                             f"ln V = {math.log(cfg.vocab_size)}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"LoRA loss did not fall: {losses}")
+    case = flash_case(batch * cfg.n_heads, seq, cfg.head_dim,
+                      torch.bfloat16, True, device, seed=seq)
+    errs = check_flash(case, "bf16")
+    timed, _ = time_flash(case, H=cfg.n_heads,
+                          names=("flash_fwd", "flash_bwd_fused"))
+    del case
+    torch.cuda.empty_cache()
+    return {
+        "phase": "llama_lora_train", "model": "llama_1b4",
+        "source": "bench.py bench_llama_lora (its chip config)",
+        "vocab": cfg.vocab_size, "dim": cfg.dim, "n_layers": cfg.n_layers,
+        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim, "intermediate": cfg.intermediate,
+        "attention": cfg.attention, "remat": cfg.remat,
+        "base_dtype": "bfloat16", "lora_rank": 8,
+        "lora_targets": list(llama.LORA_TARGETS), "optimizer": "adamw(2e-4)",
+        "depth_cut": False, "batch": batch, "seq": seq,
+        "warmup_steps": warmup, "timed_steps": steps,
+        "step0_loss": losses[0], "losses_all": losses,
+        "route_check_layers": route_layers,
+        "step0_loss_flash": loss_flash, "step0_loss_dense": loss_dense,
+        "step0_lora_b_grad_rel_err_flash_vs_dense": grad_err,
+        "step0_tolerance": {"loss": FULL_LOSS_TOL, "grad": FULL_GRAD_TOL},
+        "launches": launches, "launches_want": want,
+        **{k: res[k] for k in ("tokens_per_step", "n_params",
+                               "n_lora_params", "step_ms", "tokens_per_s",
+                               "mfu", "peak_mem_gb")},
+        "k1_k2_at_this_shape": {
+            "BH": batch * cfg.n_heads, "T": seq, "D": cfg.head_dim,
+            "dtype": "bf16", "causal": True,
+            "vs_plain_max_abs_elementwise_relnorm": errs, **timed},
+    }
+
+
 def xent_case(N, E, V, x_dtype, w_dtype, device, seed=0) -> dict:
     """Seeded x [N, E] ~ N(0, 1), w [V, E] ~ N(0, 0.05^2), targets with 0
     and V - 1 among them, and the plain forward's lse: the inputs each
@@ -1759,6 +2042,8 @@ def main() -> int:
           "paged_decode_attention_splits": k6_splits(attn_case),
           "kernel_shapes": {"B": B, "W": int(state["tables"].shape[1]),
                             "pos": state["pos"].tolist()}})
+    # the chunk as the engine replays it, against its eager chunk
+    emit({**graph_vs_eager(cfg, params, state, device), "nvidia_smi": smi})
     # the replica loads its own Llama-3-8B: free the driver's copy first
     del params, state, app_case, attn_case, mid
     gc.collect()
@@ -1807,6 +2092,11 @@ def main() -> int:
     split_llama = split_route(device, B=1, T=4096, H=32, D=128, block=1024)
     emit(split_llama["line"])
     emit(route_parity(device))
+    torch.cuda.empty_cache()
+    # Llama's training half: the LoRA trainer at the bench's full size
+    t0 = time.perf_counter()
+    emit({**llama_lora_train(device), "wall_s": time.perf_counter() - t0,
+          "nvidia_smi": smi})
     torch.cuda.empty_cache()
 
     case = flash_case(32 * 12, 1024, 64, torch.bfloat16, True, device)

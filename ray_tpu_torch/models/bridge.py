@@ -5,7 +5,8 @@ Both sides keep the same tree (nested dicts) and the same layouts
 straight copy, leaf by leaf.  The caller turns the JAX tree into numpy
 first (`jax.tree.map(np.asarray, params)`): the port never imports JAX.
 bf16 arrives as `ml_dtypes.bfloat16` and crosses as its raw 16 bits,
-so the copy is bit-exact in both directions.
+so the copy is bit-exact in both directions.  LoRA adapter trees
+(`llama.init_lora`) cross the same way, their `scale` as a 0-d array.
 """
 
 from __future__ import annotations

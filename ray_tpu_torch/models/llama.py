@@ -1,5 +1,5 @@
-"""Llama family in PyTorch: the serving path of the JAX package's
-`models/llama.py`.
+"""Llama family in PyTorch: the port of the JAX package's
+`models/llama.py`, serving and training.
 
 Plain functions over a dict of tensors in the JAX layout: stacked
 `[L, ...]` block leaves and `[in, out]` weights, so the weight bridge
@@ -17,19 +17,30 @@ to x's dtype before the multiply; half-split RoPE with cos/sin computed
 in f32 and cast to x's dtype; `x @ w.to(dtype)` with the per-output
 scale after the matmul; an f32 lm-head; decode attention with f32
 scores, a -1e30 mask, f32 softmax, weights cast to the compute dtype
-and f32 P.V accumulation.  LoRA, `loss_fn` and the train steps wait
-for the training slice.
+and f32 P.V accumulation.
+
+Training: LoRA is a separate adapter tree (`init_lora`), and the
+forward computes `x @ W + (x @ A) @ B * scale` without merging; the
+LoRA train step differentiates the adapter tree only.  With
+`cfg.remat` each block runs under `torch.utils.checkpoint`
+(`use_reentrant=False`) while gradients are recorded, as the
+reference's `jax.checkpoint`.  `loss_fn` keeps the reference's lse
+form.  The optimizer is the caller's (`gpt2.AdamW` where the reference
+takes optax); the params are updated in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.models.gpt2 import _leaves
 from ray_tpu_torch.ops import paged_attention as _pa
 from ray_tpu_torch.parallel.ring_attention import select_attention
 
@@ -49,6 +60,7 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     attention: str = "dense"  # dense | flash | ring | ulysses (no mesh: dense)
+    remat: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -125,6 +137,86 @@ def init_params(cfg: LlamaConfig,
     }
 
 
+def logical_axes(cfg: LlamaConfig) -> Dict:
+    return {
+        "tok_emb": ("vocab", "embed"),
+        "blocks": {
+            "attn_norm": (None, "embed"),
+            "wq": (None, "embed", "heads"),
+            "wk": (None, "embed", "heads"),
+            "wv": (None, "embed", "heads"),
+            "wo": (None, "heads", "embed"),
+            "mlp_norm": (None, "embed"),
+            "w_gate": (None, "embed", "mlp"),
+            "w_up": (None, "embed", "mlp"),
+            "w_down": (None, "mlp", "embed"),
+        },
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
+# ----------------------------------------------------------------------
+# LoRA adapters
+# ----------------------------------------------------------------------
+LORA_TARGETS = ("wq", "wk", "wv", "wo")
+
+
+def init_lora(cfg: LlamaConfig, generator: Union[int, torch.Generator] = 0,
+              rank: int = 8, alpha: float = 16.0,
+              targets: Tuple[str, ...] = LORA_TARGETS, device=None) -> Dict:
+    """Adapter tree: per target, A [L, in, r] (gaussian / sqrt(in)) and
+    B [L, r, out] (zeros: adapters start as identity), all f32, and
+    `scale` = alpha / rank as a 0-d f32 tensor.  Draws come from
+    `generator` (a seed or a `torch.Generator` on `device`) and differ
+    from `jax.random`'s: bridge the JAX tree to compare."""
+    device = resolve_device(device)
+    if isinstance(generator, int):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(generator)
+    else:
+        gen = generator
+    L = cfg.n_layers
+    hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    dims = {
+        "wq": (cfg.dim, H * hd),
+        "wk": (cfg.dim, KV * hd),
+        "wv": (cfg.dim, KV * hd),
+        "wo": (H * hd, cfg.dim),
+        "w_gate": (cfg.dim, cfg.intermediate),
+        "w_up": (cfg.dim, cfg.intermediate),
+        "w_down": (cfg.intermediate, cfg.dim),
+    }
+    blocks = {}
+    for t in targets:
+        din, dout = dims[t]
+        blocks[f"{t}_a"] = torch.randn(
+            (L, din, rank), generator=gen, device=device,
+            dtype=torch.float32) / math.sqrt(din)
+        blocks[f"{t}_b"] = torch.zeros((L, rank, dout), dtype=torch.float32,
+                                       device=device)
+    return {"blocks": blocks,
+            "scale": torch.tensor(alpha / rank, dtype=torch.float32,
+                                  device=device)}
+
+
+def lora_logical_axes(cfg: LlamaConfig, lora: Dict) -> Dict:
+    """A: input dim sharded like the base input ('embed'/'heads'/'mlp');
+    r replicated.  B: r replicated; output like the base output."""
+    in_ax = {"wq": "embed", "wk": "embed", "wv": "embed", "wo": "heads",
+             "w_gate": "embed", "w_up": "embed", "w_down": "mlp"}
+    out_ax = {"wq": "heads", "wk": "heads", "wv": "heads", "wo": "embed",
+              "w_gate": "mlp", "w_up": "mlp", "w_down": "embed"}
+    blocks = {}
+    for name in lora["blocks"]:
+        t, kind = name.rsplit("_", 1)
+        if kind == "a":
+            blocks[name] = (None, in_ax[t], None)
+        else:
+            blocks[name] = (None, None, out_ax[t])
+    return {"blocks": blocks, "scale": ()}
+
+
 def _layers(params: Dict) -> Iterator[Dict[str, torch.Tensor]]:
     """Per-layer views of the stacked block leaves."""
     blocks = params["blocks"]
@@ -133,14 +225,21 @@ def _layers(params: Dict) -> Iterator[Dict[str, torch.Tensor]]:
         yield {k: v[i] for k, v in blocks.items()}
 
 
-def _apply(x, w, dtype, scale=None):
-    """x @ w on an `[in, out]` weight.  `scale` (per-OUTPUT-channel,
-    from `quantize_weights_int8`) dequantizes int8 weights after the
-    matmul: (x @ q) * scale == x @ (q * scale) because the scale is
-    constant along the contraction."""
+def _apply(x, w, dtype, scale=None, lora_layer=None, name: str = ""):
+    """x @ w on an `[in, out]` weight, with an optional low-rank delta
+    `((x @ A) @ B) * lora_scale` from `lora_layer` (one layer's adapter
+    leaves plus "__scale__"), all cast to `dtype` as the reference
+    casts them.  `scale` (per-OUTPUT-channel, from
+    `quantize_weights_int8`) dequantizes int8 weights after the matmul:
+    (x @ q) * scale == x @ (q * scale) because the scale is constant
+    along the contraction."""
     out = x @ w.to(dtype)
     if scale is not None:
         out = out * scale.to(dtype)
+    if lora_layer is not None and f"{name}_a" in lora_layer:
+        a = lora_layer[f"{name}_a"].to(dtype)
+        b = lora_layer[f"{name}_b"].to(dtype)
+        out = out + ((x @ a) @ b) * lora_layer["__scale__"].to(dtype)
     return out
 
 
@@ -218,19 +317,24 @@ def _rope_at(x, theta: float, pos_b):
     return _rotate(x, cos, sin)
 
 
-def _mlp(cfg: LlamaConfig, layer, x1):
+def _proj(cfg: LlamaConfig, layer, lora_layer, name: str, x):
+    """One of the block's projections, int8- and LoRA-aware."""
+    return _apply(x, layer[name], cfg.dtype, layer.get(f"{name}_scale"),
+                  lora_layer, name)
+
+
+def _mlp(cfg: LlamaConfig, layer, x1, lora_layer=None):
     h2 = _rms_norm(x1, layer["mlp_norm"].to(cfg.dtype), cfg.norm_eps)
-    gate = _apply(h2, layer["w_gate"], cfg.dtype, layer.get("w_gate_scale"))
-    up = _apply(h2, layer["w_up"], cfg.dtype, layer.get("w_up_scale"))
-    return x1 + _apply(F.silu(gate) * up, layer["w_down"], cfg.dtype,
-                       layer.get("w_down_scale"))
+    gate = _proj(cfg, layer, lora_layer, "w_gate", h2)
+    up = _proj(cfg, layer, lora_layer, "w_up", h2)
+    return x1 + _proj(cfg, layer, lora_layer, "w_down", F.silu(gate) * up)
 
 
-def _qkv(cfg: LlamaConfig, layer, x):
+def _qkv(cfg: LlamaConfig, layer, x, lora_layer=None):
     h = _rms_norm(x, layer["attn_norm"].to(cfg.dtype), cfg.norm_eps)
-    return (_apply(h, layer["wq"], cfg.dtype, layer.get("wq_scale")),
-            _apply(h, layer["wk"], cfg.dtype, layer.get("wk_scale")),
-            _apply(h, layer["wv"], cfg.dtype, layer.get("wv_scale")))
+    return (_proj(cfg, layer, lora_layer, "wq", h),
+            _proj(cfg, layer, lora_layer, "wk", h),
+            _proj(cfg, layer, lora_layer, "wv", h))
 
 
 def _embed(cfg: LlamaConfig, params, tokens):
@@ -243,30 +347,62 @@ def _finish(cfg: LlamaConfig, params, x):
     return _lm_head(x, params, cfg.dtype)
 
 
-def forward(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
-            return_kv: bool = False):
-    """tokens [B, T] int -> logits [B, T, vocab] (f32).
-
-    With return_kv=True also returns the per-layer post-RoPE K/V
-    ([L, B, T, KV, hd] each): the prefill path of KV-cached decoding."""
-    B, T = tokens.shape
+def _block(cfg: LlamaConfig, layer, lora_layer, x):
+    """One transformer block over x [B, T, dim]: (x out, post-RoPE K,
+    V [B, T, KV, hd])."""
+    B, T, _ = x.shape
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     group = H // KV
+    q, k, v = _qkv(cfg, layer, x, lora_layer)
+    q = _rope(q.reshape(B, T, H, hd), cfg.rope_theta)
+    k_kv = _rope(k.reshape(B, T, KV, hd), cfg.rope_theta)
+    v_kv = v.reshape(B, T, KV, hd)
+    k, v = k_kv, v_kv
+    if group > 1:  # GQA: each kv head serves `group` query heads
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
+    o = select_attention(cfg.attention, q, k, v, causal=True)
+    x1 = x + _proj(cfg, layer, lora_layer, "wo", o.reshape(B, T, H * hd))
+    return _mlp(cfg, layer, x1, lora_layer), k_kv, v_kv
+
+
+def _lora_layers(lora: Dict, n: int) -> Iterator[Dict[str, torch.Tensor]]:
+    """Per-layer views of the adapter leaves, each with "__scale__"."""
+    for i in range(n):
+        layer = {k: v[i] for k, v in lora["blocks"].items()}
+        layer["__scale__"] = lora["scale"]
+        yield layer
+
+
+def forward(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
+            mesh=None, lora: Optional[Dict] = None,
+            return_kv: bool = False):
+    """tokens [B, T] int -> logits [B, T, vocab] (f32), with the
+    reference's argument order.
+
+    `lora` adds the adapters' low-rank deltas (`init_lora`).  With
+    return_kv=True also returns the per-layer post-RoPE K/V
+    ([L, B, T, KV, hd] each): the prefill path of KV-cached decoding.
+    With `cfg.remat`, while gradients are recorded, each block runs
+    under `torch.utils.checkpoint`; under `torch.no_grad()` nothing is
+    recomputed.  A mesh is not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "llama.forward over a mesh is not ported yet: it waits for "
+            "ROADMAP.md queue 1 item 3 (parallel/: collectives, meshes, "
+            "sharding and sequence parallelism)")
     x = _embed(cfg, params, tokens)
+    L = params["blocks"]["wq"].shape[0]
+    lora_layers = (_lora_layers(lora, L) if lora is not None
+                   else (None for _ in range(L)))
+    remat = cfg.remat and torch.is_grad_enabled()
     ks, vs = [], []
-    for layer in _layers(params):
-        q, k, v = _qkv(cfg, layer, x)
-        q = _rope(q.reshape(B, T, H, hd), cfg.rope_theta)
-        k_kv = _rope(k.reshape(B, T, KV, hd), cfg.rope_theta)
-        v_kv = v.reshape(B, T, KV, hd)
-        k, v = k_kv, v_kv
-        if group > 1:  # GQA: each kv head serves `group` query heads
-            k = k.repeat_interleave(group, dim=2)
-            v = v.repeat_interleave(group, dim=2)
-        o = select_attention(cfg.attention, q, k, v, causal=True)
-        x1 = x + _apply(o.reshape(B, T, H * hd), layer["wo"], cfg.dtype,
-                        layer.get("wo_scale"))
-        x = _mlp(cfg, layer, x1)
+    for layer, lora_layer in zip(_layers(params), lora_layers):
+        if remat:
+            x, k_kv, v_kv = checkpoint(_block, cfg, layer, lora_layer, x,
+                                       use_reentrant=False)
+        else:
+            x, k_kv, v_kv = _block(cfg, layer, lora_layer, x)
         if return_kv:
             ks.append(k_kv)
             vs.append(v_kv)
@@ -274,6 +410,82 @@ def forward(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
     if return_kv:
         return logits, (torch.stack(ks), torch.stack(vs))
     return logits
+
+
+def loss_fn(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
+            mesh=None, lora: Optional[Dict] = None) -> torch.Tensor:
+    """Next-token cross entropy; tokens [B, T+1] (shift done here).  The
+    reference's lse form over the f32 logits: lse - target logit."""
+    tokens = tokens.long()
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    logits = forward(cfg, params, inputs, mesh, lora)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets[..., None])[..., 0]
+    return (lse - tgt).mean()
+
+
+def num_params(params: Dict) -> int:
+    return sum(p.numel() for p in _leaves(params))
+
+
+# ----------------------------------------------------------------------
+# train steps
+# ----------------------------------------------------------------------
+def make_train_step(cfg: LlamaConfig, optimizer, mesh=None):
+    """Full fine-tune / pretrain step: step(params, opt_state, tokens)
+    -> (params, opt_state, {"loss": loss}).  `optimizer` is a
+    `gpt2.AdamW` (or anything with its `init` / `update`); unlike the
+    reference, which returns new arrays, the params are updated IN
+    PLACE and the same dict comes back."""
+
+    def step(params, opt_state, tokens):
+        leaves = _leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_fn(cfg, params, tokens, mesh)
+        grads = torch.autograd.grad(loss, leaves)
+        opt_state, _ = optimizer.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss.detach()}
+
+    return step
+
+
+def make_lora_train_step(cfg: LlamaConfig, optimizer, mesh=None):
+    """LoRA step: step(base_params, lora_params, opt_state, tokens) ->
+    (lora_params, opt_state, {"loss": loss}).  The base is frozen:
+    gradients flow only into the adapter tree (every leaf of it, its
+    `scale` included, as the reference differentiates the whole tree),
+    which is updated IN PLACE."""
+
+    def step(base_params, lora_params, opt_state, tokens):
+        leaves = _leaves(lora_params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_fn(cfg, base_params, tokens, mesh, lora=lora_params)
+        grads = torch.autograd.grad(loss, leaves)
+        opt_state, _ = optimizer.update(grads, opt_state, lora_params)
+        return lora_params, opt_state, {"loss": loss.detach()}
+
+    return step
+
+
+def merge_lora(cfg: LlamaConfig, params: Dict, lora: Dict) -> Dict:
+    """Bake the adapters into the base weights (for serving without the
+    adapter matmuls): a new tree; the targets become
+    W + einsum(A, B) * scale, promoted as the reference promotes."""
+    out = dict(params)
+    blocks = dict(out["blocks"])
+    scale = lora["scale"]
+    with torch.no_grad():
+        for name, a in lora["blocks"].items():
+            t, kind = name.rsplit("_", 1)
+            if kind != "a":
+                continue
+            b = lora["blocks"][f"{t}_b"]
+            blocks[t] = blocks[t] + torch.einsum("lir,lro->lio", a,
+                                                 b) * scale
+    out["blocks"] = blocks
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -325,7 +537,7 @@ def forward_with_prefix(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
         s = torch.where(mask, s, _NEG_INF)
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bhqk,bkhd->bqhd", p, vv).reshape(B, S, H * hd)
-        x1 = x + _apply(o, layer["wo"], cfg.dtype, layer.get("wo_scale"))
+        x1 = x + _proj(cfg, layer, None, "wo", o)
         x = _mlp(cfg, layer, x1)
         ks.append(k_suf)
         vs.append(v_suf)
@@ -388,7 +600,7 @@ def decode_step(cfg: LlamaConfig, params: Dict, token: torch.Tensor,
         kc[:, pos] = k_new[:, 0].to(kc.dtype)
         vc[:, pos] = v.reshape(B, KV, hd).to(vc.dtype)
         o = _cache_attention(cfg, q, kc, vc, valid)
-        x1 = x + _apply(o, layer["wo"], cfg.dtype, layer.get("wo_scale"))
+        x1 = x + _proj(cfg, layer, None, "wo", o)
         x = _mlp(cfg, layer, x1)
     return _finish(cfg, params, x[:, 0, :]), (k_cache, v_cache)
 
@@ -424,7 +636,7 @@ def decode_step_vec(cfg: LlamaConfig, params: Dict, token: torch.Tensor,
         vc[rows, at] = torch.where(inside, v.reshape(B, KV, hd).to(vc.dtype),
                                    vc[rows, at])
         o = _cache_attention(cfg, q, kc, vc, valid)
-        x1 = x + _apply(o, layer["wo"], cfg.dtype, layer.get("wo_scale"))
+        x1 = x + _proj(cfg, layer, None, "wo", o)
         x = _mlp(cfg, layer, x1)
     return _finish(cfg, params, x[:, 0, :]), (k_cache, v_cache)
 
@@ -467,7 +679,7 @@ def decode_step_paged(cfg: LlamaConfig, params: Dict, token: torch.Tensor,
                 q[:, 0], k_pool, v_pool, k_new.to(k_pool.dtype),
                 v_new.to(v_pool.dtype), tables, pos, li)
         o = o.to(cfg.dtype).reshape(B, 1, H * hd)
-        x1 = x + _apply(o, layer["wo"], cfg.dtype, layer.get("wo_scale"))
+        x1 = x + _proj(cfg, layer, None, "wo", o)
         x = _mlp(cfg, layer, x1)
     logits = _finish(cfg, params, x[:, 0, :])
     if kv_scales is not None:

@@ -193,7 +193,12 @@ _workspaces: dict = {}
 def _workspace(device: torch.device, floats: int, cells: int):
     """K6's workspace and arrival counters on `device`, allocated once
     and grown when a call needs more.  The counters start at zero and
-    every launch leaves them zero."""
+    every launch leaves them zero, so they are zero at the start of
+    every launch and of every replay of a captured one.  Growing
+    REPLACES the tensors: a CUDA graph captured before keeps the old
+    pointers, so its holder keeps the old tensors alive
+    (`workspace_of`), and a caller that captures sizes the workspace
+    first (`reserve_workspace`)."""
     ws, counters = _workspaces.get(device.index, (None, None))
     if ws is None or ws.numel() < floats:
         ws = torch.empty(floats, dtype=torch.float32, device=device)
@@ -201,6 +206,33 @@ def _workspace(device: torch.device, floats: int, cells: int):
         counters = torch.zeros(cells, dtype=torch.int32, device=device)
     _workspaces[device.index] = (ws, counters)
     return ws, counters
+
+
+def _workspace_size(B: int, H: int, KV: int, HD: int, W: int, BS: int,
+                    sms: int) -> Tuple[int, int]:
+    """(f32 floats, counter cells) of K6's workspace for one call."""
+    splits, _ = split_plan(B, H, KV, W, BS, sms)
+    cells = B * KV * -(-(H // KV) // _MAX_GROUP)
+    return cells * splits * _MAX_GROUP * (2 + HD), cells
+
+
+def reserve_workspace(device, B: int, H: int, KV: int, HD: int, BS: int,
+                      max_W: int):
+    """Size K6's workspace on `device` for every table width up to
+    `max_W` at these shapes, so that no call at such a width grows (and
+    so replaces) it; returns the (workspace, counters) pair."""
+    device = torch.device(device)
+    sms = _sm_count(device)
+    need = [_workspace_size(B, H, KV, HD, W, BS, sms)
+            for W in range(1, max_W + 1)]
+    return _workspace(device, max(n[0] for n in need),
+                      max(n[1] for n in need))
+
+
+def workspace_of(device) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The (workspace, counters) pair K6 launches on `device` take now,
+    or None before the first."""
+    return _workspaces.get(torch.device(device).index)
 
 
 def _lib() -> ctypes.CDLL:
@@ -351,11 +383,10 @@ def _attention_plan(q, k_pool, tables):
     HD = k_pool.shape[4]
     B, H = q.shape[0], q.shape[1]
     KV = k_pool.shape[3]
-    splits, per = split_plan(B, H, KV, tables.shape[1], k_pool.shape[2],
-                             _sm_count(q.device))
-    cells = B * KV * -(-(H // KV) // _MAX_GROUP)
+    W, BS, sms = tables.shape[1], k_pool.shape[2], _sm_count(q.device)
+    splits, per = split_plan(B, H, KV, W, BS, sms)
     ws, counters = _workspace(
-        q.device, cells * splits * _MAX_GROUP * (2 + HD), cells)
+        q.device, *_workspace_size(B, H, KV, HD, W, BS, sms))
     return splits, per, ws, counters, torch.empty_like(q)
 
 

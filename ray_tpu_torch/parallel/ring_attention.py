@@ -6,7 +6,7 @@ dispatch to it or to `ops.attention.flash_attention` (kernels K1-K4).
 As in the reference, "ring", "ulysses" and any other kind run
 `plain_attention` when no mesh is given; with a mesh the
 sequence-parallel backends raise until their ROADMAP.md queue-1 item
-(item 4) lands.
+(item 3) lands.
 """
 
 from __future__ import annotations
@@ -17,9 +17,9 @@ _NEG_INF = -1e30
 
 _NOT_PORTED = {
     "ring": "ring attention waits for the parallel slice (queue 1 item "
-            "4: sequence parallelism + collectives)",
+            "3: sequence parallelism + collectives)",
     "ulysses": "Ulysses attention waits for the parallel slice (queue 1 "
-               "item 4: sequence parallelism + collectives)",
+               "item 3: sequence parallelism + collectives)",
 }
 
 

@@ -84,14 +84,15 @@ def summarize(state: Dict, steps: List[Dict[str, float]]) -> Dict:
             "mfu": tps * 6 * n_params / PEAK_BF16_FLOPS}
 
 
-def profile_step(state: Dict, trace: str) -> Dict:
+def profile_step(state: Dict, trace: str, run=None) -> Dict:
     """One step under torch.profiler: host ms, device busy ms, idle
-    share, kernel launches, top kernels by device time."""
+    share, kernel launches, top kernels by device time.  `run(state, n)`
+    takes the steps (default `run_steps`)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        run_steps(state, 1)
+        (run or run_steps)(state, 1)
         wall = time.perf_counter() - t0
     path = Path(trace)
     path.parent.mkdir(parents=True, exist_ok=True)

@@ -105,10 +105,9 @@ class LLMEngineConfig:
     - `weight_dtype`: "model" serves the params as given; "int8"
       applies `llama.quantize_weights_int8` at replica init
       (per-output-channel scales, matmuls dequant on the fly).
-
-    The JAX package's `chunk_cache_cap` (the LRU bound of its compiled
-    chunk steppers) has no counterpart until the port's decode step
-    runs as CUDA graphs (ROADMAP.md queue 1).
+    - `chunk_cache_cap`: the LRU bound of the engine's chunk steppers,
+      one per gather width (on the card's kernel route, one CUDA graph
+      of the whole decode chunk each).
     """
 
     slots: int = 32
@@ -121,6 +120,7 @@ class LLMEngineConfig:
     decode_kernel: str = "auto"
     kv_dtype: str = "model"
     weight_dtype: str = "model"
+    chunk_cache_cap: int = 8
 
     def validate(self) -> "LLMEngineConfig":
         if self.decode_kernel not in ("auto", "kernel", "gather"):
@@ -145,6 +145,10 @@ class LLMEngineConfig:
             raise ValueError(
                 f"block_size={self.block_size} must be >= 1"
             )
+        if self.chunk_cache_cap < 1:
+            raise ValueError(
+                f"chunk_cache_cap={self.chunk_cache_cap} must be >= 1"
+            )
         return self
 
     def engine_kwargs(self) -> Dict[str, Any]:
@@ -161,6 +165,7 @@ class LLMEngineConfig:
             "max_queued": self.max_queued,
             "decode_kernel": self.decode_kernel,
             "kv_dtype": self.kv_dtype,
+            "chunk_cache_cap": self.chunk_cache_cap,
         }
 
 

@@ -24,14 +24,20 @@ hd]` allocated once.
   KV (`llama.forward_with_prefix`).  Completed requests donate their
   full prompt blocks; unpinned nodes are LRU-evicted when the pool
   runs low.
-- CHUNKED stepping with ONE host read per chunk: the chunk stepper (a
-  `jax.jit` + `lax.scan` in the reference) is an eager loop over
-  `chunk` steps, whose launches are asynchronous.  The chunk's token
+- CHUNKED stepping with ONE host read per chunk: one chunk stepper per
+  gather width W, kept in an LRU of `chunk_cache_cap` entries
+  (`_chunk_step_for`; the reference's compiled `jax.jit` + `lax.scan`
+  programs).  On the card's kernel route a stepper is a `ChunkGraph`:
+  the whole chunk (`chunk` decode steps, the argmax, the position
+  clamp, the stacked token rows) captured as ONE CUDA graph after its
+  first, eager, run, then replayed.  On the CPU and on the gather route
+  it is the eager loop of asynchronous launches.  The chunk's token
   rows are copied into pinned host memory without blocking, and an
   event recorded behind the copy is waited on at the NEXT tick's
   harvest, so the read of chunk N overlaps chunk N+1's compute.  Host
   inputs (prompts, block tables) go up through pinned memory too, so
-  no tick synchronises with the card except at that event.
+  no tick synchronises with the card except at that event (and at a
+  width's first use, whose capture synchronises once).
 
 The JAX engine donates the pool buffers to each compiled dispatch;
 here the pools (and scale sidecars) are updated in place.  Greedy
@@ -44,10 +50,12 @@ with the shed reason, as the JAX engine stamps it.
 
 from __future__ import annotations
 
+import gc
 import logging
+import os
 import threading
 import time as _time
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import Future
 from typing import Dict, List, Optional
 
@@ -63,10 +71,11 @@ from ray_tpu_torch.serve.kv_cache import BlockPool, RadixCache
 
 logger = logging.getLogger(__name__)
 
-# TTFT samples older than this stop counting (the shed predictor and
-# the reported quantiles decay to 0 one window after load ends)
-_TTFT_WINDOW_S = 10.0
-_TICK_RING = 32  # per-tick introspection records kept for stats()
+# the kernel wrappers whose `launches` a captured chunk keeps true: a
+# capture runs their Python without launching, a replay launches
+# without running it
+_COUNTED = (_pa.paged_append_decode_attention, _pa.paged_kv_append,
+            _pa.paged_decode_attention)
 
 
 def _next_pow2(n: int) -> int:
@@ -75,6 +84,121 @@ def _next_pow2(n: int) -> int:
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _rss_bytes() -> int:
+    """This process's resident host memory (Linux), 0 where unknown."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError):
+        return 0
+
+
+class ChunkGraph:
+    """A decode chunk as one CUDA graph: the counterpart of the
+    reference's compiled `jax.jit` of a `lax.scan` over a chunk's steps.
+
+    `run(tables)` is the eager chunk: it reads and updates IN PLACE
+    device state that outlives the graph (pools, tokens, positions) and
+    returns the chunk's token rows.  The first call runs it eagerly (its
+    tokens are real, and it loads what a capture cannot: kernel
+    libraries, library handles), then captures it over a static copy of
+    `tables`.  Later calls copy their tables into that buffer and replay
+    the graph on the current stream; they return the same static output
+    tensor, which the next replay overwrites, so a caller reads it on
+    that stream before its next call.  `capture_ms` (split into
+    `capture_phases_ms`: "prepare", the device sync, collection and
+    cache release before capturing; "record", the chunk's Python walked
+    under capture; "instantiate", the graph built), `graph_bytes`
+    (device memory the capture reserved), `capture_host_bytes` (the
+    process's resident host memory it added) and `capture_cpu_s` (the
+    process's CPU seconds meanwhile) say what the capture cost;
+    `replays` counts the calls that replayed.
+
+    The capture runs with `capture_error_mode="thread_local"`: the
+    serving runtime's other threads may touch the card meanwhile.  The
+    cyclic garbage collector is off during it: an unreachable graph it
+    destroyed there (an old engine's) would invalidate the capture.
+    Capturing records the launches without running them and a replay
+    runs them without Python, so the `launches` counters of `_COUNTED`
+    move by nothing at capture and by the capture's own count (measured,
+    in `launches`) at each replay.  K6's workspace must not grow during
+    a capture: the caller sizes it first
+    (`paged_attention.reserve_workspace`), and the graph keeps the
+    workspace it captured alive.  `pool` lets the graphs of one engine
+    share a memory pool: they replay one at a time on one stream, and
+    each replay's rows are consumed before the next."""
+
+    def __init__(self, run, pool=None):
+        self._run = run
+        self._pool = pool
+        self._graph = None
+        self.capture_ms: Optional[float] = None
+        self.capture_phases_ms: Dict[str, float] = {}
+        self.graph_bytes: Optional[int] = None
+        self.capture_host_bytes: Optional[int] = None
+        self.capture_cpu_s: Optional[float] = None
+        self.launches: Dict[str, int] = {}
+        self.replays = 0
+
+    @property
+    def captured(self) -> bool:
+        return self._graph is not None
+
+    def __call__(self, tables: torch.Tensor) -> torch.Tensor:
+        if self._graph is None:
+            out = self._run(tables)
+            self._capture(tables)
+            return out
+        self._tables.copy_(tables, non_blocking=True)
+        self._graph.replay()
+        self.replays += 1
+        for fn in _COUNTED:
+            fn.launches += self.launches[fn.__name__]
+        return self._out
+
+    def _capture(self, tables: torch.Tensor) -> None:
+        dev = tables.device
+        rss, cpu = _rss_bytes(), _time.process_time()
+        t0 = _time.perf_counter()
+        self._tables = tables.clone()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        ws = _pa.workspace_of(dev)
+        before = {fn: fn.launches for fn in _COUNTED}
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        gc_on = gc.isenabled()
+        gc.disable()  # `torch.cuda.graph` collects just before capturing
+        try:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
+                t1 = _time.perf_counter()
+                out = self._run(self._tables)
+                t2 = _time.perf_counter()
+        finally:
+            if gc_on:
+                gc.enable()
+            for fn in _COUNTED:  # the capture launched nothing
+                self.launches[fn.__name__] = fn.launches - before[fn]
+                fn.launches = before[fn]
+        t3 = _time.perf_counter()
+        self.capture_ms = (t3 - t0) * 1e3
+        self.capture_phases_ms = {"prepare": (t1 - t0) * 1e3,
+                                  "record": (t2 - t1) * 1e3,
+                                  "instantiate": (t3 - t2) * 1e3}
+        self.graph_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.capture_host_bytes = _rss_bytes() - rss
+        self.capture_cpu_s = _time.process_time() - cpu
+        after = _pa.workspace_of(dev)
+        if ws is None or after[0] is not ws[0] or after[1] is not ws[1]:
+            raise RuntimeError(
+                "K6's workspace grew during a chunk capture, so the graph "
+                "would hold a freed pointer: size it before capturing "
+                "(paged_attention.reserve_workspace)")
+        self._ws = after
+        self._graph, self._out = graph, out
 
 
 class LlamaEngine:
@@ -86,9 +210,17 @@ class LlamaEngine:
 
     `max_len` caps one sequence (prompt + generation); `kv_blocks`
     sizes the SHARED pool (default: every slot at max_len).
-    `prefix_cache=False` disables radix reuse.  `device` defaults to
-    the CUDA device (raising without a card); `params` must live on
-    it."""
+    `prefix_cache=False` disables radix reuse.  `chunk_cache_cap`
+    bounds the LRU of chunk steppers, one per gather width (on the
+    card's kernel route each holds a CUDA graph of the whole chunk).
+    `device` defaults to the CUDA device (raising without a card);
+    `params` must live on it.
+
+    Env knobs, read at construction: `RTT_SERVE_TTFT_WINDOW_S` (the TTFT
+    window of the shed predictor and `ttft_p50_s` / `ttft_p90_s`,
+    default 10), `RTT_ENGINE_TICK_RING` (records kept in
+    `stats()["tick_ring"]`, default 32) and `RTT_LLM_ENGINE_TRACE` (a
+    per-tick phase line on stdout when set and not "0")."""
 
     def __init__(self, cfg, params, *, slots: int = 32,
                  max_len: Optional[int] = None, chunk: int = 8,
@@ -96,7 +228,7 @@ class LlamaEngine:
                  prefix_cache: bool = True,
                  max_queued: Optional[int] = None,
                  decode_kernel: str = "auto", kv_dtype: str = "model",
-                 device=None):
+                 chunk_cache_cap: int = 8, device=None):
         self.device = resolve_device(device)
         if params["tok_emb"].device != self.device:
             raise ValueError(f"params live on {params['tok_emb'].device}, "
@@ -131,7 +263,23 @@ class LlamaEngine:
             RadixCache(self.block_size, self._pool) if prefix_cache
             else None
         )
+        # chunk steppers, one per gather width, LRU-bounded: on the
+        # card's kernel route each holds a CUDA graph (device memory),
+        # and a long-lived replica sweeping many widths would otherwise
+        # grow the cache without bound
+        self._chunk_cache: "OrderedDict[int, object]" = OrderedDict()
+        self._chunk_cache_cap = max(1, int(chunk_cache_cap))
+        self._chunk_cache_evictions = 0
+        self._graphs = (self.device.type == "cuda"
+                        and self._decode_kernel == "kernel")
+        self._graph_pool = None  # shared by the cached graphs
         self._alloc_device_state()
+        if self._graphs:
+            # K6's workspace sized once for the widest table, so no
+            # capture grows it
+            _pa.reserve_workspace(self.device, slots, cfg.n_heads,
+                                  cfg.n_kv_heads, cfg.head_dim,
+                                  self.block_size, self._max_seq_blocks)
         self._warm_chunk()
 
         self._decode_kernel_dispatches = 0   # fused-kernel chunk ticks
@@ -177,8 +325,16 @@ class LlamaEngine:
         # windowed TTFT samples (monotonic ts, ttft): the shed
         # predictor reads the p90 over the window, which decays as
         # samples age out.  Touched only on the engine thread.
+        self._ttft_window_s = float(
+            os.environ.get("RTT_SERVE_TTFT_WINDOW_S", "10") or 10
+        )
         self._ttft_samples: deque = deque(maxlen=256)
-        self._tick_ring: deque = deque(maxlen=_TICK_RING)
+        self._tick_ring: deque = deque(maxlen=max(1, int(
+            os.environ.get("RTT_ENGINE_TICK_RING", "32") or 32
+        )))
+        # per-tick phase timing to stdout
+        self._trace = os.environ.get("RTT_LLM_ENGINE_TRACE", "") not in (
+            "", "0")
         self._tick_ema_s = 0.0
         self._last_gather_blocks = 0  # W of the latest chunk dispatch
         # last computed stats() dict, served when the engine lock is
@@ -332,7 +488,7 @@ class LlamaEngine:
     def _ttft_quantile(self, q: float) -> float:
         """TTFT quantile over the trailing window — 0.0 once every
         sample has aged out."""
-        cutoff = _time.monotonic() - _TTFT_WINDOW_S
+        cutoff = _time.monotonic() - self._ttft_window_s
         live = sorted(v for ts, v in self._ttft_samples if ts >= cutoff)
         if not live:
             return 0.0
@@ -371,10 +527,12 @@ class LlamaEngine:
             "decode_kernel_dispatch_total": self._decode_kernel_dispatches,
             "decode_fallback_dispatch_total":
                 self._decode_fallback_dispatches,
+            "chunk_cache_size": len(self._chunk_cache),
+            "chunk_cache_evictions": self._chunk_cache_evictions,
             "ttft_ema_s": self._ttft_ema_s,
             "ttft_p50_s": self._ttft_quantile(0.5),
             "ttft_p90_s": self._ttft_quantile(0.9),
-            "ttft_window_s": _TTFT_WINDOW_S,
+            "ttft_window_s": self._ttft_window_s,
             "tick_ema_s": self._tick_ema_s,
             "ticks": self._chunk_seq,
             "tick_ring": list(self._tick_ring),
@@ -392,6 +550,10 @@ class LlamaEngine:
             self._running = False
             self._wake.notify()
         self._thread.join(timeout=10)
+        if not self._thread.is_alive():
+            # the graphs' device memory goes now, not whenever the
+            # cyclic collector reaches this engine
+            self._chunk_cache.clear()
         with self._lock:
             for req in list(self._active.values()):
                 if not req["fut"].done():
@@ -404,12 +566,51 @@ class LlamaEngine:
             self._queue.clear()
 
     # -- device work ---------------------------------------------------
+    def _chunk_step_for(self, W: int):
+        """Chunk stepper for gather width W: called with the block
+        tables [slots, W], it runs `_run_chunk` and returns its token
+        rows.  On the card's kernel route it is a `ChunkGraph` (the
+        chunk captured after its first, eager, run, then replayed); on
+        the CPU and on the gather route, the eager chunk itself.
+
+        Entries are LRU-bounded at `chunk_cache_cap`; an evicted width
+        is captured again on its next use (degradation, not growth).
+        `_fail_tick` empties the cache without counting evictions: the
+        graphs hold the pools it replaces."""
+        fn = self._chunk_cache.get(W)
+        if fn is not None:
+            self._chunk_cache.move_to_end(W)
+            return fn
+        while len(self._chunk_cache) >= self._chunk_cache_cap:
+            old_w = next(iter(self._chunk_cache))
+            del self._chunk_cache[old_w]
+            self._chunk_cache_evictions += 1
+            logger.info(
+                "chunk-program cache evicted W=%d (cap=%d, evictions=%d)",
+                old_w, self._chunk_cache_cap, self._chunk_cache_evictions,
+            )
+        if self._graphs:
+            if not any(isinstance(s, ChunkGraph) and s.captured
+                       for s in self._chunk_cache.values()):
+                # no cached graph holds the shared pool any more, and a
+                # pool that every graph released cannot be captured
+                # into again: start a new one
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            fn = ChunkGraph(self._run_chunk, self._graph_pool)
+        else:
+            def fn(tables):
+                return self._run_chunk(tables)
+        self._chunk_cache[W] = fn
+        return fn
+
     def _run_chunk(self, tables: torch.Tensor) -> torch.Tensor:
         """`chunk` greedy decode steps for every slot; returns the
         token rows [1 + chunk, slots] (row 0 = pre-chunk tokens, so a
         freshly admitted slot's prefill token rides along and admission
         never reads the device).  Idle and finished slots step too,
-        with positions clamped below max_len."""
+        with positions clamped below max_len.  `_tok` and `_pos` are
+        updated in place, never rebound: admission writes them in
+        place, and a captured chunk reads and writes those buffers."""
         if self._decode_kernel == "gather":
             return self._run_chunk_gather(tables)
         cfg, params = self.cfg, self.params
@@ -424,8 +625,10 @@ class LlamaEngine:
             tok = logits.argmax(dim=-1).to(torch.int32)
             pos = torch.clamp(pos + 1, max=self.max_len - 1)
             rows.append(tok)
-        self._tok, self._pos = tok, pos
-        return torch.stack(rows)
+        out = torch.stack(rows)
+        self._tok.copy_(tok)
+        self._pos.copy_(pos)
+        return out
 
     def _run_chunk_gather(self, tables: torch.Tensor) -> torch.Tensor:
         """The reference route: gather every slot's W blocks into a
@@ -472,8 +675,10 @@ class LlamaEngine:
                 L, S, W, bs, KV)
         self._k_pool[:, t] = k.reshape(L, S, W, bs, KV, hd)
         self._v_pool[:, t] = v.reshape(L, S, W, bs, KV, hd)
-        self._tok, self._pos = tok, pos
-        return torch.stack(rows)
+        out = torch.stack(rows)
+        self._tok.copy_(tok)
+        self._pos.copy_(pos)
+        return out
 
     def _write_blocks(self, k1: torch.Tensor, v1: torch.Tensor,
                       ids: List[int]) -> None:
@@ -764,7 +969,8 @@ class LlamaEngine:
             pending = None
             if have_active:
                 self._last_gather_blocks = W
-                toks = self._run_chunk(self._upload(tables, torch.int32))
+                toks = self._chunk_step_for(W)(
+                    self._upload(tables, torch.int32))
                 if self._decode_kernel == "kernel":
                     self._decode_kernel_dispatches += 1
                 else:
@@ -811,6 +1017,16 @@ class LlamaEngine:
                     "rejected_total": self._rejected_total,
                 })
                 self._stats_snapshot = self._stats_locked()
+            if self._trace:
+                with self._lock:
+                    na, nf = len(self._active), len(self._free)
+                    bf = self._pool.free_blocks
+                print(f"tick adm={len(admissions)} "
+                      f"admit={1e3*(t1-t0):.0f} "
+                      f"dispatch={1e3*(t2-t1):.0f} "
+                      f"read+harvest={1e3*(t3-t2):.0f}ms "
+                      f"W={W} blkfree={bf} "
+                      f"active={na} free={nf}", flush=True)
             self._tick_error = None
         except Exception as e:  # engine must not die silently
             logger.exception("llm engine tick failed; failing %d active "
@@ -821,9 +1037,12 @@ class LlamaEngine:
     def _fail_tick(self, exc: Exception, admissions) -> None:
         """A failed tick fails every live and popped request with the
         exception and restarts host bookkeeping and device state from
-        scratch (the failed chunk may have half-written the pools)."""
+        scratch (the failed chunk may have half-written the pools).
+        The chunk steppers go too, uncounted as evictions: a captured
+        graph holds the pools that are replaced here."""
         self._tick_error = exc
         self._pending_toks = None
+        self._chunk_cache.clear()
         with self._lock:
             for req in self._active.values():
                 if not req["fut"].done():

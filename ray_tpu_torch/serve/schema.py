@@ -25,7 +25,9 @@ class LLMEngineSchema(BaseModel):
     deployment's `user_config` (ContinuousLlamaService applies it via
     `engine_config=`) or anywhere a deploy document wants to pin the
     decode/quantization plane (`decode_kernel`, `kv_dtype`,
-    `weight_dtype`) alongside the batching shape."""
+    `weight_dtype`) alongside the batching shape; `chunk_cache_cap`
+    bounds the engine's LRU of chunk steppers (one CUDA graph a gather
+    width on the card)."""
 
     model_config = ConfigDict(extra="forbid")
 
@@ -39,6 +41,7 @@ class LLMEngineSchema(BaseModel):
     decode_kernel: str = "auto"
     kv_dtype: str = "model"
     weight_dtype: str = "model"
+    chunk_cache_cap: int = Field(default=8, ge=1)
 
     @field_validator("decode_kernel")
     @classmethod

@@ -107,10 +107,8 @@ def _port_engine_kwargs(kwargs):
 
 
 def _jax_engine_dict(d):
-    """The JAX package's config, read as the port's: its compiled
-    chunk steppers' cache bound has no counterpart yet."""
+    """The JAX package's config, read as the port's route names."""
     d = dict(d)
-    d.pop("chunk_cache_cap", None)
     if d.get("decode_kernel") == "pallas":
         d["decode_kernel"] = "kernel"
     return d
