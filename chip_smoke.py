@@ -95,6 +95,35 @@ exits non-zero:
     step, no K3 / K4, no plain dispatch), step-0 loss within 0.5 of ln
     32,000, the loss falling; K1 / K2 held and timed at that shape (BH
     128, T 1,024, D 128) beside SDPA and their bounds.
+13b. train plane: `CudaTrainer(dp_train_loop).fit()` in collective mode
+    with two workers sharing the card (`GPU` 0.5, `CPU` 1 each), each
+    running the LoRA step of 13 on its 4 x 1,024 half of the global
+    batch, the adapters' gradients (2,883,585 f32 values: the ring path
+    of the object plane) mean-allreduced through
+    `cuda_utils.sync_gradients` before every AdamW update, rank 0
+    checkpointing every step: 4 steps, then a second `fit` resumed from
+    the last checkpoint for 1 more.  Held: both ranks' adapters
+    bit-equal after every step; the first synced gradient against one
+    process's gradient on the whole batch (computed here after the
+    trainer shut down; relative norm 3e-2); step-0 loss within 0.5 of
+    ln 32,000 and falling; 44 K1 and 22 K2 launches a step in each
+    worker (each worker's counts set to 0 before a step and read after
+    it), no plain dispatch; the resumed workers start at the
+    checkpoint's step with its adapters.  Recorded: the global step ms
+    and tokens/s, the sync's device-to-host / allreduce / host-to-device
+    ms, each worker's peak memory, the trainer's start-up s.  Then
+    `torch_distributed`: one `num_gpus=1` worker joins an NCCL group,
+    builds its `DeviceMesh` on `cuda` and takes one step, whose loss
+    equals the one-process step's.
+13c. sp_attention: two gloo ranks (this script, `--sp-rank`) share the
+    card (NCCL refuses two ranks on one GPU) in an sp 2 mesh:
+    `ring_attention` and `ulysses_attention` at B 8, T 1,024, H 16, D
+    128, f32 and bf16, causal and not, against `plain_attention` on the
+    whole sequence (f32 1e-5, bf16 2e-2); the gradient of a sum through
+    the ring against dense (1e-4); `llama.loss_fn` with attention
+    "ring" over the mesh at 4 layers against dense (2e-2); with the
+    backend and how each collective's bytes travelled (gloo: through
+    the host).
 14. K1-K4 timed at the training shape (bf16, causal), and K3 and K4 at
     the second split shape (BH 32, T 4,096, D 128), beside their bounds,
     plain versions and `scaled_dot_product_attention`, with each
@@ -134,9 +163,11 @@ import gc
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -155,6 +186,7 @@ from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.ops import fused_cross_entropy, pallas_cross_entropy
 from ray_tpu_torch.ops import xent_pallas as xp
+from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.ring_attention import plain_attention
 from ray_tpu_torch.scripts import train_gpt2, train_llama_lora
 from ray_tpu_torch.serve.llm_engine import ChunkGraph, LlamaEngine
@@ -1628,6 +1660,378 @@ def llama_lora_train(device, *, batch=8, seq=1024, warmup=1, steps=6,
     }
 
 
+# ----------------------------------------------------------------------
+# the train plane: CudaTrainer, two data-parallel workers on one card
+# ----------------------------------------------------------------------
+# ring / Ulysses on the card against dense attention on the whole
+# sequence: f32 to rounding (blocks summed in another order), bf16 the
+# reference's own attention tolerance; the gradient of a sum through the
+# ring in f32 as the reference's own test holds it (1e-3 / 1e-4, tightened
+# to 1e-4 / 1e-4)
+SP_TOL = {"f32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=2e-2,
+                                                          atol=2e-2)}
+SP_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _records(out_dir: str) -> dict:
+    """rank -> the JSON lines `dp_train_loop` appended, in order."""
+    out = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith("rank") and name.endswith(".jsonl"):
+            with open(os.path.join(out_dir, name)) as f:
+                out[int(name[4:-6])] = [json.loads(ln) for ln in f]
+    return out
+
+
+def train_plane(device, *, batch=8, seq=1024, steps=4, resume_steps=1,
+                cfg=None) -> dict:
+    """`CudaTrainer(...).fit()` with two collective-mode workers sharing
+    the card (`GPU` 0.5 each), each running `dp_train_loop` on its half
+    of the global batch at the bench's LoRA size, gradients synced over
+    the host collective group every step; rank 0 checkpoints every step
+    and a second `fit` resumes from the last checkpoint for
+    `resume_steps` more.  Then `torch_distributed` mode: one worker on
+    the whole card joins an NCCL group, builds its mesh on `cuda` and
+    takes one step.  The runtime is shut down on the way out."""
+    from ray_tpu_torch.train import (CheckpointConfig, CudaConfig,
+                                     CudaTrainer, RunConfig, ScalingConfig)
+
+    work = tempfile.mkdtemp(prefix="rtt_train_plane_")
+    dirs = {k: os.path.join(work, k) for k in ("fit1", "fit2", "nccl",
+                                               "store")}
+    for d in dirs.values():
+        os.makedirs(d)
+    base = {"device": device.type, "batch": batch, "seq": seq, "seed": 0,
+            "cfg": cfg}
+    scaling = ScalingConfig(num_workers=2, use_gpu=True,
+                            resources_per_worker={"GPU": 0.5, "CPU": 1})
+    run = RunConfig(name="train_plane", storage_path=dirs["store"],
+                    checkpoint_config=CheckpointConfig(num_to_keep=1))
+    rt.init(num_workers=2, num_cpus=8)
+    try:
+        t0 = time.time()
+        res1 = CudaTrainer(
+            train_llama_lora.dp_train_loop,
+            train_loop_config={**base, "steps": steps,
+                               "out_dir": dirs["fit1"]},
+            scaling_config=scaling, run_config=run,
+            cuda_config=CudaConfig(distributed_mode="collective",
+                                   device=device.type)).fit()
+        fit1_s = time.time() - t0
+        if res1.error is not None:
+            raise AssertionError(f"train_plane fit failed: {res1.error!r}")
+        saved = res1.checkpoint.to_dict()
+        t1 = time.time()
+        res2 = CudaTrainer(
+            train_llama_lora.dp_train_loop,
+            train_loop_config={**base, "steps": steps + resume_steps,
+                               "out_dir": dirs["fit2"]},
+            scaling_config=scaling, run_config=run,
+            resume_from_checkpoint=res1.checkpoint,
+            cuda_config=CudaConfig(distributed_mode="collective",
+                                   device=device.type)).fit()
+        if res2.error is not None:
+            raise AssertionError(f"resumed fit failed: {res2.error!r}")
+        fit2_s = time.time() - t1
+        t2 = time.time()
+        res3 = CudaTrainer(
+            train_llama_lora.dp_train_loop,
+            train_loop_config={**base, "steps": 1, "out_dir": dirs["nccl"]},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="nccl", storage_path=dirs["store"]),
+            cuda_config=CudaConfig(distributed_mode="torch_distributed",
+                                   device=device.type),
+        ).fit()
+        if res3.error is not None:
+            raise AssertionError(f"torch_distributed fit failed: "
+                                 f"{res3.error!r}")
+        fit3_s = time.time() - t2
+    finally:
+        rt.shutdown()
+    recs1, recs2, recs3 = (_records(dirs[k]) for k in ("fit1", "fit2",
+                                                       "nccl"))
+    # the reference: one process, the whole batch, after the trainer
+    ref = train_llama_lora.build(device, batch, seq, 0, cfg)
+    ref_loss, ref_grads = train_llama_lora.lora_grads(ref, ref["tokens"])
+    ref_loss = float(ref_loss)
+    flat_ref = torch.cat([g.float().reshape(-1) for g in ref_grads])
+
+    def rel_to_ref(fit: str) -> float:
+        """A fit's first synced gradient (rank 0's `grad0.npz`) against
+        the one-process gradient, by the relative norm of the gap."""
+        with np.load(os.path.join(dirs[fit], "grad0.npz")) as z:
+            flat = torch.cat([torch.from_numpy(z[f"arr_{i}"]).reshape(-1)
+                              for i in range(len(z.files))]).to(device)
+        return float(torch.linalg.vector_norm(flat - flat_ref)
+                     / torch.linalg.vector_norm(flat_ref))
+
+    grad_rel, nccl_grad_rel = rel_to_ref("fit1"), rel_to_ref("nccl")
+    n_grad = int(flat_ref.numel())
+    del ref, ref_grads, flat_ref
+    torch.cuda.empty_cache()
+    return {"recs": (recs1, recs2, recs3), "saved": saved,
+            "ref_loss": ref_loss, "grad_rel": grad_rel,
+            "nccl_grad_rel": nccl_grad_rel, "n_grad": n_grad,
+            "fit_s": (fit1_s, fit2_s, fit3_s), "t0": (t0, t1, t2),
+            "batch": batch, "seq": seq, "steps": steps,
+            "resume_steps": resume_steps, "work": work,
+            "cfg": cfg or train_llama_lora.lora_config()}
+
+
+def train_plane_lines(tp: dict, smi: str) -> tuple:
+    """The `train_plane` and `torch_distributed` lines, each gate held."""
+    recs1, recs2, recs3 = tp["recs"]
+    cfg = tp["cfg"]
+    steps, batch, seq = tp["steps"], tp["batch"], tp["seq"]
+    if sorted(recs1) != [0, 1] or sorted(recs2) != [0, 1]:
+        raise AssertionError(f"train_plane ranks reported: {sorted(recs1)}, "
+                             f"{sorted(recs2)}")
+    for recs, n, first in ((recs1, steps, 1), (recs2, tp["resume_steps"],
+                                               steps + 1)):
+        for r in (0, 1):
+            got = [x["step"] for x in recs[r] if "step" in x]
+            if got != list(range(first, first + n)):
+                raise AssertionError(f"rank {r} steps {got}")
+        # the data-parallel invariant: both ranks hold the same adapters
+        # after every step, bit for bit
+        for a, b in zip(recs[0], recs[1]):
+            if a.get("digest") != b.get("digest"):
+                raise AssertionError(f"ranks diverged at {a} / {b}")
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_fused": cfg.n_layers,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "plain_dispatches": 0}
+    for recs in (recs1, recs2, recs3):
+        for r, lines in recs.items():
+            for x in lines:
+                if "launches" in x and x["launches"] != want:
+                    raise AssertionError(f"rank {r} step {x['step']} "
+                                         f"launches {x['launches']}, want "
+                                         f"{want}")
+    losses = [x["global_loss"] for x in recs1[0]] + [
+        x["global_loss"] for x in recs2[0] if "step" in x]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError(f"step-0 loss {losses[0]} far from ln V")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_plane loss did not fall: {losses}")
+    if tp["grad_rel"] > FULL_GRAD_TOL:
+        raise AssertionError(f"synced step-0 gradient vs one process on "
+                             f"the whole batch: {tp['grad_rel']}")
+    saved = tp["saved"]
+    resumed = [x for x in recs2[0] if "resumed_from" in x]
+    ck_digest = train_llama_lora.digest_arrays(gpt2._leaves(saved["lora"]))
+    if (saved["step"] != steps or not resumed
+            or resumed[0]["resumed_from"] != steps
+            or resumed[0]["digest_at_resume"] != ck_digest):
+        raise AssertionError(f"resume: checkpoint step {saved['step']}, "
+                             f"worker {resumed}, checkpoint digest "
+                             f"{ck_digest}")
+    tokens = batch * seq
+    step_ms = [max(a["ms"], b["ms"]) for a, b in zip(recs1[0], recs1[1])]
+    steady = step_ms[1:]
+    sync = {k: [max(a["sync_ms"][k], b["sync_ms"][k])
+                for a, b in zip(recs1[0], recs1[1])]
+            for k in ("d2h", "allreduce", "h2d")}
+    first_entry = min(recs1[r][0]["loop_entry"] for r in (0, 1))
+    first_step = min(recs1[r][0]["t_start"] for r in (0, 1))
+    plane = {
+        "phase": "train_plane", "nvidia_smi": smi,
+        "trainer": "CudaTrainer", "distributed_mode": "collective",
+        "workers": 2, "resources_per_worker": {"GPU": 0.5, "CPU": 1},
+        "model": "llama_1b4", "source": "bench.py bench_llama_lora (its "
+        "chip config)", "n_layers": cfg.n_layers, "dim": cfg.dim,
+        "attention": cfg.attention, "lora_rank": 8, "global_batch": batch,
+        "seq": seq, "local_batch": batch // 2, "steps": steps,
+        "resume_steps": tp["resume_steps"], "global_losses": losses,
+        "step0_loss": losses[0], "ln_vocab": math.log(cfg.vocab_size),
+        "ranks_bit_equal_every_step": True,
+        "grad_values": tp["n_grad"], "grad_bytes_f32": 4 * tp["n_grad"],
+        "ring_path": 4 * tp["n_grad"] >= collectives._RING_MIN_BYTES,
+        "step0_synced_grad_rel_err_vs_one_process": tp["grad_rel"],
+        "step0_grad_tolerance": FULL_GRAD_TOL,
+        "one_process_step0_loss": tp["ref_loss"],
+        "launches_per_step_per_worker": want,
+        "launches_total": {k: sum(x["launches"][k] for recs in (recs1, recs2)
+                                  for lines in recs.values() for x in lines
+                                  if "launches" in x) for k in want},
+        "step_ms": step_ms, "tokens_per_s_steady":
+            tokens * len(steady) / (sum(steady) / 1e3),
+        "sync_ms": sync,
+        "peak_mem_gb": {r: max(x["peak_gb"] for x in recs1[r])
+                        for r in (0, 1)},
+        "startup_s": first_entry - tp["t0"][0],
+        "build_s": first_step - first_entry,
+        "fit_s": tp["fit_s"][0], "resumed_fit_s": tp["fit_s"][1],
+        "resumed_from_step": steps,
+        "resumed_digest_equals_checkpoint": True,
+    }
+    n3 = recs3.get(0, [])
+    steps3 = [x for x in n3 if "step" in x]
+    meshes = [x for x in n3 if "mesh" in x]
+    if len(steps3) != 1 or not meshes:
+        raise AssertionError(f"torch_distributed records: {n3}")
+    m = meshes[0]["mesh"]
+    if m["device_type"] != "cuda" or m["backend"] != "nccl":
+        raise AssertionError(f"torch_distributed mesh: {m}")
+    loss3 = steps3[0]["loss"]
+    if abs(loss3 - tp["ref_loss"]) > 1e-5 * abs(tp["ref_loss"]):
+        raise AssertionError(f"torch_distributed step loss {loss3} vs the "
+                             f"single-process step {tp['ref_loss']}")
+    # the step's gradient, after the NCCL all-reduce, against the one
+    # process's: the loss alone is computed before any exchange
+    if tp["nccl_grad_rel"] > FULL_GRAD_TOL:
+        raise AssertionError(f"torch_distributed synced gradient vs one "
+                             f"process: {tp['nccl_grad_rel']}")
+    nccl = {"phase": "torch_distributed", "nvidia_smi": smi,
+            "distributed_mode": "torch_distributed", "workers": 1,
+            "num_gpus": 1, "mesh": m, "loss": loss3,
+            "single_process_loss": tp["ref_loss"],
+            "loss_diff": loss3 - tp["ref_loss"],
+            "synced_grad_rel_err_vs_one_process": tp["nccl_grad_rel"],
+            "grad_tolerance": FULL_GRAD_TOL,
+            "sync_ms": steps3[0]["sync_ms"],
+            "step_ms": steps3[0]["ms"], "fit_s": tp["fit_s"][2],
+            "launches": steps3[0]["launches"]}
+    return plane, nccl
+
+
+# ----------------------------------------------------------------------
+# ring and Ulysses attention over a process group, on the card
+# ----------------------------------------------------------------------
+def sp_rank(rank: int, port: str, out_dir: str) -> None:
+    """One of two gloo ranks sharing the card (NCCL refuses two ranks on
+    one GPU): ring and Ulysses attention at the LoRA shape against dense
+    attention on the whole sequence, the gradient of a sum through the
+    ring, and `llama.loss_fn` with attention "ring" over the sp 2 mesh
+    at 4 layers against dense.  Writes its readings as JSON."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                       ulysses_attention)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    mesh = MeshSpec(sp=2).build(device_type="cuda")
+    B, T, H, D = 8, 1024, 16, 128
+    out = {"rank": rank, "backend": str(dist.get_backend()),
+           "mesh_device_type": mesh.device_type, "cases": []}
+    for kind, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(11)
+        q, k, v = (torch.randn((B, T, H, D), generator=gen, device=device
+                               ).to(dt) for _ in range(3))
+        for causal in (True, False):
+            dense = plain_attention(q, k, v, causal=causal)
+            for name, fn in (("ring", ring_attention),
+                             ("ulysses", ulysses_attention)):
+                collectives.TRANSPORTS.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = fn(q, k, v, mesh, causal=causal)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                tol = SP_TOL[kind]
+                err = float((got.float() - dense.float()).abs().max())
+                ok = bool(torch.allclose(got.float(), dense.float(), **tol))
+                out["cases"].append({
+                    "fn": name, "dtype": kind, "causal": causal,
+                    "max_abs_err": err, "within": ok, "tolerance": tol,
+                    "wall_ms": ms, "transports": {
+                        "/".join(k_): n for k_, n in
+                        collectives.TRANSPORTS.items()}})
+        del q, k, v, dense, got
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    q, k, v = (torch.randn((B, T, H, D), generator=gen, device=device
+                           ).requires_grad_(True) for _ in range(3))
+    g_ring = torch.autograd.grad(ring_attention(q, k, v, mesh).sum(),
+                                 (q, k, v))
+    g_dense = torch.autograd.grad(plain_attention(q, k, v).sum(), (q, k, v))
+    out["grad"] = {
+        n: {"max_abs_err": float((a - b).abs().max()),
+            "within": bool(torch.allclose(a, b, **SP_GRAD_TOL))}
+        for n, a, b in zip(("dq", "dk", "dv"), g_ring, g_dense)}
+    del q, k, v, g_ring, g_dense
+    torch.cuda.empty_cache()
+    cfg = train_llama_lora.lora_config(n_layers=4, attention="ring")
+    st = train_llama_lora.build(device, 8, 1024, 0, cfg)
+    with torch.no_grad():
+        ring_loss = float(llama.loss_fn(cfg, st["params"], st["tokens"],
+                                        mesh, lora=st["lora"]))
+        dense_loss = float(llama.loss_fn(
+            dataclasses.replace(cfg, attention="dense"), st["params"],
+            st["tokens"], lora=st["lora"]))
+    out["llama"] = {"n_layers": 4, "ring_loss": ring_loss,
+                    "dense_loss": dense_loss,
+                    "within": abs(ring_loss - dense_loss) <= FULL_LOSS_TOL}
+    with open(os.path.join(out_dir, f"sp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sp_attention(smi: str, timeout: float = 600.0) -> dict:
+    """Spawns the two `sp_rank` processes (this script, `--sp-rank`) and
+    holds their readings; a rank that outlives `timeout` is killed and
+    the phase fails."""
+    work = tempfile.mkdtemp(prefix="rtt_sp_")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sp-rank", str(r),
+         port, work], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"sp rank failed ({p.returncode}): "
+                                 f"{log[-3000:]}")
+    ranks = []
+    for r in (0, 1):
+        with open(os.path.join(work, f"sp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    bad = [(r["rank"], c) for r in ranks for c in r["cases"]
+           if not c["within"]]
+    bad += [(r["rank"], n, g) for r in ranks for n, g in r["grad"].items()
+            if not g["within"]]
+    bad += [(r["rank"], r["llama"]) for r in ranks
+            if not r["llama"]["within"]]
+    if bad:
+        raise AssertionError(f"sp_attention outside its limits: {bad}")
+    r0 = ranks[0]
+    return {"phase": "sp_attention", "nvidia_smi": smi, "ranks": 2,
+            "sp": 2, "backend": r0["backend"],
+            "mesh_device_type": r0["mesh_device_type"],
+            "shape": {"B": 8, "T": 1024, "H": 16, "D": 128},
+            "cases": [{k: c[k] for k in ("fn", "dtype", "causal",
+                                         "max_abs_err", "wall_ms",
+                                         "transports")}
+                      for c in r0["cases"]],
+            "max_abs_err_both_ranks": max(c["max_abs_err"] for r in ranks
+                                          for c in r["cases"]),
+            "tolerance": SP_TOL, "grad": r0["grad"],
+            "grad_tolerance": SP_GRAD_TOL, "llama": r0["llama"],
+            "llama_tolerance": FULL_LOSS_TOL,
+            "wall_s": time.perf_counter() - t0}
+
+
 def xent_case(N, E, V, x_dtype, w_dtype, device, seed=0) -> dict:
     """Seeded x [N, E] ~ N(0, 1), w [V, E] ~ N(0, 0.05^2), targets with 0
     and V - 1 among them, and the plain forward's lse: the inputs each
@@ -1873,6 +2277,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--sp-rank"]:
+        sp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.stdout.flush()
+        # its readings are written: skip the interpreter's teardown, where
+        # gloo's threads can abort the process
+        os._exit(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
@@ -2063,6 +2473,8 @@ def main() -> int:
             + [(64, 512, 128, k, c) for k in ("f32", "bf16")
                for c in (True, False)]
             + [(48, 1000, 64, "bf16", True), (16, 1000, 128, "bf16", True)]
+            # a train_plane worker's shape: 4 x 16 heads at T 1,024
+            + [(64, 1024, 128, k, True) for k in ("f32", "bf16")]
             + [(2, 256, D, k, True) for D in (712, 1032)
                for k in ("f32", "bf16")]):
         dt = {"f32": torch.float32, "bf16": torch.bfloat16}[kind_]
@@ -2073,7 +2485,7 @@ def main() -> int:
               "column_slices": D > {"f32": 1024, "bf16": 704}[kind_],
               "max_abs_elementwise_relnorm": errs_,
               "tolerance": {n: flash_tol(n, kind_) for n in FLASH}})
-        if (T, kind_, causal) == (1024, "bf16", True):
+        if (BH, T, D, kind_, causal) == (32 * 12, 1024, 64, "bf16", True):
             flash_errs = {n: e[0] for n, e in errs_.items()}
         del case
     torch.cuda.empty_cache()
@@ -2098,6 +2510,10 @@ def main() -> int:
     emit({**llama_lora_train(device), "wall_s": time.perf_counter() - t0,
           "nvidia_smi": smi})
     torch.cuda.empty_cache()
+    # the train plane (two data-parallel workers sharing the card, a
+    # resumed fit, the NCCL mode at one worker) and sequence-parallel
+    # attention over a process group
+    run_parallel_phases(device, smi)
 
     case = flash_case(32 * 12, 1024, 64, torch.bfloat16, True, device)
     flash_t, sdpa_bwd = time_flash(case, H=12)
@@ -2175,6 +2591,18 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def run_parallel_phases(device, smi: str) -> None:
+    """The train plane's main path and its NCCL mode, then ring and
+    Ulysses attention over two ranks."""
+    t0 = time.perf_counter()
+    tp = train_plane(device)
+    plane, nccl = train_plane_lines(tp, smi)
+    emit({**plane, "wall_s": time.perf_counter() - t0})
+    emit(nccl)
+    torch.cuda.empty_cache()
+    emit(sp_attention(smi))
 
 
 if __name__ == "__main__":

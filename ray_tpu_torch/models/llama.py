@@ -347,7 +347,7 @@ def _finish(cfg: LlamaConfig, params, x):
     return _lm_head(x, params, cfg.dtype)
 
 
-def _block(cfg: LlamaConfig, layer, lora_layer, x):
+def _block(cfg: LlamaConfig, layer, lora_layer, x, mesh=None):
     """One transformer block over x [B, T, dim]: (x out, post-RoPE K,
     V [B, T, KV, hd])."""
     B, T, _ = x.shape
@@ -361,7 +361,7 @@ def _block(cfg: LlamaConfig, layer, lora_layer, x):
     if group > 1:  # GQA: each kv head serves `group` query heads
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
-    o = select_attention(cfg.attention, q, k, v, causal=True)
+    o = select_attention(cfg.attention, q, k, v, mesh, causal=True)
     x1 = x + _proj(cfg, layer, lora_layer, "wo", o.reshape(B, T, H * hd))
     return _mlp(cfg, layer, x1, lora_layer), k_kv, v_kv
 
@@ -385,12 +385,10 @@ def forward(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
     ([L, B, T, KV, hd] each): the prefill path of KV-cached decoding.
     With `cfg.remat`, while gradients are recorded, each block runs
     under `torch.utils.checkpoint`; under `torch.no_grad()` nothing is
-    recomputed.  A mesh is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "llama.forward over a mesh is not ported yet: it waits for "
-            "ROADMAP.md queue 1 item 3 (parallel/: collectives, meshes, "
-            "sharding and sequence parallelism)")
+    recomputed.  `mesh` (a `DeviceMesh`, every rank passing the same
+    inputs) reaches `select_attention`, as in the reference: with
+    `attention="ring"` or `"ulysses"` the sequence splits over its `sp`
+    axis."""
     x = _embed(cfg, params, tokens)
     L = params["blocks"]["wq"].shape[0]
     lora_layers = (_lora_layers(lora, L) if lora is not None
@@ -400,9 +398,9 @@ def forward(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
     for layer, lora_layer in zip(_layers(params), lora_layers):
         if remat:
             x, k_kv, v_kv = checkpoint(_block, cfg, layer, lora_layer, x,
-                                       use_reentrant=False)
+                                       mesh, use_reentrant=False)
         else:
-            x, k_kv, v_kv = _block(cfg, layer, lora_layer, x)
+            x, k_kv, v_kv = _block(cfg, layer, lora_layer, x, mesh)
         if return_kv:
             ks.append(k_kv)
             vs.append(v_kv)

@@ -22,20 +22,32 @@ and the card's name and power limit.  `--profile` runs one more step
 under `torch.profiler` (`train_gpt2.profile_step`: host ms, device busy
 ms, idle share, top kernels; the Chrome trace to `--trace`, default
 `profiles/lora_trace.json`).  Needs one CUDA card.
+
+`dp_train_loop` is the same step as a `CudaTrainer` worker's train loop:
+each worker takes its share of the global batch, and the adapters'
+gradients are mean-allreduced over the workers (the collective group
+through `cuda_utils.sync_gradients` in the "collective" mode, the
+process group through `collectives.pmean` in the "torch_distributed"
+mode) before every AdamW update, so every worker holds the same adapters
+after every step.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import os
 import subprocess
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import gpt2, llama
+from ray_tpu_torch.models.bridge import params_from_numpy, params_to_numpy
 from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.scripts import train_gpt2
 
@@ -58,19 +70,31 @@ def adamw(lr: float = 2e-4) -> gpt2.AdamW:
 
 
 def build(device=None, batch: int = 8, seq: int = 1024, seed: int = 0,
-          cfg: llama.LlamaConfig = None) -> Dict:
+          cfg: llama.LlamaConfig = None, *, params=None, lora=None,
+          tokens=None) -> Dict:
     """The frozen bf16 base, the adapters, the optimizer state, the step
-    and one batch of random tokens, all from `seed`."""
+    and one batch of random tokens, all from `seed`; `params`, `lora`
+    and `tokens` (numpy trees) take the place of the drawn ones."""
     device = resolve_device(device)
     cfg = cfg or lora_config()
-    params = llama.init_params(cfg, seed, device=device,
-                               dtype=torch.bfloat16)
-    lora = llama.init_lora(cfg, seed + 1, rank=8, device=device)
+    if params is None:
+        params = llama.init_params(cfg, seed, device=device,
+                                   dtype=torch.bfloat16)
+    else:
+        params = params_from_numpy(params, device)
+    if lora is None:
+        lora = llama.init_lora(cfg, seed + 1, rank=8, device=device)
+    else:
+        lora = params_from_numpy(lora, device)
     opt = adamw()
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed + 2)
-    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
-                           generator=gen, device=device, dtype=torch.int32)
+    if tokens is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed + 2)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                               generator=gen, device=device,
+                               dtype=torch.int32)
+    else:
+        tokens = torch.as_tensor(tokens, device=device)
     return {"cfg": cfg, "params": params, "lora": lora,
             "opt_state": opt.init(lora),
             "step": llama.make_lora_train_step(cfg, opt), "tokens": tokens,
@@ -138,6 +162,169 @@ def bench_llama_lora(device=None, batch: int = 8, seq: int = 1024,
     return {**summarize(state, timed),
             "warmup_losses": [s["loss"] for s in warm],
             "peak_mem_gb": peak, "launches": counts, "state": state}
+
+
+def lora_grads(state: Dict, tokens: torch.Tensor):
+    """The loss on `tokens` and the gradient of every adapter leaf (in
+    `_leaves` order, as the optimizer takes them)."""
+    leaves = gpt2._leaves(state["lora"])
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = llama.loss_fn(state["cfg"], state["params"], tokens,
+                         lora=state["lora"])
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return loss.detach(), list(grads)
+
+
+def digest(tree: Dict) -> str:
+    """sha256 of every leaf's bytes in `_leaves` order: equal trees,
+    bit for bit, give equal digests."""
+    return digest_arrays(t.detach().cpu().numpy() for t in gpt2._leaves(tree))
+
+
+def digest_arrays(arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _restore(state: Dict, saved: Dict) -> int:
+    """The adapters and the optimizer state from a checkpoint's dict;
+    returns the step to go on from."""
+    for t, a in zip(gpt2._leaves(state["lora"]),
+                    gpt2._leaves(saved["lora"])):
+        t.copy_(torch.from_numpy(np.asarray(a)))
+    for name in ("mu", "nu"):
+        for t, a in zip(state["opt_state"][name], saved[name]):
+            t.copy_(torch.from_numpy(np.asarray(a)))
+    state["opt_state"]["count"] = int(saved["count"])
+    return int(saved["step"])
+
+
+def _process_group_mean(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The mean over the world process group of each tensor: one f32
+    all-reduce of them all flattened (`collectives.pmean`), cut back
+    into each tensor's shape and dtype."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import collectives
+
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    flat = collectives.pmean(flat, dist.group.WORLD)
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off:off + t.numel()].reshape(t.shape).to(t.dtype))
+        off += t.numel()
+    return out
+
+
+def dp_train_loop(config: Dict) -> None:
+    """A `CudaTrainer` worker's loop: the LoRA step on this worker's
+    share of the global batch, the adapters' gradients mean-allreduced
+    over the workers before each update: over the host collective group
+    in the "collective" mode, over the process group in the
+    "torch_distributed" mode.
+
+    `config`: `device` (default the card), `batch` / `seq` / `seed` /
+    `cfg` as `build` takes them (or numpy `params` / `lora` / `tokens`),
+    `steps` (the step to stop before: a resumed run goes on from its
+    checkpoint's step) and `out_dir` (each rank appends one JSON line a
+    step to `rank{r}.jsonl`: loss, wall ms, the sync's phases, the flash
+    launches, peak memory, the adapters' digest; a line at a resume,
+    and one naming the mesh `get_mesh()` builds when the workers share
+    a process group; rank 0 writes its first step's synced gradient to
+    `grad0.npz`).  Rank 0 reports the adapters, the optimizer state and
+    the step as a checkpoint every step."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train import Checkpoint
+    from ray_tpu_torch.train.cuda_utils import (
+        LAST_SYNC_MS, sync_gradients, world_mean)
+
+    loop_entry = time.time()
+    ctx = train.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    device = resolve_device(config.get("device"))
+    out_dir: Optional[str] = config.get("out_dir")
+
+    def record(rec: Dict) -> None:
+        if out_dir:
+            with open(os.path.join(out_dir, f"rank{rank}.jsonl"), "a") as f:
+                f.write(json.dumps(rec) + "\n")
+
+    import torch.distributed as dist
+
+    # the "torch_distributed" mode: no host collective group, the process
+    # group carries the gradients
+    over_pg = dist.is_initialized()
+    if over_pg:
+        mesh = ctx.get_mesh()
+        record({"mesh": {"device_type": mesh.device_type,
+                         "shape": list(mesh.mesh.shape),
+                         "dims": list(mesh.mesh_dim_names),
+                         "backend": str(dist.get_backend())}})
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    state = build(device, config.get("batch", 8), config.get("seq", 1024),
+                  config.get("seed", 0), config.get("cfg"),
+                  params=config.get("params"), lora=config.get("lora"),
+                  tokens=config.get("tokens"))
+    B = state["tokens"].shape[0]
+    if B % world:
+        raise ValueError(f"global batch {B} does not split over {world}")
+    b = B // world
+    tokens = state["tokens"][rank * b:(rank + 1) * b]
+    start = 0
+    resume = train.get_checkpoint()
+    if resume is not None:
+        start = _restore(state, resume.to_dict())
+        record({"resumed_from": start,
+                "digest_at_resume": digest(state["lora"])})
+    opt = adamw()
+    for step in range(start, config["steps"]):
+        t_start = time.time()
+        reset_flash_counts()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        loss, grads = lora_grads(state, tokens)
+        if over_pg:
+            t_sync = time.perf_counter()
+            synced = _process_group_mean(grads + [loss.reshape(1)])
+            global_loss = float(synced.pop())
+            sync_ms = {"allreduce": (time.perf_counter() - t_sync) * 1e3}
+        else:
+            synced = sync_gradients(grads)
+            global_loss = world_mean(float(loss))
+            sync_ms = dict(LAST_SYNC_MS)
+        state["opt_state"], _ = opt.update(synced, state["opt_state"],
+                                           state["lora"])
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = {"rank": rank, "world": world, "step": step + 1,
+               "loss": float(loss), "global_loss": global_loss,
+               "ms": ms, "sync_ms": sync_ms,
+               "launches": flash_counts(), "digest": digest(state["lora"]),
+               "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                           if device.type == "cuda" else None),
+               "loop_entry": loop_entry, "t_start": t_start}
+        if out_dir and step == start and rank == 0:
+            np.savez(os.path.join(out_dir, "grad0.npz"),
+                     *[g.float().cpu().numpy() for g in synced])
+        record(rec)
+        ck = None
+        if rank == 0:
+            ck = Checkpoint.from_dict({
+                "lora": params_to_numpy(state["lora"]),
+                "mu": [t.cpu().numpy() for t in state["opt_state"]["mu"]],
+                "nu": [t.cpu().numpy() for t in state["opt_state"]["nu"]],
+                "count": state["opt_state"]["count"], "step": step + 1})
+        train.report({"step": step + 1, "loss": rec["loss"],
+                      "global_loss": rec["global_loss"], "ms": ms},
+                     checkpoint=ck)
 
 
 def main() -> None:

@@ -6,7 +6,8 @@ namespace rewritten (`rewrite`): the package name (`ray_tpu` ->
 `ray_tpu_torch`), the session base (`/tmp/ray_tpu` -> `ray_tpu_torch`
 under the process's temp dir), the environment-variable prefix (`RT_`
 -> `RTT_`), the accelerator resource's keyword (`num_tpus` ->
-`num_gpus`) and the shared-memory segment prefix (`rt_` -> `rtt_`).
+`num_gpus`, and the train workers' `"TPU"` resource -> `"GPU"`) and the
+shared-memory segment prefix (`rt_` -> `rtt_`).
 Each must equal its original after that rewrite, so a change to either
 side shows here.  A module that changes more is listed in `ADAPTED`
 with the test that holds it.
@@ -28,6 +29,8 @@ _RULES = (
 # the store-name prefix the sweep reaps (the node daemon, adapted,
 # creates its stores under the same prefix)
 _SHM_RULE = (re.compile(r'prefix: str = "rt_"'), 'prefix: str = "rtt_"')
+# the train workers' accelerator resource is the GPU
+_GPU_RULE = (re.compile(r'res\.pop\("TPU", 0\.0\)'), 'res.pop("GPU", 0.0)')
 # the session base follows TMPDIR: two checkouts run with temp dirs of
 # their own never share a session, an `address="auto"` join or a
 # runtime-env cache
@@ -54,6 +57,8 @@ def rewrite(text: str, rel: str = "") -> str:
         text = pat.sub(sub, text)
     if rel == "shm/__init__.py":
         text = _SHM_RULE[0].sub(_SHM_RULE[1], text)
+    if rel == "train/worker_group.py":
+        text = _GPU_RULE[0].sub(_GPU_RULE[1], text)
     text, n = _TMP_RULE[0].subn(_TMP_RULE[1], text)
     if n:
         text = _add_import(text, "tempfile")
@@ -77,7 +82,10 @@ COPIES = (
     "util/sanitizer.py", "util/tracing.py",
     "util/events.py", "util/profiling.py", "util/httpd.py",
     "util/usage_stats.py", "util/metrics.py", "util/actor_pool.py",
-    "util/queue.py",
+    "util/queue.py", "util/collective.py",
+    "train/result.py", "train/checkpoint.py", "train/checkpoint_manager.py",
+    "train/backend_executor.py", "train/worker_group.py",
+    "train/huggingface.py",
     "serve/__init__.py", "serve/request.py", "serve/slo.py",
     "serve/multiplex.py", "serve/batching.py", "serve/autoscaling.py",
     "serve/request_ledger.py", "serve/handle.py", "serve/router.py",
@@ -119,6 +127,39 @@ ADAPTED = {
                          "test_radix_cache_match_insert_evict",
     "examples/serve_llm.py": "test_torch_serve_llm.py::"
                              "test_continuous_service_tokens_equal_generate",
+    # the parallel layer over torch.distributed; its host tier is a copy
+    # (test_collectives_host_tier_is_a_copy below)
+    "parallel/__init__.py": "test_torch_parallel.py::"
+                            "test_mesh_layout_matches_jax",
+    "parallel/collectives.py": "test_torch_parallel.py::"
+                               "test_in_program_collectives_match_jax_lax",
+    "parallel/mesh.py": "test_torch_parallel.py::"
+                        "test_mesh_layout_matches_jax",
+    "parallel/sharding.py": "test_torch_parallel.py::"
+                            "test_spec_from_logical_matches_jax",
+    "parallel/ring_attention.py": "test_torch_parallel.py::"
+                                  "test_sequence_parallel_attention_matches_jax",
+    # the train plane: CudaTrainer / CudaConfig / cuda_utils, GPUs in
+    # the ScalingConfig, DeviceMesh sessions, DTensor sharded checkpoints
+    "train/__init__.py": "test_torch_train.py::"
+                         "test_config_names_the_gpu_and_as_trainable_"
+                         "names_the_roadmap",
+    "train/config.py": "test_torch_train.py::"
+                       "test_fractional_gpu_workers_share_the_card",
+    "train/trainer.py": "test_torch_train.py::"
+                        "test_config_names_the_gpu_and_as_trainable_"
+                        "names_the_roadmap",
+    "train/backend.py": "test_torch_train_distributed.py::"
+                        "test_torch_distributed_builds_the_mesh_and_"
+                        "trains_over_it",
+    "train/session.py": "test_torch_train_elastic.py::"
+                        "test_train_context_get_mesh_refits_when_elastic",
+    "train/cuda_utils.py": "test_torch_train.py::"
+                           "test_collective_gradient_sync",
+    "train/torch.py": "test_torch_train.py::test_torch_trainer_ddp",
+    "train/sharded_checkpoint.py": "test_torch_train_distributed.py::"
+                                   "test_sharded_checkpoint_format_crosses_"
+                                   "both_packages",
 }
 
 
@@ -137,7 +178,8 @@ def test_every_runtime_module_is_a_copy_or_adapted():
     adapted one names a test that exists."""
     port = REPO / "ray_tpu_torch"
     listed = set(COPIES) | set(ADAPTED)
-    for sub in ("core", "metrics", "shm", "util", "serve"):
+    for sub in ("core", "metrics", "shm", "util", "serve", "parallel",
+                "train"):
         for f in (port / sub).iterdir():
             if f.suffix in (".py", ".cc"):
                 assert f"{sub}/{f.name}" in listed, f"{sub}/{f.name}"
@@ -145,6 +187,18 @@ def test_every_runtime_module_is_a_copy_or_adapted():
         assert (port / rel).is_file(), rel
         path, name = test.split("::")
         assert f"def {name}(" in (REPO / "tests" / path).read_text(), test
+
+
+def test_collectives_host_tier_is_a_copy():
+    """`parallel/collectives.py` ports its in-program tier to
+    torch.distributed; its host tier (`CollectiveGroup` and the module
+    functions) is the original's, after the rewrite."""
+    mark = "_REDUCERS = {"
+    orig = rewrite((REPO / "ray_tpu" / "parallel" / "collectives.py"
+                    ).read_text())
+    port = (REPO / "ray_tpu_torch" / "parallel" / "collectives.py"
+            ).read_text()
+    assert port[port.index(mark):] == orig[orig.index(mark):]
 
 
 def test_rewrite_keeps_the_namespaces_apart():

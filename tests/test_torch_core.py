@@ -125,6 +125,14 @@ def test_strict_pack_reserves_one_node(cluster):
     from ray_tpu_torch.util import (placement_group, placement_group_table,
                                     remove_placement_group)
 
+    # an earlier test's killed actors give their CPUs back
+    # asynchronously: wait until the count is back at the cluster's
+    # total before taking it as the baseline
+    total = rt.cluster_resources().get("CPU")
+    deadline = time.monotonic() + 30
+    while rt.available_resources().get("CPU") != total:
+        assert time.monotonic() < deadline, rt.available_resources()
+        time.sleep(0.05)
     before = rt.available_resources().get("CPU")
     pg = placement_group([{"CPU": 1}, {"CPU": 1}], strategy="STRICT_PACK")
     assert pg.ready(timeout=60)

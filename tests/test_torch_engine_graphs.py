@@ -224,13 +224,18 @@ KNOBS = {
 
 def _run_knobbed(engine, prompts, capsys):
     """Requests one at a time (so each engine ticks the same number of
-    times); returns (stats, ticks, trace lines printed)."""
+    times); returns (stats, ticks, trace lines printed).  The stats are
+    read after `shutdown` has joined the engine thread: a request's
+    result is set inside the tick that harvests it, before that tick
+    appends its ring entry, so a read right after the result may see
+    the ring one entry short whenever the thread is descheduled between
+    the two (as under a loaded parallel test run)."""
     try:
         for p in prompts:
             engine.submit(p, 9).result(timeout=120)
-        s = engine.stats()
     finally:
         engine.shutdown()
+    s = engine.stats()
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("tick adm=")]
     return s, s["ticks"], lines

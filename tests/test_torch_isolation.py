@@ -33,6 +33,11 @@ RUNTIME_MODULES = (
     "serve/router.py", "serve/replica.py", "serve/controller.py",
     "serve/request_ledger.py", "util/tracing.py", "util/httpd.py",
     "metrics/registry.py", "shm/__init__.py",
+    "parallel/collectives.py", "parallel/mesh.py", "parallel/sharding.py",
+    "parallel/ring_attention.py", "util/collective.py",
+    "train/trainer.py", "train/backend.py", "train/session.py",
+    "train/cuda_utils.py", "train/sharded_checkpoint.py",
+    "train/worker_group.py", "train/torch.py", "train/huggingface.py",
 )
 
 
@@ -103,6 +108,47 @@ def test_cross_entropy_ops_run_with_jax_and_ray_tpu_blocked(tmp_path):
     assert proc.stdout.startswith("OK")
 
 
+def test_parallel_and_train_planes_run_with_jax_and_ray_tpu_blocked(
+        tmp_path):
+    """A fresh interpreter where importing jax or ray_tpu fails imports
+    `parallel/` and `train/` (with `cuda_utils`, the sharded checkpoint
+    and the LoRA trainer's loop), lays out a mesh, maps logical axes to
+    placements, and writes and reads a sharded checkpoint."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {str(REPO)!r})
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        import torch
+        import ray_tpu_torch.parallel as par
+        import ray_tpu_torch.train as train
+        from ray_tpu_torch.parallel import collectives
+        from ray_tpu_torch.parallel.ring_attention import select_attention
+        from ray_tpu_torch.scripts import train_llama_lora
+        from ray_tpu_torch.train import cuda_utils, huggingface
+        from ray_tpu_torch.train.sharded_checkpoint import (
+            load_sharded, save_sharded)
+        from ray_tpu_torch.util import collective
+        assert par.MeshSpec(dp=2, tp=2).rank_array(range(4)).shape == (
+            2, 1, 1, 1, 1, 2)
+        assert [p.is_shard() for p in par.spec_from_logical(
+            ("vocab", "embed"))] == [False, True, False, False, False, True]
+        g = {{"w": torch.ones(3)}}
+        assert cuda_utils.sync_gradients(g) is g
+        save_sharded({{"w": torch.arange(4.0), "n": 2}}, {str(tmp_path)!r})
+        out = load_sharded({str(tmp_path)!r}, {{"w": torch.zeros(4), "n": 0}})
+        assert torch.equal(out["w"], torch.arange(4.0)) and out["n"] == 2
+        assert train.CudaTrainer and collective.allreduce
+        assert not any(m.split(".")[0] in {FORBIDDEN!r}
+                       for m, mod in sys.modules.items() if mod is not None)
+        print("OK")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
 def test_engine_serves_with_jax_and_ray_tpu_blocked(tmp_path):
     """A fresh interpreter where importing jax or ray_tpu fails still
     imports the engine and serves a tiny CPU request."""
@@ -135,9 +181,9 @@ def test_engine_serves_with_jax_and_ray_tpu_blocked(tmp_path):
 
 
 def test_runtime_modules_do_not_import_torch():
-    """Node daemons and workers import the package, the runtime and the
-    serve plane; none of that imports torch (resolve_device imports it
-    when called)."""
+    """Node daemons and workers import the package, the runtime, the
+    serve plane and the train plane (a train worker actor); none of
+    that imports torch (resolve_device imports it when called)."""
     code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {str(REPO)!r})
@@ -146,6 +192,9 @@ def test_runtime_modules_do_not_import_torch():
         import ray_tpu_torch.core.worker_main
         import ray_tpu_torch.serve
         import ray_tpu_torch.serve.schema
+        import ray_tpu_torch.train
+        import ray_tpu_torch.parallel
+        import ray_tpu_torch.util.collective
         bad = sorted(m for m in sys.modules if m.split(".")[0] == "torch")
         assert not bad, bad
         print("OK")

@@ -376,8 +376,14 @@ def test_select_attention_matches_jax_without_mesh(kind, causal):
 
 @pytest.mark.parametrize("kind", ["ring", "ulysses"])
 def test_sequence_parallel_backends_over_a_mesh_raise(kind):
-    """Given a mesh, ring / ulysses raise naming their ROADMAP item until
-    the parallel slice lands."""
-    x = torch.zeros((1, 8, 2, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        select_attention(kind, x, x, x, mesh=object())
+    """Given a mesh, ring / ulysses run over its sp axis (held against
+    the JAX package on gloo ranks in test_torch_parallel.py), so
+    anything that is not a `DeviceMesh` raises; with no mesh they run
+    dense attention, as in the reference."""
+    q, k, v = (torch.from_numpy(np.random.default_rng(s).standard_normal(
+        (1, 8, 2, 8)).astype(np.float32)) for s in (1, 2, 3))
+    with pytest.raises(AttributeError):
+        select_attention(kind, q, k, v, mesh=object())
+    torch.testing.assert_close(select_attention(kind, q, k, v),
+                               select_attention("dense", q, k, v),
+                               rtol=0, atol=0)

@@ -337,11 +337,19 @@ def test_remat_gives_the_same_loss_and_grads(model):
 
 
 def test_forward_with_a_mesh_raises(model):
+    """The mesh reaches `select_attention` only, as in the reference:
+    dense attention ignores it (the same logits and loss as without
+    one), while "ring" needs a real `DeviceMesh` and raises on anything
+    else.  Ring over a process group is held in test_torch_parallel.py."""
     _, _, tcfg = model
     params = tllama.init_params(tcfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tllama.forward(tcfg, params, torch.zeros((1, 4), dtype=torch.int32),
-                       mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tllama.loss_fn(tcfg, params, torch.zeros((1, 5), dtype=torch.int32),
-                       object())
+    toks = torch.arange(5, dtype=torch.int32)[None] % tcfg.vocab_size
+    torch.testing.assert_close(
+        tllama.forward(tcfg, params, toks[:, :4], mesh=object()),
+        tllama.forward(tcfg, params, toks[:, :4]), rtol=0, atol=0)
+    torch.testing.assert_close(
+        tllama.loss_fn(tcfg, params, toks, object()),
+        tllama.loss_fn(tcfg, params, toks), rtol=0, atol=0)
+    ring = dataclasses.replace(tcfg, attention="ring")
+    with pytest.raises(AttributeError):
+        tllama.forward(ring, params, toks[:, :4], mesh=object())
