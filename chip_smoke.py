@@ -67,7 +67,9 @@ exits non-zero:
    against their plain versions at the training shape (BH 32*12, T
    1024, D 64) and at Llama's head width (BH 64, T 512, D 128), causal
    and full, f32 and bf16, plus a ragged T of 1000 (bf16, causal, D 64
-   and 128), and heads of 712 and 1,032 (f32 and bf16, BH 2, T 256: the
+   and 128), the train plane worker's shape (BH 64, T 1,024, D 128) and
+   a pipeline_1f1b stage's (BH 32, T 1,024, D 128), causal, f32 and
+   bf16, and heads of 712 and 1,032 (f32 and bf16, BH 2, T 256: the
    first design cut into column slices): element by element and by the
    relative norm of the difference.
 10. training main path: GPT-2 124M at full width and depth (bf16 compute,
@@ -124,6 +126,44 @@ exits non-zero:
     "ring" over the mesh at 4 layers against dense (2e-2); with the
     backend and how each collective's bytes travelled (gloo: through
     the host).
+13d. compiled_dag: the port's runtime boots again; two `num_gpus=0.5`
+    actors form a compiled chain `a.hop(inp) -> b.hop(...)` carrying a
+    CUDA bf16 tensor [8, 1,024, 4,096] (64 MB: spilled past the 128 KiB
+    slot into one store object a hop) and a dict of small f32 / int8
+    CUDA tensors (inline in the slot): each arrives bit-equal, in its
+    dtype, on the reader's card (each hop checks it got CUDA tensors);
+    ms an execute over 10 calls and the route of each payload.
+13e. mixtral_train: Mixtral-8x7B's full width (vocab 32,000, dim 4,096,
+    32 / 8 heads, expert hidden 14,336, 8 experts, top-2, capacity 1.25)
+    with its depth cut to 2 layers (2.23e9 params: f32 params,
+    gradients and AdamW moments take 35.6 GB), flash attention, full
+    remat, bf16 compute on f32 master params, adamw(3e-4), batch 4 x
+    1,024 on one batch: the flash route's step-0 loss (2e-2 relative)
+    and `wq` / `moe_w_in` gradients (relative norm 3e-2) against the
+    dense route's; 1 warm-up + 5 timed steps with the launches of
+    exactly those steps (4 K1 and 2 K2 a step, no K3 / K4, no plain
+    dispatch); step-0 CE within 0.5 of ln 32,000, load-balance loss in
+    (0.5, 2.0), the loss falling; step ms, tokens/s, MFU (6 x active
+    params a token over 989 TFLOP/s), peak memory, and one profiled
+    step split into K1, K2, GEMMs, the scatter-gathers, elementwise
+    work and AdamW.
+13f. moe_ep: the MoE layer at Mixtral's widths (bf16) over `ep` 2 on
+    two gloo ranks sharing the card (this script, `--moe-rank`), global
+    x [2, 1,024, 4,096]: output against the reference's oracle (the
+    local path on each batch shard alone) at sp_attention's bf16 limits,
+    the gradients of the router, both expert weights and x through both
+    all_to_alls against the oracle's at relative norm 3e-2; a forward
+    and a backward timed, with how each collective's bytes travelled.
+13g. pipeline_1f1b: `compile_pipeline` with 2 stage actors on the card
+    (`num_gpus` 0.5), each one Llama-3-8B block at full width (flash,
+    bf16 compute, f32 params of 0.87 GB), 4 microbatches of 1 x 1,024
+    (8 MB activations, spilled past the slot), loss mean(y^2): loss (1e-2
+    relative) and each stage's gradients (relative norm 3e-2) against
+    one process's serial autograd over the same two blocks with dense
+    attention; ms an
+    execute over 3, the bytes through the channels, the bubble model's
+    (S-1)/(M+S-1), and each stage's K1 / K2 launches over the timed
+    executes (M each an execute), read in the stage.
 14. K1-K4 timed at the training shape (bf16, causal), and K3 and K4 at
     the second split shape (BH 32, T 4,096, D 128), beside their bounds,
     plain versions and `scaled_dot_product_attention`, with each
@@ -163,6 +203,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import socket
 import statistics
 import subprocess
@@ -179,14 +220,17 @@ import torch.nn.functional as F
 import ray_tpu_torch as rt
 from ray_tpu_torch import serve as rt_serve
 from ray_tpu_torch.core import accelerators
+from ray_tpu_torch.core.config import get_config
+from ray_tpu_torch.dag import InputNode
+from ray_tpu_torch.dag import channel as dag_channel
 from ray_tpu_torch.examples.serve_llm import ContinuousLlamaService, _build_model
-from ray_tpu_torch.models import gpt2, llama
+from ray_tpu_torch.models import gpt2, llama, mixtral
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.ops import fused_cross_entropy, pallas_cross_entropy
 from ray_tpu_torch.ops import xent_pallas as xp
-from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel import collectives, moe, pipeline_dag
 from ray_tpu_torch.parallel.ring_attention import plain_attention
 from ray_tpu_torch.scripts import train_gpt2, train_llama_lora
 from ray_tpu_torch.serve.llm_engine import ChunkGraph, LlamaEngine
@@ -1977,18 +2021,18 @@ def sp_rank(rank: int, port: str, out_dir: str) -> None:
     dist.destroy_process_group()
 
 
-def sp_attention(smi: str, timeout: float = 600.0) -> dict:
-    """Spawns the two `sp_rank` processes (this script, `--sp-rank`) and
-    holds their readings; a rank that outlives `timeout` is killed and
-    the phase fails."""
-    work = tempfile.mkdtemp(prefix="rtt_sp_")
+def _spawn_ranks(flag: str, timeout: float) -> tuple:
+    """Runs this script as two ranks (`flag` rank port dir); returns
+    (their output dir, wall s).  A rank that outlives `timeout` is
+    killed and the phase fails."""
+    work = tempfile.mkdtemp(prefix="rtt" + flag.replace("-", "_") + "_")
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = str(s.getsockname()[1])
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--sp-rank", str(r),
-         port, work], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        [sys.executable, os.path.abspath(__file__), flag, str(r), port,
+         work], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in (0, 1)]
     logs = []
     try:
@@ -2001,8 +2045,16 @@ def sp_attention(smi: str, timeout: float = 600.0) -> dict:
                 p.wait()
     for p, log in zip(procs, logs):
         if p.returncode != 0:
-            raise AssertionError(f"sp rank failed ({p.returncode}): "
+            raise AssertionError(f"{flag} rank failed ({p.returncode}): "
                                  f"{log[-3000:]}")
+    return work, time.perf_counter() - t0
+
+
+def sp_attention(smi: str, timeout: float = 600.0) -> dict:
+    """Spawns the two `sp_rank` processes (this script, `--sp-rank`) and
+    holds their readings; a rank that outlives `timeout` is killed and
+    the phase fails."""
+    work, wall = _spawn_ranks("--sp-rank", timeout)
     ranks = []
     for r in (0, 1):
         with open(os.path.join(work, f"sp_rank{r}.json")) as f:
@@ -2029,7 +2081,653 @@ def sp_attention(smi: str, timeout: float = 600.0) -> dict:
             "tolerance": SP_TOL, "grad": r0["grad"],
             "grad_tolerance": SP_GRAD_TOL, "llama": r0["llama"],
             "llama_tolerance": FULL_LOSS_TOL,
-            "wall_s": time.perf_counter() - t0}
+            "wall_s": wall}
+
+
+# ----------------------------------------------------------------------
+# compiled graphs, experts and pipelines
+# ----------------------------------------------------------------------
+# the MoE layer and Mixtral on the card: flash against dense (the LoRA
+# line's limits: loss relative, gradients by the relative norm of the
+# difference), expert parallelism against the local path on each batch
+# shard (sp_attention's bf16 limits), the pipeline against one process's
+# serial autograd over the same blocks
+MOE_EP_TOL = SP_TOL["bf16"]
+PIPE_LOSS_TOL = 1e-2
+
+
+@rt.remote
+class DagHop:
+    """One hop of the compiled chain: what arrives must lie on this
+    actor's card; it is handed on unchanged."""
+
+    def hop(self, value):
+        for t in (value.values() if isinstance(value, dict) else [value]):
+            if not t.is_cuda:
+                raise AssertionError(f"a hop received a tensor on {t.device}")
+        return value
+
+
+def _same_on_card(got, want) -> bool:
+    """Bit-equal, with the dtype, on the reader's card."""
+    pairs = ([(got[k], want[k]) for k in want] if isinstance(want, dict)
+             else [(got, want)])
+    if isinstance(want, dict) and set(got) != set(want):
+        return False
+    return all(isinstance(a, torch.Tensor) and a.is_cuda
+               and a.dtype == b.dtype and a.shape == b.shape
+               and torch.equal(a, b) for a, b in pairs)
+
+
+def compiled_dag(device, smi: str, *, reps: int = 10,
+                 big_shape=(8, 1024, 4096)) -> dict:
+    """Two `num_gpus=0.5` port actors in a compiled chain `a.hop(inp) ->
+    b.hop(...)` carry a CUDA bf16 tensor (64 MB: spilled past the slot
+    into one store object a hop) and a dict of small f32 / int8 CUDA
+    tensors (inline in the slot); each arrives bit-equal on the reader's
+    card.  The runtime must be up."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(21)
+    payloads = {
+        "bf16": torch.randn(big_shape, generator=gen,
+                            device=device).to(torch.bfloat16),
+        "dict_f32_int8": {
+            "f32": torch.randn((16, 64), generator=gen, device=device),
+            "i8": torch.randint(-128, 128, (4096,), generator=gen,
+                                device=device, dtype=torch.int8)},
+    }
+    slot = get_config().dag_slot_bytes
+    Hop = DagHop.options(num_gpus=0.5)
+    a, b = Hop.remote(), Hop.remote()
+    with InputNode() as inp:
+        dag = b.hop.bind(a.hop.bind(inp))
+    t0 = time.perf_counter()
+    c = dag.experimental_compile()
+    compile_s = time.perf_counter() - t0
+    out = {}
+    try:
+        for name, value in payloads.items():
+            first = c.execute(value).get(timeout=300)
+            if not _same_on_card(first, value):
+                raise AssertionError(f"compiled_dag: {name} did not arrive "
+                                     "bit-equal on the reader's card")
+            ms = []
+            for _ in range(reps):
+                torch.cuda.synchronize(device)
+                t1 = time.perf_counter()
+                got = c.execute(value).get(timeout=300)
+                torch.cuda.synchronize(device)
+                ms.append((time.perf_counter() - t1) * 1e3)
+                if not _same_on_card(got, value):
+                    raise AssertionError(f"compiled_dag: {name} changed "
+                                         "on a repeat")
+            n = dag_channel.encode_tensors(value)[1]
+            tensors = value.values() if isinstance(value, dict) else [value]
+            out[name] = {
+                "shapes": {k: list(t.shape) for k, t in (
+                    value.items() if isinstance(value, dict)
+                    else [("x", value)])},
+                "dtypes": sorted({str(t.dtype)[6:] for t in tensors}),
+                "payload_bytes": n, "slot_bytes": slot,
+                "route": "inline" if n <= slot else "spill",
+                "hops": 3, "ms_per_execute": statistics.median(ms),
+                "ms_all": ms, "bit_equal_on_card": True}
+    finally:
+        c.teardown()
+    return {"phase": "compiled_dag", "nvidia_smi": smi,
+            "actors": 2, "num_gpus_each": 0.5, "compile_s": compile_s,
+            "executes_timed": reps, "payloads": out}
+
+
+def init_ce(vocab: int, dim: int, std: float = 0.02) -> float:
+    """The cross entropy a freshly drawn model starts at: its logits are
+    unit-RMS hidden states through an N(0, std^2) head, so each is
+    N(0, s^2) with s^2 = dim std^2, and E[logsumexp] over V of them is
+    ln V + s^2 / 2 (ln V alone only while s is small: 0.41 above it at
+    dim 2,048, the LoRA line's 10.787; 0.82 at 4,096)."""
+    return math.log(vocab) + dim * std * std / 2
+
+
+def mixtral_config(n_layers: int = 2, attention: str = "flash"):
+    return dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
+                               n_layers=n_layers, attention=attention)
+
+
+def _rel_norm(a, b) -> float:
+    return float(torch.linalg.vector_norm((a - b).float())
+                 / torch.linalg.vector_norm(b.float()))
+
+
+class held_routing:
+    """While entered, `moe._route` records each router's top-k choices
+    (keyed by the router weight's address, so the remat replay and a
+    later pass find their layer's), and once `hold()` is called makes
+    every later call choose the recorded experts, with the probabilities
+    of its own softmax at them.  Discrete top-k turns the last-bit
+    differences between two attention routes into different experts for
+    a few tokens, which moves the experts' gradients far more than the
+    attention route does; holding the routing compares the routes on
+    the same experts, as the CPU parity tests hold the indices equal."""
+
+    def __enter__(self):
+        self.chosen, self.held, self.flips = {}, False, []
+        self._orig = moe._route
+        moe._route = self._route
+        return self
+
+    def hold(self):
+        self.held = True
+
+    def _route(self, cfg, router_w, x2d):
+        top_p, top_i, aux = self._orig(cfg, router_w, x2d)
+        key = router_w.data_ptr()
+        if not self.held:
+            self.chosen.setdefault(key, top_i.detach())
+            return top_p, top_i, aux
+        want = self.chosen[key]
+        self.flips.append(float((want != top_i).any(-1).float().mean()))
+        return moe._gate(cfg, moe._router_probs(router_w, x2d), want)
+
+    def __exit__(self, *exc):
+        moe._route = self._orig
+        return False
+
+
+def _route_grads(cfg, params, tokens) -> tuple:
+    """Step 0's loss and the gradients of `wq` and `moe_w_in`."""
+    ws = [params["blocks"][n].requires_grad_(True)
+          for n in ("wq", "moe_w_in")]
+    loss, _ = mixtral.loss_fn(cfg, params, tokens)
+    grads = torch.autograd.grad(loss, ws)
+    for w in ws:
+        w.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def mixtral_route_check(cfg, params, tokens) -> dict:
+    """Step 0 on the flash and the dense route: the loss (2e-2
+    relative), and the gradients of `wq` and `moe_w_in` (relative norm
+    of the difference, 3e-2) with the flash pass routed to the dense
+    pass's experts (`held_routing`); the free pass's gradients and the
+    share of tokens it routes elsewhere are recorded beside them."""
+    dense = dataclasses.replace(cfg, attention="dense")
+    flash = dataclasses.replace(cfg, attention="flash")
+    with held_routing() as hr:
+        ld, gd = _route_grads(dense, params, tokens)
+        lf_free, gf_free = _route_grads(flash, params, tokens)
+        hr.hold()
+        lf, gf = _route_grads(flash, params, tokens)
+    names = ("wq", "moe_w_in")
+    out = {"loss_flash": lf, "loss_dense": ld,
+           "loss_rel_err": abs(lf - ld) / abs(ld),
+           "grad_rel_err": {n: _rel_norm(a, b) for n, a, b in
+                            zip(names, gf, gd)},
+           "routing": "held to the dense pass's experts",
+           "free_routing": {
+               "loss_flash": lf_free,
+               "loss_rel_err": abs(lf_free - ld) / abs(ld),
+               "grad_rel_err": {n: _rel_norm(a, b) for n, a, b in
+                                zip(names, gf_free, gd)}},
+           # a router call at a time (forward, then the remat replay):
+           # the share of tokens whose own top-k differs from the dense
+           # pass's
+           "flash_tokens_routed_elsewhere": hr.flips}
+    del gf_free
+    if (out["loss_rel_err"] > FULL_LOSS_TOL
+            or out["free_routing"]["loss_rel_err"] > FULL_LOSS_TOL
+            or max(out["grad_rel_err"].values()) > FULL_GRAD_TOL):
+        raise AssertionError(f"Mixtral step 0, flash vs dense: {out}")
+    return out
+
+
+_KERNEL_KINDS = (
+    ("K1", ("flash_fwd",)), ("K2", ("flash_bwd",)),
+    ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "gemv", "matmul")),
+    ("dispatch_combine_scatter_gather", ("index", "scatter", "gather",
+                                         "embedding")),
+    ("memcpy_memset", ("memcpy", "memset", "Memcpy", "Memset")),
+)
+
+
+def kernel_split(prof) -> dict:
+    """Device ms by kind of kernel in a profile: K1, K2, GEMMs, the
+    scatter-gathers (the MoE dispatch / combine, the embedding), copies,
+    and the rest (elementwise work and reductions)."""
+    out = {k: 0.0 for k, _ in _KERNEL_KINDS}
+    out["elementwise_and_reductions"] = 0.0
+    n = 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if not us:
+            continue
+        n += e.count
+        for kind, keys in _KERNEL_KINDS:
+            if any(s in e.key for s in keys):
+                out[kind] += us / 1e3
+                break
+        else:
+            out["elementwise_and_reductions"] += us / 1e3
+    out["kernels"] = n
+    return out
+
+
+def mixtral_train(device, smi: str, *, batch=4, seq=1024, n_layers=2,
+                  warmup=1, steps=5, lr=3e-4) -> dict:
+    """Mixtral-8x7B's full width (vocab 32,000, dim 4,096, 32 / 8 heads,
+    expert hidden 14,336, 8 experts, top-2, capacity 1.25), depth cut to
+    `n_layers`: flash attention, full remat, bf16 compute on f32 master
+    params, AdamW (optax.adamw(lr)'s arithmetic), seed 0.  The flash
+    route's step-0 loss and gradients against the dense route's, then
+    `warmup` + `steps` steps on one batch with the launches of exactly
+    the timed steps (K1 twice a layer: forward and remat replay; K2
+    once; no K3 / K4, no plain dispatch), then one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = mixtral_config(n_layers)
+    t0 = time.perf_counter()
+    params = mixtral.init_params(cfg, 0, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                           generator=gen, device=device)
+    torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    n_params = mixtral.num_params(params)
+    active = mixtral.active_params_per_token(cfg, params)
+    route = mixtral_route_check(cfg, params, tokens)
+    torch.cuda.empty_cache()
+    opt = gpt2.AdamW(lambda count: lr, max_norm=float("inf"), b1=0.9,
+                     b2=0.999, eps=1e-8, weight_decay=1e-4)
+    state = opt.init(params)
+    step = mixtral.make_train_step(cfg, opt)
+    metrics = []
+    for _ in range(warmup):
+        params, state, m = step(params, state, tokens)
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    step_ms = []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        params, state, m = step(params, state, tokens)
+        torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = {**read_counts(),
+                "plain_dispatches": fa.flash_attention.plain_dispatches}
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    want = {"flash_fwd": steps * 2 * n_layers,
+            "flash_bwd_fused": steps * n_layers, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "plain_dispatches": 0}
+    if launches != want:
+        raise AssertionError(f"Mixtral training launches {launches}, want "
+                             f"{want}")
+    losses = [x["loss"] for x in metrics]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite Mixtral losses: {losses}")
+    ce0, lb0 = metrics[0]["ce_loss"], metrics[0]["load_balance_loss"]
+    ce_init = init_ce(cfg.vocab_size, cfg.dim)
+    if abs(ce0 - ce_init) > 0.5:
+        raise AssertionError(f"Mixtral step-0 CE {ce0} far from "
+                             f"ln V + s^2 / 2 = {ce_init}")
+    if not 0.5 < lb0 < 2.0:
+        raise AssertionError(f"Mixtral step-0 load-balance loss {lb0}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"Mixtral loss did not fall: {losses}")
+    # one more step, profiled: forward + backward, then AdamW, each timed
+    # with CUDA events and traced
+    leaves = gpt2._leaves(params)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    # the CPU activity only where there is no card (a rehearsal)
+    acts = [ProfilerActivity.CUDA if device.type == "cuda"
+            else ProfilerActivity.CPU]
+    with profile(activities=acts) as p_fb:
+        ev[0].record()
+        loss, _ = mixtral.loss_fn(cfg, params, tokens)
+        grads = torch.autograd.grad(loss, leaves)
+        ev[1].record()
+        torch.cuda.synchronize(device)
+    with profile(activities=acts) as p_opt:
+        state, _ = opt.update(grads, state, params)
+        ev[2].record()
+        torch.cuda.synchronize(device)
+    del grads, loss
+    fb_split = kernel_split(p_fb)
+    opt_split = kernel_split(p_opt)
+    tokens_per_step = batch * seq
+    steady = statistics.median(step_ms)
+    tps = tokens_per_step / (steady / 1e3)
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "phase": "mixtral_train", "nvidia_smi": smi,
+        "model": "mixtral_8x7b", "source": "MixtralConfig.mixtral_8x7b "
+        "(Mixtral-8x7B's published widths)",
+        "reduced": {"n_layers": [32, n_layers]}, "vocab": cfg.vocab_size,
+        "dim": cfg.dim, "n_layers": n_layers, "n_heads": cfg.n_heads,
+        "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+        "intermediate": cfg.intermediate, "num_experts": cfg.num_experts,
+        "top_k": cfg.top_k, "capacity_factor": cfg.capacity_factor,
+        "capacity_slots": moe._capacity(batch * seq, cfg.moe, 1),
+        "attention": cfg.attention, "remat": cfg.remat,
+        "compute_dtype": str(cfg.dtype)[6:], "master_dtype": "float32",
+        "optimizer": f"adamw({lr})", "batch": batch, "seq": seq,
+        "n_params": n_params, "active_params_per_token": active,
+        "init_s": init_s, "flash_vs_dense_step0": route,
+        "step0_tolerance": {"loss_rel": FULL_LOSS_TOL,
+                            "grad_rel_norm": FULL_GRAD_TOL},
+        "warmup_steps": warmup, "timed_steps": steps, "losses": losses,
+        "ce_losses": [x["ce_loss"] for x in metrics],
+        "load_balance_losses": [x["load_balance_loss"] for x in metrics],
+        "ln_vocab": math.log(cfg.vocab_size), "step0_ce_expected": ce_init,
+        "launches": launches, "launches_want": want,
+        "launches_per_step": {"flash_fwd": 2 * n_layers,
+                              "flash_bwd_fused": n_layers},
+        "step_ms": step_ms, "step_ms_median": steady,
+        "tokens_per_step": tokens_per_step, "tokens_per_s": tps,
+        "flops_per_token": 6 * active,
+        "mfu": 6 * active * tps / PEAK_FLOPS[torch.bfloat16],
+        "mfu_counts": "6 x active params a token, attention FLOPs left "
+                      "out, over 989 TFLOP/s",
+        "peak_mem_gb": peak,
+        "profiled_step": {
+            "fwd_bwd_ms": ev[0].elapsed_time(ev[1]),
+            "adamw_ms": ev[1].elapsed_time(ev[2]),
+            "fwd_bwd_device_ms_by_kind": fb_split,
+            "adamw_device_ms": {k: v for k, v in opt_split.items()
+                                if k != "kernels"},
+            "adamw_kernels": opt_split["kernels"]},
+    }
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def moe_rank(rank: int, port: str, out_dir: str, *, device="cuda",
+             dim=4096, hidden=14336, T=1024) -> None:
+    """One of two gloo ranks sharing the card: the MoE layer at
+    Mixtral's widths over `ep` 2 (global x [2, T, dim], bf16), forward
+    and backward timed, against the reference's oracle: the local path
+    on each batch shard alone, its output and the gradients of the
+    params and of x.  Writes its readings as JSON."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import MeshSpec
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+    mesh = MeshSpec(ep=2).build(device_type=device.type)
+    cfg = moe.MoEConfig(dim=dim, hidden=hidden, num_experts=8, top_k=2,
+                        capacity_factor=1.25, dtype=torch.bfloat16)
+    params = moe.init_moe(cfg, 0, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    x = torch.randn((2, T, cfg.dim), generator=gen,
+                    device=device).to(torch.bfloat16)
+    x.requires_grad_(True)  # dx returns through the first all_to_all
+    names = ("router", "w_in", "w_out", "x")
+    ws = [*(params[n].requires_grad_(True) for n in names[:-1]), x]
+
+    def loss_of(out, aux):
+        return out.float().square().mean() + 0.01 * aux
+
+    timings = []
+    for _ in range(2):  # the first call warms up; the second is timed
+        collectives.TRANSPORTS.clear()
+        _sync(device)
+        t0 = time.perf_counter()
+        out, aux = moe.moe_forward(cfg, params, x, mesh)
+        _sync(device)
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(
+            loss_of(out, aux["load_balance_loss"]), ws)
+        _sync(device)
+        timings.append({"fwd_ms": (t1 - t0) * 1e3,
+                        "bwd_ms": (time.perf_counter() - t1) * 1e3})
+    transports = {"/".join(k): n for k, n in collectives.TRANSPORTS.items()}
+    shards = [moe._moe_forward_local(cfg, params, x[i:i + 1])
+              for i in range(2)]
+    o_ref = torch.cat([o for o, _ in shards])
+    aux_ref = torch.stack([a["load_balance_loss"] for _, a in shards]).mean()
+    g_ref = torch.autograd.grad(loss_of(o_ref, aux_ref), ws)
+    out, o_ref = out.detach(), o_ref.detach()
+    res = {
+        "rank": rank, "backend": str(dist.get_backend()),
+        "capacity_slots": moe._capacity(T, cfg, 2),
+        "out_max_abs_err": float((out.float() - o_ref.float()).abs().max()),
+        "out_within": bool(torch.allclose(out.float(), o_ref.float(),
+                                          **MOE_EP_TOL)),
+        "aux": float(aux["load_balance_loss"].detach()),
+        "aux_oracle": float(aux_ref.detach()),
+        "grad_rel_err": {n: _rel_norm(a, b)
+                         for n, a, b in zip(names, grads, g_ref)},
+        "timings": timings, "transports_one_call": transports}
+    with open(os.path.join(out_dir, f"moe_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def moe_ep(smi: str, timeout: float = 600.0) -> dict:
+    """The two `moe_rank` processes (this script, `--moe-rank`), their
+    readings held: the output within sp_attention's bf16 limits of the
+    oracle's, the gradients of the router, both expert weights and x
+    through both all_to_alls within relative norm 3e-2 of the oracle's,
+    on both ranks."""
+    work, wall = _spawn_ranks("--moe-rank", timeout)
+    ranks = []
+    for r in (0, 1):
+        with open(os.path.join(work, f"moe_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    bad = [(r["rank"], "out", r["out_max_abs_err"]) for r in ranks
+           if not r["out_within"]]
+    bad += [(r["rank"], n, e) for r in ranks
+            for n, e in r["grad_rel_err"].items() if e > FULL_GRAD_TOL]
+    if bad:
+        raise AssertionError(f"moe_ep outside its limits: {bad}")
+    r0 = ranks[0]
+    return {"phase": "moe_ep", "nvidia_smi": smi, "ranks": 2, "ep": 2,
+            "backend": r0["backend"], "dim": 4096, "hidden": 14336,
+            "num_experts": 8, "top_k": 2, "capacity_factor": 1.25,
+            "dtype": "bfloat16", "global_x": [2, 1024, 4096],
+            "capacity_slots": r0["capacity_slots"],
+            "slots_per_direction_bytes": 8 * r0["capacity_slots"] * 4096 * 2,
+            "out_max_abs_err": [r["out_max_abs_err"] for r in ranks],
+            "out_tolerance": MOE_EP_TOL,
+            "aux": r0["aux"], "aux_oracle": r0["aux_oracle"],
+            "grad_rel_err": {r["rank"]: r["grad_rel_err"] for r in ranks},
+            "grad_tolerance": FULL_GRAD_TOL,
+            "fwd_ms": [r["timings"][-1]["fwd_ms"] for r in ranks],
+            "bwd_ms": [r["timings"][-1]["bwd_ms"] for r in ranks],
+            "first_call": r0["timings"][0],
+            "transports_one_call": r0["transports_one_call"],
+            "wall_s": wall}
+
+
+class PipeStageFn:
+    """A pipeline stage: one Llama block (its x; K and V dropped).  Each
+    call first appends its process's flash launch counts to a log, so
+    the driver can read a stage's launches between two calls."""
+
+    def __init__(self, cfg, log_dir: str):
+        self.cfg, self.log_dir = cfg, log_dir
+
+    def __call__(self, params, x):
+        counts = {n: getattr(fa, n).launches for n in FLASH}
+        counts["plain_dispatches"] = fa.flash_attention.plain_dispatches
+        with open(os.path.join(self.log_dir, f"stage_{os.getpid()}.jsonl"),
+                  "a") as f:
+            f.write(json.dumps(counts) + "\n")
+        return llama._block(self.cfg, params, None, x)[0]
+
+
+def pipe_loss(y):
+    return y.float().square().mean()
+
+
+def pipeline_1f1b(device, smi: str, *, M=4, mb=1, seq=1024, executes=3,
+                  cfg=None) -> dict:
+    """`compile_pipeline` with 2 stage actors on the card (`num_gpus`
+    0.5 each), each one Llama-3-8B block at full width (flash, bf16
+    compute, f32 params), M microbatches of mb x seq, loss mean(y^2):
+    loss and each stage's gradients against one process's serial
+    autograd over the same two blocks on the card with dense attention,
+    so the gate holds the flash stages against the plain route; a
+    warm-up execute,
+    `executes` timed ones, and a last one whose first forward reads the
+    stages' launch counts after the timed ones.  The runtime must be
+    up."""
+    cfg = cfg or dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                                     attention="flash")
+    S = 2
+    blocks = llama.init_params(dataclasses.replace(
+        cfg, n_layers=S, vocab_size=8), 0, device=device)["blocks"]
+    stages = [{k: v[s].clone() for k, v in blocks.items()}
+              for s in range(S)]
+    del blocks
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    x = torch.randn((M * mb, seq, cfg.dim), generator=gen,
+                    device=device).to(cfg.dtype)
+    # one process's serial autograd over the same two blocks, on the
+    # plain attention route
+    dense = dataclasses.replace(cfg, attention="dense")
+    leaves = [p.requires_grad_(True) for st in stages for p in st.values()]
+    h = x
+    for st in stages:
+        h = llama._block(dense, st, None, h)[0]
+    ref_loss = pipe_loss(h)
+    ref_grads = torch.autograd.grad(ref_loss, leaves)
+    ref_loss = float(ref_loss.detach())
+    for p in leaves:
+        p.requires_grad_(False)
+    del h
+    names = list(stages[0])
+    ref = [dict(zip(names, ref_grads[s * len(names):(s + 1) * len(names)]))
+           for s in range(S)]
+    del ref_grads
+    log_dir = tempfile.mkdtemp(prefix="rtt_pipe_")
+    t0 = time.perf_counter()
+    pipe = pipeline_dag.compile_pipeline(
+        PipeStageFn(cfg, log_dir), stages, pipe_loss, M,
+        stage_options=[{"num_gpus": 0.5}] * S)
+    compile_s = time.perf_counter() - t0
+
+    def check(out) -> dict:
+        errs = {"loss_rel_err": abs(out["loss"] - ref_loss) / abs(ref_loss),
+                "grad_rel_err": [
+                    {n: _rel_norm(out["grads"][s][n].to(device), ref[s][n])
+                     for n in names} for s in range(S)]}
+        worst = max(e for st in errs["grad_rel_err"] for e in st.values())
+        if errs["loss_rel_err"] > PIPE_LOSS_TOL or worst > FULL_GRAD_TOL:
+            raise AssertionError(f"pipeline vs serial autograd: {errs}")
+        return errs
+
+    try:
+        t1 = time.perf_counter()
+        first = pipe.execute(x).get(timeout=600)
+        first_ms = (time.perf_counter() - t1) * 1e3
+        errs = check(first)
+        del first
+        ms, losses = [], []
+        for _ in range(executes):
+            t1 = time.perf_counter()
+            out = pipe.execute(x).get(timeout=600)
+            ms.append((time.perf_counter() - t1) * 1e3)
+            check(out)
+            losses.append(out["loss"])
+            del out
+        pipe.execute(x).get(timeout=600)  # its first forwards log the counts
+    finally:
+        pipe.teardown()
+    logs = []
+    for name in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, name)) as f:
+            logs.append([json.loads(ln) for ln in f])
+    want = {"flash_fwd": executes * M, "flash_bwd_fused": executes * M,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "plain_dispatches": 0}
+    # entry j is read at the forward of microbatch j % M of execute j // M
+    launches = [{k: log[(1 + executes) * M][k] - log[M][k] for k in want}
+                for log in logs]
+    if len(logs) != S or any(got != want for got in launches):
+        raise AssertionError(f"pipeline stage launches {launches}, want "
+                             f"{want} in each of {S} stages")
+    act = mb * seq * cfg.dim * x.element_size()
+    grad_bytes = sum(p.numel() * 4 for st in stages for p in st.values())
+    return {
+        "phase": "pipeline_1f1b", "nvidia_smi": smi, "stages": S,
+        "stage": "one Llama-3-8B block (LlamaConfig.llama3_8b widths)",
+        "dim": cfg.dim, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+        "intermediate": cfg.intermediate, "attention": cfg.attention,
+        "compute_dtype": str(cfg.dtype)[6:], "param_gb_per_stage":
+            grad_bytes / S / 1e9,
+        "microbatches": M, "microbatch": [mb, seq, cfg.dim],
+        "stage_options": {"num_gpus": 0.5}, "compile_s": compile_s,
+        "loss_serial": ref_loss, "loss_pipeline": losses,
+        "first_execute": errs, "first_execute_ms": first_ms,
+        "tolerance": {"loss_rel": PIPE_LOSS_TOL,
+                      "grad_rel_norm": FULL_GRAD_TOL},
+        "execute_ms": ms, "execute_ms_median": statistics.median(ms),
+        "channel_bytes_per_execute": {
+            "input": M * act, "activations": (S - 1) * M * act,
+            "activation_grads": (S - 1) * M * act,
+            "result_grads": grad_bytes},
+        "activation_bytes": act,
+        "activation_route": ("spill" if act > get_config().dag_slot_bytes
+                             else "inline"),
+        "bubble_model": pipeline_dag.bubble_fraction(S, M),
+        "launches_per_stage_timed": launches[0], "launches_want": want,
+    }
+
+
+def store_bytes(need: int) -> int:
+    """An object store for this phase: 60% of /dev/shm's free bytes, at
+    most 16 GiB; fails if that is below `need`."""
+    free = shutil.disk_usage("/dev/shm").free
+    cap = int(min(16 << 30, 0.6 * free))
+    if cap < need:
+        raise AssertionError(f"/dev/shm has {free} bytes free: an object "
+                             f"store of {need} does not fit")
+    return cap
+
+
+def graph_phases(device, smi: str) -> None:
+    """compiled_dag, mixtral_train, moe_ep and pipeline_1f1b, each on
+    the card; the port's runtime is up for the first and the last."""
+    t0 = time.perf_counter()
+    rt.init(num_workers=2, num_cpus=8)
+    try:
+        line = compiled_dag(device, smi)
+    finally:
+        rt.shutdown()
+    emit({**line, "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    emit({**mixtral_train(device, smi), "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    emit(moe_ep(smi))
+    t0 = time.perf_counter()
+    rt.init(num_workers=2, num_cpus=8,
+            object_store_memory=store_bytes(6 << 30))
+    try:
+        line = pipeline_1f1b(device, smi)
+    finally:
+        rt.shutdown()
+    emit({**line, "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
 
 
 def xent_case(N, E, V, x_dtype, w_dtype, device, seed=0) -> dict:
@@ -2277,8 +2975,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--sp-rank"]:
-        sp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    rank_main = {"--sp-rank": sp_rank, "--moe-rank": moe_rank}
+    if sys.argv[1:2] and sys.argv[1] in rank_main:
+        rank_main[sys.argv[1]](int(sys.argv[2]), sys.argv[3], sys.argv[4])
         sys.stdout.flush()
         # its readings are written: skip the interpreter's teardown, where
         # gloo's threads can abort the process
@@ -2475,6 +3174,8 @@ def main() -> int:
             + [(48, 1000, 64, "bf16", True), (16, 1000, 128, "bf16", True)]
             # a train_plane worker's shape: 4 x 16 heads at T 1,024
             + [(64, 1024, 128, k, True) for k in ("f32", "bf16")]
+            # a pipeline_1f1b stage's shape: 1 x 32 heads at T 1,024
+            + [(32, 1024, 128, k, True) for k in ("f32", "bf16")]
             + [(2, 256, D, k, True) for D in (712, 1032)
                for k in ("f32", "bf16")]):
         dt = {"f32": torch.float32, "bf16": torch.bfloat16}[kind_]
@@ -2514,6 +3215,10 @@ def main() -> int:
     # resumed fit, the NCCL mode at one worker) and sequence-parallel
     # attention over a process group
     run_parallel_phases(device, smi)
+    # compiled graphs with the tensor codec, Mixtral's widths trained,
+    # expert parallelism over a process group, a 1F1B pipeline of
+    # Llama-3-8B blocks over the port's channels
+    graph_phases(device, smi)
 
     case = flash_case(32 * 12, 1024, 64, torch.bfloat16, True, device)
     flash_t, sdpa_bwd = time_flash(case, H=12)

@@ -140,6 +140,12 @@ _UNRESOLVED = object()
 # reading naturally
 _PIPELINE_DEPTH = PIPELINE_DEPTH
 
+# how long an executor polls the controller's KV for a function blob
+# that its task refers to by id before it gives up: the driver's put is
+# one-way, so a later task of the same function can land on another
+# worker before the first task's blob reached the KV
+_FUNCTION_EXPORT_WAIT_S = 5.0
+
 
 @dataclass
 class _ObjectState:
@@ -4034,6 +4040,25 @@ class Runtime:
             self.store.seal(oid.binary())
         return (_SHM, self.node_id, total, contained)
 
+    async def _kv_get_exported(self, function_id: bytes) -> bytes:
+        """The blob a driver exported for `function_id`, polled with a
+        short backoff for up to `_FUNCTION_EXPORT_WAIT_S`: the export is
+        a one-way put (`_export_function`), which a task carrying only
+        the id can overtake."""
+        key = "fn:" + function_id.hex()
+        deadline = time.monotonic() + _FUNCTION_EXPORT_WAIT_S
+        delay = 0.005
+        while True:
+            blob = await self.controller.call("kv_get", {"key": key})
+            if blob is not None:
+                return blob
+            if time.monotonic() >= deadline:
+                raise exc.RayTpuError(
+                    f"function {function_id.hex()} not found"
+                )
+            await asyncio.sleep(delay)
+            delay = min(2 * delay, 0.1)
+
     async def _load_function(self, spec: TaskSpec):
         if spec.actor_id is not None:
             return None
@@ -4041,13 +4066,7 @@ class Runtime:
         if fn is None:
             blob = spec.function_blob
             if blob is None:
-                blob = await self.controller.call(
-                    "kv_get", {"key": "fn:" + spec.function_id.hex()}
-                )
-                if blob is None:
-                    raise exc.RayTpuError(
-                        f"function {spec.function_id.hex()} not found"
-                    )
+                blob = await self._kv_get_exported(spec.function_id)
             try:
                 fn = ser.loads(blob)
             except ModuleNotFoundError:

@@ -1,11 +1,28 @@
-"""The compiled-graph plane (`ray_tpu/dag/` in the JAX package) is not
-ported yet: it comes with its channel's tensor codec, ROADMAP.md queue
-1 item 4.  The runtime's lazy imports of it (`.bind()` on a remote
-function or an actor method, a compiled DAG's exec loop, a channel
-write between nodes) land here and raise, naming that item, instead of
-reaching for the JAX package."""
+"""Compiled actor DAGs (reference: `python/ray/dag/` +
+`python/ray/experimental/channel/` — "accelerated DAGs").
 
-raise NotImplementedError(
-    "ray_tpu_torch.dag is not ported yet (ROADMAP.md queue 1 item 4: "
-    "`dag/` with its channel's tensor codec)"
+Author with `actor.method.bind(...)` under a `with InputNode() as inp:`
+block, compile with `.experimental_compile()`, then `execute()` per
+input: data moves over shared-memory ring channels between resident
+per-actor exec loops, bypassing the per-call submit/lease path.
+"""
+
+from ray_tpu_torch.dag.channel import Channel, ChannelClosed
+from ray_tpu_torch.dag.compiled_dag import CompiledDAG, CompiledDAGRef
+from ray_tpu_torch.dag.dag_node import (
+    ClassMethodNode,
+    DAGNode,
+    InputNode,
+    MultiOutputNode,
 )
+
+__all__ = [
+    "Channel",
+    "ChannelClosed",
+    "ClassMethodNode",
+    "CompiledDAG",
+    "CompiledDAGRef",
+    "DAGNode",
+    "InputNode",
+    "MultiOutputNode",
+]

@@ -149,8 +149,23 @@ class _Gather(torch.autograd.Function):
         return g.chunk(n, dim=ctx.dim)[r].contiguous(), None, None
 
 
+class _Replicated(torch.autograd.Function):
+    """A replicated tensor that every rank's block of the work reads
+    whole (the reference's unmapped `P()` input): the identity, whose
+    gradient is the sum over the group of every rank's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collectives.psum(g, ctx.group), None
+
+
 def _layout(mesh, axis_name: str):
-    """(tensor dim, mesh axis) in split order for the reference's
+    """(tensor dim, mesh axis group) in split order for the reference's
     P(("dp", "fsdp"), axis_name, "tp", None); axes of size 1 skipped."""
     names = list(mesh.mesh_dim_names)
     out = []
@@ -161,19 +176,26 @@ def _layout(mesh, axis_name: str):
     return out
 
 
-def _spmd(body, mesh, axis_name: str, *xs):
-    """Split each global tensor into this rank's block, run `body` on
-    the blocks, gather the result back into the global output."""
-    layout = _layout(mesh, axis_name)
+def _spmd(body, in_layouts, out_layouts, *xs):
+    """The replicated convention's `shard_map`: split each global tensor
+    into this rank's block by its layout, a list of (dim, group) (empty
+    for an input read whole), run `body` on the blocks, and gather each
+    output back into the global tensor by its layout.  `body` returns
+    one tensor for one layout, or a tuple for a tuple of layouts."""
     local = []
-    for x in xs:
+    for x, layout in zip(xs, in_layouts):
         for dim, group in layout:
             x = _Split.apply(x, group, dim)
         local.append(x)
     out = body(*local)
-    for dim, group in reversed(layout):
-        out = _Gather.apply(out, group, dim)
-    return out
+    single = not isinstance(out, tuple)
+    outs, layouts = ((out,), (out_layouts,)) if single else (out, out_layouts)
+    gathered = []
+    for o, layout in zip(outs, layouts):
+        for dim, group in reversed(layout):
+            o = _Gather.apply(o, group, dim)
+        gathered.append(o)
+    return gathered[0] if single else tuple(gathered)
 
 
 def ring_attention(
@@ -192,10 +214,11 @@ def ring_attention(
     (dp, fsdp), heads over tp."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    layout = _layout(mesh, axis_name)
     return _spmd(
         lambda q, k, v: _ring_attention_local(
             q, k, v, axis_name, causal, scale, mesh),
-        mesh, axis_name, q, k, v)
+        [layout] * 3, layout, q, k, v)
 
 
 def ulysses_attention(
@@ -234,7 +257,8 @@ def ulysses_attention(
         o = o / torch.clamp_min(l, 1e-20).transpose(1, 2)[..., None]
         return a2a_inv(o)
 
-    return _spmd(local, mesh, axis_name, q, k, v)
+    layout = _layout(mesh, axis_name)
+    return _spmd(local, [layout] * 3, layout, q, k, v)
 
 
 def plain_attention(q, k, v, *, causal=True, scale=None):

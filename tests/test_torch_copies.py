@@ -92,6 +92,8 @@ COPIES = (
     "serve/replica.py", "serve/controller.py", "serve/proxy.py",
     "serve/grpc_proxy.py", "serve/api.py",
     "api.py",
+    "dag/__init__.py", "dag/dag_node.py", "dag/execution.py",
+    "dag/compiled_dag.py",
 )
 
 # module -> the test that holds what it changes
@@ -160,6 +162,20 @@ ADAPTED = {
     "train/sharded_checkpoint.py": "test_torch_train_distributed.py::"
                                    "test_sharded_checkpoint_format_crosses_"
                                    "both_packages",
+    # the compiled graphs' tensor codec carries torch tensors; the ring,
+    # spill, relay and geometry code is the original's
+    # (test_channel_outside_the_codec_is_a_copy below)
+    "dag/channel.py": "test_torch_dag.py::"
+                      "test_jax_arrays_arrive_as_torch_tensors_and_back",
+    # experts and pipelines over torch.distributed and the port's actors
+    "parallel/moe.py": "test_torch_moe.py::"
+                       "test_local_forward_aux_and_grads_match_jax",
+    "parallel/pipeline.py": "test_torch_pipeline.py::"
+                            "test_pipeline_apply_grads_match_jax_not_s_times",
+    "parallel/pipeline_dag.py": "test_torch_pipeline.py::"
+                                "test_1f1b_matches_serial_loss_and_grads",
+    "models/mixtral.py": "test_torch_mixtral.py::"
+                         "test_train_steps_match_optax",
 }
 
 
@@ -179,7 +195,7 @@ def test_every_runtime_module_is_a_copy_or_adapted():
     port = REPO / "ray_tpu_torch"
     listed = set(COPIES) | set(ADAPTED)
     for sub in ("core", "metrics", "shm", "util", "serve", "parallel",
-                "train"):
+                "train", "dag"):
         for f in (port / sub).iterdir():
             if f.suffix in (".py", ".cc"):
                 assert f"{sub}/{f.name}" in listed, f"{sub}/{f.name}"
@@ -199,6 +215,22 @@ def test_collectives_host_tier_is_a_copy():
     port = (REPO / "ray_tpu_torch" / "parallel" / "collectives.py"
             ).read_text()
     assert port[port.index(mark):] == orig[orig.index(mark):]
+
+
+def test_channel_outside_the_codec_is_a_copy():
+    """`dag/channel.py` ports only its tensor codec (the module's
+    docstring says how): its imports, payload kinds and geometry, its
+    container constants and exceptions, and the `Channel` class (the
+    ring, spill and relay code) are the original's after the rewrite."""
+    orig = rewrite((REPO / "ray_tpu" / "dag" / "channel.py").read_text())
+    port = (REPO / "ray_tpu_torch" / "dag" / "channel.py").read_text()
+    for start, end in (("from __future__ import annotations",
+                        "# tensor-header handle kinds"),
+                       ("_CONT_SINGLE = 0", "# -- tensor codec"),
+                       ("class Channel:", None)):
+        o = orig[orig.index(start):orig.index(end) if end else None]
+        p = port[port.index(start):port.index(end) if end else None]
+        assert p == o, start
 
 
 def test_rewrite_keeps_the_namespaces_apart():

@@ -16,6 +16,7 @@ import subprocess
 import sys
 import tempfile
 import textwrap
+import threading
 import time
 import types
 from pathlib import Path
@@ -285,11 +286,54 @@ def test_accel_env_warns_after_cuda_init(monkeypatch, caplog):
     assert not caplog.text
 
 
-def test_dag_bind_names_the_roadmap():
-    """The compiled-graph plane is not ported: `.bind()` raises, naming
-    the roadmap item, and reaches nothing of the JAX package."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        _double.bind(1)
+def test_function_export_outrun_by_its_tasks_still_loads(cluster,
+                                                         monkeypatch):
+    """A function's blob reaches the controller's KV by a one-way put
+    from the driver; delayed by 0.5 s, the put is overtaken by the
+    function's later tasks (which carry only its id) on other workers.
+    Each of 16 tasks of a fresh function still runs: an executor polls
+    the KV for a bounded time before it reports the function missing."""
+    from ray_tpu_torch.core.runtime import get_runtime
+
+    ctrl = get_runtime().controller
+    send = ctrl.send_threadsafe
+    timers = []
+
+    def delayed(method, *args, **kwargs):
+        if method != "kv_put_oneway":
+            return send(method, *args, **kwargs)
+        t = threading.Timer(0.5, send, (method, *args), kwargs)
+        timers.append(t)
+        t.start()
+        return None
+
+    monkeypatch.setattr(ctrl, "send_threadsafe", delayed)
+
+    @rt.remote
+    def fresh(i):
+        time.sleep(0.05)
+        return i * i
+
+    try:
+        got = rt.get([fresh.remote(i) for i in range(16)], timeout=60)
+    finally:
+        for t in timers:
+            t.join(timeout=5)
+    assert timers, "the export did not go through the delayed put"
+    assert got == [i * i for i in range(16)]
+
+
+def test_dag_bind_names_the_roadmap(cluster):
+    """The compiled-graph plane is ported (ROADMAP.md queue 1 item 5):
+    `.bind()` on a remote function builds the port's own `FunctionNode`,
+    which runs on the port's runtime, and reaches nothing of the JAX
+    package."""
+    from ray_tpu_torch.dag.dag_node import FunctionNode
+
+    node = _double.bind(_double.bind(3))
+    assert type(node) is FunctionNode
+    assert type(node).__module__ == "ray_tpu_torch.dag.dag_node"
+    assert node.execute() == 12
 
 
 def _run(code: str, env_extra: dict, tmp_path: Path) -> str:

@@ -38,6 +38,9 @@ RUNTIME_MODULES = (
     "train/trainer.py", "train/backend.py", "train/session.py",
     "train/cuda_utils.py", "train/sharded_checkpoint.py",
     "train/worker_group.py", "train/torch.py", "train/huggingface.py",
+    "dag/__init__.py", "dag/channel.py", "dag/compiled_dag.py",
+    "dag/dag_node.py", "dag/execution.py", "parallel/moe.py",
+    "parallel/pipeline.py", "parallel/pipeline_dag.py", "models/mixtral.py",
 )
 
 
@@ -149,6 +152,57 @@ def test_parallel_and_train_planes_run_with_jax_and_ray_tpu_blocked(
     assert proc.stdout.startswith("OK")
 
 
+def test_experts_pipelines_and_dag_run_with_jax_and_ray_tpu_blocked(
+        tmp_path):
+    """A fresh interpreter where importing jax or ray_tpu fails imports
+    `dag/`, `parallel/moe.py`, `parallel/pipeline.py`,
+    `parallel/pipeline_dag.py` and `models/mixtral.py` (and the expert
+    and pipeline names of `parallel/`), runs a tiny Mixtral loss and a
+    MoE layer on the CPU, and carries torch tensors (bf16 included)
+    through the channel's codec."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {str(REPO)!r})
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        import torch
+        import ray_tpu_torch.dag as dag
+        from ray_tpu_torch.dag import channel
+        from ray_tpu_torch.models import mixtral
+        from ray_tpu_torch.parallel import (
+            CompiledPipeline, MoEConfig, bubble_fraction, compile_pipeline,
+            init_moe, moe_forward, one_f1b_schedule, pipeline_apply,
+            stage_sharding)
+        cfg = mixtral.MixtralConfig.tiny(vocab_size=32)
+        params = mixtral.init_params(cfg, 0, device="cpu")
+        toks = torch.randint(0, 32, (2, 9),
+                             generator=torch.Generator().manual_seed(0))
+        loss, metrics = mixtral.loss_fn(cfg, params, toks)
+        assert torch.isfinite(loss)
+        mcfg = MoEConfig(dim=8, hidden=16, num_experts=4,
+                         dtype=torch.float32)
+        out, aux = moe_forward(mcfg, init_moe(mcfg, 0, device="cpu"),
+                               torch.ones(2, 3, 8))
+        assert out.shape == (2, 3, 8)
+        x = {{"a": torch.arange(6.0).bfloat16(), "b": torch.ones(2, 2)}}
+        chunks, _ = channel.encode_tensors(x)
+        got, _ = channel.decode_tensors(memoryview(b"".join(
+            bytes(memoryview(c).cast("B")) for c in chunks)))
+        assert all(torch.equal(got[k], v) for k, v in x.items())
+        assert got["a"].dtype == torch.bfloat16
+        assert one_f1b_schedule(0, 2, 2) and bubble_fraction(2, 2) == 1 / 3
+        assert dag.InputNode and CompiledPipeline and compile_pipeline
+        assert pipeline_apply and stage_sharding
+        assert not any(m.split(".")[0] in {FORBIDDEN!r}
+                       for m, mod in sys.modules.items() if mod is not None)
+        print("OK")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
 def test_engine_serves_with_jax_and_ray_tpu_blocked(tmp_path):
     """A fresh interpreter where importing jax or ray_tpu fails still
     imports the engine and serves a tiny CPU request."""
@@ -182,8 +236,9 @@ def test_engine_serves_with_jax_and_ray_tpu_blocked(tmp_path):
 
 def test_runtime_modules_do_not_import_torch():
     """Node daemons and workers import the package, the runtime, the
-    serve plane and the train plane (a train worker actor); none of
-    that imports torch (resolve_device imports it when called)."""
+    serve plane, the train plane (a train worker actor) and the compiled
+    graphs (an exec loop, a pipeline stage); none of that imports torch
+    (resolve_device imports it when called)."""
     code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {str(REPO)!r})
@@ -194,6 +249,9 @@ def test_runtime_modules_do_not_import_torch():
         import ray_tpu_torch.serve.schema
         import ray_tpu_torch.train
         import ray_tpu_torch.parallel
+        import ray_tpu_torch.parallel.pipeline_dag
+        import ray_tpu_torch.dag
+        import ray_tpu_torch.dag.execution
         import ray_tpu_torch.util.collective
         bad = sorted(m for m in sys.modules if m.split(".")[0] == "torch")
         assert not bad, bad
