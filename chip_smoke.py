@@ -126,6 +126,35 @@ exits non-zero:
     "ring" over the mesh at 4 layers against dense (2e-2); with the
     backend and how each collective's bytes travelled (gloo: through
     the host).
+13c'. data_ingest: 16 `.npz` files of 1,024 rows (int32 tokens [1,025]
+    uniform in [0, 32,000) from `default_rng(0)`, int64 `row_id`; 67.2
+    MB) written to a temp directory, then `read_numpy` -> `map_batches`
+    (the user's transform: tokens int32 and contiguous, a per-row int64
+    `digest`) -> `random_shuffle(seed=0)` into
+    `CudaTrainer(ingest_train_loop, datasets={"train": ds})` with two
+    collective-mode workers sharing the card (`GPU` 0.5, `CPU` 1 each),
+    each taking 4 rows a step through `iter_cuda_batches` at the LoRA
+    bench's full size for 4 steps.  Held: every batch on the card, int32
+    [4, 1,025], its digest recomputed there; every (row_id, digest) pair
+    against the driver's own corpus and no row_id twice; both ranks'
+    adapters bit-equal after every step; the step-0 synced gradient
+    within relative norm 3e-2 of one process's on the same 8 rows; the
+    step-0 loss within 0.5 of ln V + s^2 / 2; 44 K1 and 22 K2 a step a
+    worker, no plain dispatch.  Recorded: step ms, tokens/s, the ingest
+    wait (ms inside `next()`, steady median / max and its share of the
+    step), `first_batch_s` (the shuffle's barrier), the dataset's MB and
+    the spill directory's bytes, each worker's peak memory, start-up s.
+13c''. tune_trainer: the same corpus after `read_numpy` ->
+    `map_batches`, the same width with depth cut to 4 layers, through
+    `Tuner(CudaTrainer(...))` over `lr` in {1e-4, 1e-3}, two one-worker
+    trials at once (`GPU` 0.5, `CPU` 1 a worker; `CPU` 0.5 a trial), 3
+    steps of 4 x 1,024 tokens each.  Held: both trials TERMINATED, no
+    errors; each trial's step-0 loss within 1e-3 relative of one
+    process's on its rows (by row_id); each records its lr and their
+    adapters differ after step 1; `get_best_result("loss", "min")` is
+    the trial with the lower last loss; the trials' step windows
+    overlap; 8 K1 and 4 K2 a step a trial.  Each phase fails past a
+    wall-clock limit (a resource deadlock shows up as a hang).
 13d. compiled_dag: the port's runtime boots again; two `num_gpus=0.5`
     actors form a compiled chain `a.hop(inp) -> b.hop(...)` carrying a
     CUDA bf16 tensor [8, 1,024, 4,096] (64 MB: spilled past the 128 KiB
@@ -2730,6 +2759,397 @@ def graph_phases(device, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# data and tune: a shuffled token dataset streamed into the trainer's
+# workers, and a Tuner sweeping the trainer's learning rate
+# ----------------------------------------------------------------------
+CORPUS_ROWS, CORPUS_FILES, CORPUS_SEQ = 16384, 16, 1024
+DIGEST_MOD = 2**31 - 1
+TUNE_LOSS_TOL = 1e-3  # relative: the trial's step-0 loss vs one process's
+
+
+def write_corpus(d: str, vocab: int, rows: int = CORPUS_ROWS,
+                 files: int = CORPUS_FILES, seq: int = CORPUS_SEQ) -> dict:
+    """`files` .npz files of `rows / files` rows: int32 `tokens` [n, seq
+    + 1] uniform in [0, vocab) from `default_rng(0)`, int64 `row_id`.
+    Returns the digest weights, each row's tokens by `row_id` and the
+    corpus's bytes."""
+    rng = np.random.default_rng(0)
+    per = rows // files
+    tokens = rng.integers(0, vocab, (rows, seq + 1), dtype=np.int32)
+    for f in range(files):
+        np.savez(os.path.join(d, f"part{f:02d}.npz"),
+                 tokens=tokens[f * per:(f + 1) * per],
+                 row_id=np.arange(f * per, (f + 1) * per, dtype=np.int64))
+    # the digest's sum stays below 2^36: 32,000 x 2,047 x 1,025
+    w = np.random.default_rng(1).integers(1, 2048, seq + 1)
+    return {"dir": d, "files": files, "w": w, "tokens": tokens,
+            "bytes": tokens.nbytes + 8 * rows}
+
+
+def digest_fn(w):
+    """The user's transform: `tokens` int32 and contiguous, and a per-row
+    int64 `digest` = tokens @ w % (2^31 - 1)."""
+    def fn(batch):
+        t = np.ascontiguousarray(batch["tokens"], dtype=np.int32)
+        return {"tokens": t, "row_id": batch["row_id"],
+                "digest": t.astype(np.int64) @ w % DIGEST_MOD}
+
+    return fn
+
+
+def with_deadline(seconds: float, fn, what: str):
+    """`fn()` on a daemon thread; the phase fails if it outlives
+    `seconds` (a resource deadlock shows up as a hang, not an error)."""
+    import threading
+
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # handed to the caller below
+            out["error"] = e
+
+    t = threading.Thread(target=run, daemon=True, name=what)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        raise AssertionError(f"{what} outlived its {seconds} s limit")
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+def _spill_dir_bytes() -> int:
+    from ray_tpu_torch import api
+
+    d = os.path.join(api._session.get("session_dir") or "", "spilled")
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)
+               if f.endswith(".bin")) if os.path.isdir(d) else 0
+
+
+def check_batches(recs: dict, corpus: dict, batch: int, seq: int) -> list:
+    """Every step's batch on the card, int32 [batch, seq + 1], its digest
+    checked there; every (row_id, digest) pair against the driver's own
+    corpus; no row_id twice across ranks and steps.  Returns the rows
+    trained on, in order."""
+    w = corpus["w"]
+    seen = []
+    for r, lines in sorted(recs.items()):
+        for x in lines:
+            if (not x["device"].startswith("cuda") or x["dtype"] != "int32"
+                    or x["shape"] != [batch, seq + 1] or not x["digest_ok"]):
+                raise AssertionError(f"rank {r} step {x['step']} batch "
+                                     f"{x['device']} {x['dtype']} "
+                                     f"{x['shape']} digest {x['digest_ok']}")
+            for rid, dg in zip(x["row_ids"], x["row_digests"]):
+                want = int(corpus["tokens"][rid].astype(np.int64) @ w
+                           % DIGEST_MOD)
+                if dg != want:
+                    raise AssertionError(f"row {rid}: digest {dg}, the "
+                                         f"corpus's {want}")
+            seen.extend(x["row_ids"])
+    if len(set(seen)) != len(seen):
+        raise AssertionError(f"rows trained on twice: {len(seen)} rows, "
+                             f"{len(set(seen))} distinct")
+    return seen
+
+
+def data_ingest(device, smi: str, corpus: dict, *, batch=4, steps=4,
+                cfg=None, timeout: float = 900.0) -> dict:
+    """`read_numpy` -> `map_batches(digest_fn)` -> `random_shuffle(seed=0)`
+    streamed into `CudaTrainer(ingest_train_loop)`: two collective-mode
+    workers sharing the card (`GPU` 0.5, `CPU` 1 each), each taking
+    `batch` rows a step through `iter_cuda_batches` at the LoRA bench's
+    size, gradients synced as in `dp_train_loop`.  Every gate of the
+    line is held here."""
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.train import (CudaConfig, CudaTrainer, RunConfig,
+                                     ScalingConfig)
+
+    cfg = cfg or train_llama_lora.lora_config()
+    work = tempfile.mkdtemp(prefix="rtt_data_ingest_")
+    out_dir = os.path.join(work, "out")
+    os.makedirs(out_dir)
+    seq = corpus["tokens"].shape[1] - 1
+    rt.init(num_workers=2, num_cpus=8, object_store_memory=store_bytes(
+        8 * corpus["bytes"]))
+    try:
+        ds = (rd.read_numpy(os.path.join(corpus["dir"], "*.npz"))
+              .map_batches(digest_fn(corpus["w"]), batch_size=256)
+              .random_shuffle(seed=0))
+        trainer = CudaTrainer(
+            train_llama_lora.ingest_train_loop,
+            train_loop_config={"device": device.type, "seed": 0, "cfg": cfg,
+                               "steps": steps, "batch": batch,
+                               "digest_w": corpus["w"].tolist(),
+                               "out_dir": out_dir},
+            datasets={"train": ds},
+            scaling_config=ScalingConfig(
+                num_workers=2, use_gpu=True,
+                resources_per_worker={"GPU": 0.5, "CPU": 1}),
+            run_config=RunConfig(name="data_ingest",
+                                 storage_path=os.path.join(work, "store")),
+            cuda_config=CudaConfig(distributed_mode="collective",
+                                   device=device.type))
+        t0 = time.time()
+        res = with_deadline(timeout, trainer.fit, "data_ingest fit")
+        fit_s = time.time() - t0
+        if res.error is not None:
+            raise AssertionError(f"data_ingest fit failed: {res.error!r}")
+        spilled = _spill_dir_bytes()
+    finally:
+        rt.shutdown()
+    recs = _records(out_dir)
+    if sorted(recs) != [0, 1]:
+        raise AssertionError(f"data_ingest ranks reported {sorted(recs)}")
+    for r, lines in recs.items():
+        if [x["step"] for x in lines] != list(range(1, steps + 1)):
+            raise AssertionError(f"rank {r} steps {[x['step'] for x in lines]}")
+    # gates 1 and 2: the batches, checked by row_id (blocks reach the
+    # split in the order they complete, so never by position)
+    seen = check_batches(recs, corpus, batch, seq)
+    # gate 3: the data-parallel invariant, bit for bit
+    for step in range(steps):
+        if len({recs[r][step]["digest"] for r in recs}) != 1:
+            raise AssertionError(f"ranks' adapters differ after step "
+                                 f"{step + 1}")
+    # gate 6: each worker's launches a step
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_fused": cfg.n_layers,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "plain_dispatches": 0}
+    for r, lines in recs.items():
+        for x in lines:
+            if x["launches"] != want:
+                raise AssertionError(f"rank {r} step {x['step']} launches "
+                                     f"{x['launches']}, want {want}")
+    # gate 5: the step-0 loss against a fresh model's cross entropy
+    losses = [x["global_loss"] for x in recs[0]]
+    ce0 = init_ce(cfg.vocab_size, cfg.dim)
+    if not all(math.isfinite(v) for v in losses) or abs(losses[0] - ce0) > 0.5:
+        raise AssertionError(f"data_ingest losses {losses}, step-0 "
+                             f"expected near {ce0}")
+    # gate 4: the step-0 synced gradient against one process's on the
+    # same rows (rank order: the mean over equal shares is the batch's)
+    rows0 = [rid for r in sorted(recs) for rid in recs[r][0]["row_ids"]]
+    ref = train_llama_lora.build(device, len(rows0), seq, 0, cfg,
+                                 tokens=corpus["tokens"][rows0])
+    ref_loss, ref_grads = train_llama_lora.lora_grads(ref, ref["tokens"])
+    flat_ref = torch.cat([g.float().reshape(-1) for g in ref_grads])
+    with np.load(os.path.join(out_dir, "grad0.npz")) as z:
+        flat = torch.cat([torch.from_numpy(z[f"arr_{i}"]).reshape(-1)
+                          for i in range(len(z.files))]).to(device)
+    grad_rel = _rel_norm(flat, flat_ref)
+    del ref, ref_grads, flat_ref, flat
+    torch.cuda.empty_cache()
+    if grad_rel > FULL_GRAD_TOL:
+        raise AssertionError(f"data_ingest synced step-0 gradient vs one "
+                             f"process on the same rows: {grad_rel}")
+    step_ms = [max(recs[r][i]["ms"] for r in recs) for i in range(steps)]
+    steady = step_ms[1:]
+    waits = [recs[r][i]["wait_ms"] for r in recs for i in range(1, steps)]
+    shares = [recs[r][i]["wait_ms"] / recs[r][i]["ms"] for r in recs
+              for i in range(1, steps)]
+    tokens = 2 * batch * seq
+    first_entry = min(recs[r][0]["loop_entry"] for r in recs)
+    return {
+        "phase": "data_ingest", "nvidia_smi": smi,
+        "pipeline": "read_numpy -> map_batches(digest, batch_size=256) -> "
+                    "random_shuffle(seed=0) -> streaming_split(2) -> "
+                    "iter_cuda_batches(batch_size=4)",
+        "trainer": "CudaTrainer(ingest_train_loop)",
+        "distributed_mode": "collective", "workers": 2,
+        "resources_per_worker": {"GPU": 0.5, "CPU": 1},
+        "model": "llama_1b4", "source": "bench.py bench_llama_lora (its "
+        "chip config)", "n_layers": cfg.n_layers, "dim": cfg.dim,
+        "attention": cfg.attention, "lora_rank": 8,
+        "corpus_rows": int(corpus["tokens"].shape[0]),
+        "corpus_files": corpus["files"], "seq": seq,
+        "dataset_mb": (corpus["bytes"] + 8 * corpus["tokens"].shape[0]) / 1e6,
+        "spill_dir_bytes_at_end": spilled,
+        "global_batch": 2 * batch, "steps": steps,
+        "rows_trained": len(seen), "rows_distinct": len(set(seen)),
+        "batches_on_card_int32_digest_checked": True,
+        "ranks_bit_equal_every_step": True,
+        "global_losses": losses, "step0_loss": losses[0],
+        "step0_expected_ce": ce0, "one_process_step0_loss": float(ref_loss),
+        "step0_synced_grad_rel_err_vs_one_process": grad_rel,
+        "step0_grad_tolerance": FULL_GRAD_TOL,
+        "launches_per_step_per_worker": want,
+        "launches_total": {k: sum(x["launches"][k] for lines in recs.values()
+                                  for x in lines) for k in want},
+        "step_ms": step_ms,
+        "tokens_per_s_steady": tokens * len(steady) / (sum(steady) / 1e3),
+        "first_batch_s": {r: recs[r][0]["wait_ms"] / 1e3 for r in recs},
+        "ingest_wait_ms_steady": {
+            "median": statistics.median(waits), "max": max(waits),
+            "share_of_step_median": statistics.median(shares),
+            "share_of_step_max": max(shares)},
+        "sync_ms": {k: [max(recs[r][i]["sync_ms"][k] for r in recs)
+                        for i in range(steps)]
+                    for k in recs[0][0]["sync_ms"]},
+        "peak_mem_gb": {r: max(x["peak_gb"] for x in recs[r])
+                        for r in recs},
+        "startup_s": first_entry - t0, "fit_s": fit_s,
+    }
+
+
+def tune_trainer(device, smi: str, corpus: dict, *, n_layers=4,
+                 lrs=(1e-4, 1e-3), batch=4, steps=3, cfg=None,
+                 timeout: float = 900.0) -> dict:
+    """`Tuner(CudaTrainer(ingest_train_loop, datasets=...))` sweeping the
+    learning rate over a grid, two trials at once, each a one-worker
+    trainer (`GPU` 0.5, `CPU` 1) taking `steps` LoRA steps on `batch`
+    rows of the corpus after `read_numpy` -> `map_batches` (no shuffle).
+    Every gate of the line is held here."""
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import (CudaConfig, CudaTrainer, RunConfig,
+                                     ScalingConfig)
+
+    cfg = cfg or train_llama_lora.lora_config(n_layers=n_layers)
+    work = tempfile.mkdtemp(prefix="rtt_tune_trainer_")
+    seq = corpus["tokens"].shape[1] - 1
+    rt.init(num_workers=2, num_cpus=8, object_store_memory=store_bytes(
+        8 * corpus["bytes"]))
+    try:
+        ds = (rd.read_numpy(os.path.join(corpus["dir"], "*.npz"))
+              .map_batches(digest_fn(corpus["w"]), batch_size=256))
+        trainer = CudaTrainer(
+            train_llama_lora.ingest_train_loop, datasets={"train": ds},
+            scaling_config=ScalingConfig(
+                num_workers=1, resources_per_worker={"GPU": 0.5, "CPU": 1}),
+            run_config=RunConfig(name="inner",
+                                 storage_path=os.path.join(work, "inner")),
+            cuda_config=CudaConfig(distributed_mode="collective",
+                                   device=device.type))
+        tuner = tune.Tuner(
+            trainer,
+            param_space={"train_loop_config": {
+                "lr": tune.grid_search(list(lrs)), "device": device.type,
+                "seed": 0, "cfg": cfg, "steps": steps, "batch": batch,
+                "digest_w": corpus["w"].tolist()}},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        max_concurrent_trials=len(lrs),
+                                        resources_per_trial={"CPU": 0.5}),
+            run_config=RunConfig(name="tune_trainer", storage_path=work))
+        t0 = time.time()
+        grid = with_deadline(timeout, tuner.fit, "tune_trainer fit")
+        fit_s = time.time() - t0
+    finally:
+        rt.shutdown()
+    # gate 1: every trial ended TERMINATED, none in error
+    with open(os.path.join(grid.experiment_path,
+                           "experiment_state.json")) as f:
+        status = [t["status"] for t in json.load(f)["trials"]]
+    if grid.num_errors or status != ["TERMINATED"] * len(lrs):
+        raise AssertionError(f"tune_trainer trials {status}, errors "
+                             f"{grid.errors}")
+    trials = {}
+    for res in grid:
+        hist = [m for m in res.metrics_history if "step" in m]
+        lr = res.metrics["config"]["train_loop_config"]["lr"]
+        if [m["step"] for m in hist] != list(range(1, steps + 1)):
+            raise AssertionError(f"trial lr {lr} steps {hist}")
+        # gate 3 (first half): the lr each trial's optimizer used
+        if any(m["lr"] != lr for m in hist):
+            raise AssertionError(f"trial lr {lr} recorded "
+                                 f"{[m['lr'] for m in hist]}")
+        trials[lr] = {"hist": hist, "result": res}
+    for t in trials.values():  # each trial reads the dataset anew
+        check_batches({0: t["hist"]}, corpus, batch, seq)
+    # gate 2: each trial's step-0 loss against one process's on its rows
+    ref = train_llama_lora.build(device, batch, seq, 0, cfg)
+    ref_losses = {}
+    with torch.no_grad():
+        for lr, t in trials.items():
+            rows = torch.as_tensor(corpus["tokens"][t["hist"][0]["row_ids"]],
+                                   device=device)
+            ref_losses[lr] = float(llama.loss_fn(cfg, ref["params"], rows,
+                                                 lora=ref["lora"]))
+            got = t["hist"][0]["loss"]
+            if abs(got - ref_losses[lr]) > TUNE_LOSS_TOL * abs(ref_losses[lr]):
+                raise AssertionError(f"trial lr {lr} step-0 loss {got} vs "
+                                     f"one process {ref_losses[lr]}")
+    del ref
+    torch.cuda.empty_cache()
+    # gate 3 (second half): the two learning rates gave other adapters
+    after1 = [t["hist"][0]["digest"] for t in trials.values()]
+    if len(set(after1)) != len(after1):
+        raise AssertionError("trials' adapters are equal after step 1")
+    # gate 4: the best result is the trial with the lower last loss
+    best = grid.get_best_result("loss", "min")
+    lowest = min(trials, key=lambda lr: trials[lr]["hist"][-1]["loss"])
+    if best is not trials[lowest]["result"]:
+        raise AssertionError(f"best result lr "
+                             f"{best.metrics['config']['train_loop_config']}"
+                             f", lowest last loss at lr {lowest}")
+    # gate 5: the trials' step windows overlap (both on the card at once)
+    windows = {lr: (t["hist"][0]["t_start"], t["hist"][-1]["t_end"])
+               for lr, t in trials.items()}
+    if max(a for a, _ in windows.values()) >= min(
+            b for _, b in windows.values()):
+        raise AssertionError(f"trial step windows do not overlap: "
+                             f"{windows}")
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_fused": cfg.n_layers,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "plain_dispatches": 0}
+    for lr, t in trials.items():
+        for m in t["hist"]:
+            if m["launches"] != want:
+                raise AssertionError(f"trial lr {lr} step {m['step']} "
+                                     f"launches {m['launches']}")
+    return {
+        "phase": "tune_trainer", "nvidia_smi": smi,
+        "tuner": "Tuner(CudaTrainer(ingest_train_loop, datasets=...))",
+        "model": "llama_1b4", "source": "bench.py bench_llama_lora (its "
+        "chip config)", "dim": cfg.dim, "n_layers": cfg.n_layers,
+        "reduced": "depth 22 -> 4 layers: keeps the phase in the time "
+                   "limit; Tune's mechanism does not depend on depth",
+        "lrs": list(lrs), "steps": steps, "batch": batch, "seq": seq,
+        "pipeline": "read_numpy -> map_batches(digest, batch_size=256) -> "
+                    "streaming_split(1) -> iter_cuda_batches(batch_size=4)",
+        "max_concurrent_trials": len(lrs),
+        "resources_per_trial": {"CPU": 0.5},
+        "resources_per_worker": {"GPU": 0.5, "CPU": 1},
+        "statuses": status, "num_errors": grid.num_errors,
+        "best_lr": best.metrics["config"]["train_loop_config"]["lr"],
+        "launches_per_step_per_trial": want,
+        "windows_overlap_s": min(b for _, b in windows.values())
+        - max(a for a, _ in windows.values()),
+        "fit_s": fit_s,
+        "trials": {str(lr): {
+            "losses": [m["loss"] for m in t["hist"]],
+            "step0_loss_one_process": ref_losses[lr],
+            "step0_loss_rel_diff": abs(t["hist"][0]["loss"] - ref_losses[lr])
+            / abs(ref_losses[lr]),
+            "step_ms": [m["ms"] for m in t["hist"]],
+            "ingest_wait_ms": [m["wait_ms"] for m in t["hist"]],
+            "startup_s": t["hist"][0]["loop_entry"] - t0,
+            "wall_s": t["hist"][-1]["t_end"] - t0,
+            "peak_mem_gb": max(m["peak_gb"] for m in t["hist"]),
+        } for lr, t in trials.items()},
+    }
+
+
+def data_tune_phases(device, smi: str) -> None:
+    """data_ingest, then tune_trainer, over one corpus written to a temp
+    directory; each boots the port's runtime and shuts it down."""
+    corpus_dir = tempfile.mkdtemp(prefix="rtt_corpus_")
+    try:
+        t0 = time.perf_counter()
+        corpus = write_corpus(corpus_dir, vocab=32000)
+        write_s = time.perf_counter() - t0
+        emit({**data_ingest(device, smi, corpus), "corpus_write_s": write_s,
+              "wall_s": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        emit({**tune_trainer(device, smi, corpus),
+              "wall_s": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(corpus_dir, ignore_errors=True)
+
+
 def xent_case(N, E, V, x_dtype, w_dtype, device, seed=0) -> dict:
     """Seeded x [N, E] ~ N(0, 1), w [V, E] ~ N(0, 0.05^2), targets with 0
     and V - 1 among them, and the plain forward's lse: the inputs each
@@ -3215,6 +3635,9 @@ def main() -> int:
     # resumed fit, the NCCL mode at one worker) and sequence-parallel
     # attention over a process group
     run_parallel_phases(device, smi)
+    # a shuffled token dataset streamed into the trainer's workers through
+    # iter_cuda_batches, then a Tuner sweeping the trainer's learning rate
+    data_tune_phases(device, smi)
     # compiled graphs with the tensor codec, Mixtral's widths trained,
     # expert parallelism over a process group, a 1F1B pipeline of
     # Llama-3-8B blocks over the port's channels

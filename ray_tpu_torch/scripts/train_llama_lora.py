@@ -23,7 +23,8 @@ under `torch.profiler` (`train_gpt2.profile_step`: host ms, device busy
 ms, idle share, top kernels; the Chrome trace to `--trace`, default
 `profiles/lora_trace.json`).  Needs one CUDA card.
 
-`dp_train_loop` is the same step as a `CudaTrainer` worker's train loop:
+`dp_train_loop` is the same step as a `CudaTrainer` worker's train loop
+(`ingest_train_loop` the same again, fed by the trainer's dataset shard):
 each worker takes its share of the global batch, and the adapters'
 gradients are mean-allreduced over the workers (the collective group
 through `cuda_utils.sync_gradients` in the "collective" mode, the
@@ -221,6 +222,23 @@ def _process_group_mean(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     return out
 
 
+def _synced(grads: List[torch.Tensor], loss: torch.Tensor, over_pg: bool):
+    """The gradients mean-allreduced over the workers (the process group
+    when `over_pg`, else the host collective group), the loss averaged
+    over them, and the sync's phases in ms."""
+    if over_pg:
+        t_sync = time.perf_counter()
+        synced = _process_group_mean(grads + [loss.reshape(1)])
+        global_loss = float(synced.pop())
+        return synced, global_loss, {
+            "allreduce": (time.perf_counter() - t_sync) * 1e3}
+    from ray_tpu_torch.train.cuda_utils import (
+        LAST_SYNC_MS, sync_gradients, world_mean)
+
+    synced = sync_gradients(grads)
+    return synced, world_mean(float(loss)), dict(LAST_SYNC_MS)
+
+
 def dp_train_loop(config: Dict) -> None:
     """A `CudaTrainer` worker's loop: the LoRA step on this worker's
     share of the global batch, the adapters' gradients mean-allreduced
@@ -240,8 +258,6 @@ def dp_train_loop(config: Dict) -> None:
     the step as a checkpoint every step."""
     from ray_tpu_torch import train
     from ray_tpu_torch.train import Checkpoint
-    from ray_tpu_torch.train.cuda_utils import (
-        LAST_SYNC_MS, sync_gradients, world_mean)
 
     loop_entry = time.time()
     ctx = train.get_context()
@@ -290,15 +306,7 @@ def dp_train_loop(config: Dict) -> None:
             torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         loss, grads = lora_grads(state, tokens)
-        if over_pg:
-            t_sync = time.perf_counter()
-            synced = _process_group_mean(grads + [loss.reshape(1)])
-            global_loss = float(synced.pop())
-            sync_ms = {"allreduce": (time.perf_counter() - t_sync) * 1e3}
-        else:
-            synced = sync_gradients(grads)
-            global_loss = world_mean(float(loss))
-            sync_ms = dict(LAST_SYNC_MS)
+        synced, global_loss, sync_ms = _synced(grads, loss, over_pg)
         state["opt_state"], _ = opt.update(synced, state["opt_state"],
                                            state["lora"])
         if device.type == "cuda":
@@ -325,6 +333,96 @@ def dp_train_loop(config: Dict) -> None:
         train.report({"step": step + 1, "loss": rec["loss"],
                       "global_loss": rec["global_loss"], "ms": ms},
                      checkpoint=ck)
+
+
+def row_digest(tokens: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Each row's `tokens @ w % (2**31 - 1)` in int64, as an elementwise
+    product and a sum (no int64 matmul on the card)."""
+    return (tokens.long() * w).sum(-1) % (2**31 - 1)
+
+
+def ingest_train_loop(config: Dict) -> None:
+    """A `CudaTrainer` worker's loop fed by its dataset shard: each step
+    takes the next `batch` rows of `get_dataset_shard("train")` through
+    `iter_cuda_batches` and runs the LoRA step on their `tokens`, the
+    adapters' gradients synced over the workers as in `dp_train_loop`.
+
+    `config`: `device`, `seed`, `cfg` (or numpy `params` / `lora`) as
+    `build` takes them, `steps`, `batch` (rows a step a worker), `lr`
+    (AdamW's, default 2e-4), `digest_w` (when given, each row's `digest`
+    column is checked against `row_digest` of its tokens on the device,
+    and recorded), `out_dir` (each rank appends one JSON line a step to
+    `rank{r}.jsonl`; rank 0 writes its first step's synced gradient to
+    `grad0.npz`).  Every step reports
+    the same record: loss, lr, wall ms, the ingest wait (ms inside
+    `next()`), the batch's `row_id` column (when it has one), its
+    device, dtype and shape, the flash launches, peak memory and the
+    adapters' digest."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+
+    loop_entry = time.time()
+    ctx = train.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    device = resolve_device(config.get("device"))
+    out_dir: Optional[str] = config.get("out_dir")
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    b = config.get("batch", 4)
+    state = build(device, b, 1, config.get("seed", 0), config.get("cfg"),
+                  params=config.get("params"), lora=config.get("lora"))
+    w = config.get("digest_w")
+    if w is not None:
+        w = torch.as_tensor(np.asarray(w, np.int64), device=device)
+    lr = config.get("lr", 2e-4)
+    opt = adamw(lr)
+    shard = train.get_dataset_shard("train")
+    it = iter(shard.iter_cuda_batches(batch_size=b, device=device))
+    over_pg = dist.is_initialized()
+    for step in range(config["steps"]):
+        t_start = time.time()
+        reset_flash_counts()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        if batch is None:
+            raise RuntimeError(f"rank {rank}: the dataset shard ran out "
+                               f"at step {step + 1}")
+        tokens = batch["tokens"]
+        checks = {"device": str(tokens.device),
+                  "dtype": str(tokens.dtype).replace("torch.", ""),
+                  "shape": list(tokens.shape)}
+        if w is not None:
+            checks["digest_ok"] = bool(torch.equal(
+                row_digest(tokens, w), batch["digest"].long()))
+            checks["row_digests"] = batch["digest"].cpu().tolist()
+        loss, grads = lora_grads(state, tokens)
+        synced, global_loss, sync_ms = _synced(grads, loss, over_pg)
+        state["opt_state"], _ = opt.update(synced, state["opt_state"],
+                                           state["lora"])
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t_end = time.time()
+        rec = {"rank": rank, "world": world, "step": step + 1,
+               "loss": float(loss), "global_loss": global_loss, "lr": lr,
+               "ms": (time.perf_counter() - t0) * 1e3, "wait_ms": wait_ms,
+               "sync_ms": sync_ms,
+               "row_ids": (batch["row_id"].cpu().tolist()
+                           if "row_id" in batch else None), **checks,
+               "launches": flash_counts(), "digest": digest(state["lora"]),
+               "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                           if device.type == "cuda" else None),
+               "loop_entry": loop_entry, "t_start": t_start, "t_end": t_end}
+        if out_dir:
+            with open(os.path.join(out_dir, f"rank{rank}.jsonl"), "a") as f:
+                f.write(json.dumps(rec) + "\n")
+            if step == 0 and rank == 0:
+                np.savez(os.path.join(out_dir, "grad0.npz"),
+                         *[g.float().cpu().numpy() for g in synced])
+        train.report(rec)
 
 
 def main() -> None:

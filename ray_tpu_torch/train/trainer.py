@@ -4,8 +4,7 @@ Reference: `train/base_trainer.py:111` BaseTrainer.fit,
 `train/data_parallel_trainer.py:25` DataParallelTrainer.  Differences
 by design: fit() drives the executor directly (the reference detours
 through Tune — our Tune-equivalent wraps trainers via
-`as_trainable()` the same way; the port's tune is ROADMAP.md queue 1
-item 9, so `as_trainable()` raises until it lands).
+`as_trainable()` the same way, see `ray_tpu_torch/tune`).
 """
 
 from __future__ import annotations
@@ -76,12 +75,11 @@ class BaseTrainer:
         raise NotImplementedError
 
     def as_trainable(self):
-        """Wrap into a Tune Trainable (reference `base_trainer.py:819`).
-        The port's tune is not ported yet."""
-        raise NotImplementedError(
-            "as_trainable() needs ray_tpu_torch.tune, which is not ported "
-            "yet (ROADMAP.md queue 1 item 9: the jax-free rest, tune/ "
-            "first)")
+        """Wrap into a Tune Trainable (reference `base_trainer.py:819`);
+        imported lazily to keep train usable without tune."""
+        from ray_tpu_torch.tune.trainable import wrap_trainer
+
+        return wrap_trainer(self)
 
 
 class DataParallelTrainer(BaseTrainer):

@@ -1,5 +1,5 @@
 """Drift guard for the port's copies of the JAX package's jax-free
-runtime and serve plane.
+runtime, serve plane, data and tune libraries.
 
 A module listed in `COPIES` is the `ray_tpu/` original with only the
 namespace rewritten (`rewrite`): the package name (`ray_tpu` ->
@@ -29,7 +29,7 @@ _RULES = (
 # the store-name prefix the sweep reaps (the node daemon, adapted,
 # creates its stores under the same prefix)
 _SHM_RULE = (re.compile(r'prefix: str = "rt_"'), 'prefix: str = "rtt_"')
-# the train workers' accelerator resource is the GPU
+# the train workers' and the tune trials' accelerator resource is the GPU
 _GPU_RULE = (re.compile(r'res\.pop\("TPU", 0\.0\)'), 'res.pop("GPU", 0.0)')
 # the session base follows TMPDIR: two checkouts run with temp dirs of
 # their own never share a session, an `address="auto"` join or a
@@ -57,7 +57,7 @@ def rewrite(text: str, rel: str = "") -> str:
         text = pat.sub(sub, text)
     if rel == "shm/__init__.py":
         text = _SHM_RULE[0].sub(_SHM_RULE[1], text)
-    if rel == "train/worker_group.py":
+    if rel in ("train/worker_group.py", "tune/controller.py"):
         text = _GPU_RULE[0].sub(_GPU_RULE[1], text)
     text, n = _TMP_RULE[0].subn(_TMP_RULE[1], text)
     if n:
@@ -94,6 +94,12 @@ COPIES = (
     "api.py",
     "dag/__init__.py", "dag/dag_node.py", "dag/execution.py",
     "dag/compiled_dag.py",
+    "data/__init__.py", "data/block.py", "data/context.py",
+    "data/aggregate.py", "data/plan.py", "data/datasource.py",
+    "data/tfrecord.py", "data/avro.py", "data/executor.py",
+    "data/shuffle.py",
+    "tune/__init__.py", "tune/search.py", "tune/schedulers.py",
+    "tune/trainable.py", "tune/controller.py", "tune/tuner.py",
 )
 
 # module -> the test that holds what it changes
@@ -145,12 +151,12 @@ ADAPTED = {
     # the ScalingConfig, DeviceMesh sessions, DTensor sharded checkpoints
     "train/__init__.py": "test_torch_train.py::"
                          "test_config_names_the_gpu_and_as_trainable_"
-                         "names_the_roadmap",
+                         "wraps_for_tune",
     "train/config.py": "test_torch_train.py::"
                        "test_fractional_gpu_workers_share_the_card",
     "train/trainer.py": "test_torch_train.py::"
                         "test_config_names_the_gpu_and_as_trainable_"
-                        "names_the_roadmap",
+                        "wraps_for_tune",
     "train/backend.py": "test_torch_train_distributed.py::"
                         "test_torch_distributed_builds_the_mesh_and_"
                         "trains_over_it",
@@ -176,6 +182,12 @@ ADAPTED = {
                                 "test_1f1b_matches_serial_loss_and_grads",
     "models/mixtral.py": "test_torch_mixtral.py::"
                          "test_train_steps_match_optax",
+    # `iter_jax_batches` becomes `iter_cuda_batches`; the rest is the
+    # original's (test_data_outside_the_cuda_feed_is_a_copy below)
+    "data/dataset.py": "test_torch_data_ingest.py::"
+                       "test_iter_cuda_batches_equals_iter_jax_batches",
+    "data/iterator.py": "test_torch_data_ingest.py::"
+                        "test_split_iter_cuda_batches_equals_iter_jax_batches",
 }
 
 
@@ -195,7 +207,7 @@ def test_every_runtime_module_is_a_copy_or_adapted():
     port = REPO / "ray_tpu_torch"
     listed = set(COPIES) | set(ADAPTED)
     for sub in ("core", "metrics", "shm", "util", "serve", "parallel",
-                "train", "dag"):
+                "train", "dag", "data", "tune"):
         for f in (port / sub).iterdir():
             if f.suffix in (".py", ".cc"):
                 assert f"{sub}/{f.name}" in listed, f"{sub}/{f.name}"
@@ -231,6 +243,25 @@ def test_channel_outside_the_codec_is_a_copy():
         o = orig[orig.index(start):orig.index(end) if end else None]
         p = port[port.index(start):port.index(end) if end else None]
         assert p == o, start
+
+
+@pytest.mark.parametrize("rel,orig_end,port_end,tail", [
+    ("data/dataset.py", "    def iter_jax_batches(",
+     "    def iter_cuda_batches(", "    def iter_torch_batches("),
+    ("data/iterator.py", "    def iter_jax_batches(",
+     "    def iter_cuda_batches(", "\n\ndef make_streaming_split("),
+])
+def test_data_outside_the_cuda_feed_is_a_copy(rel, orig_end, port_end, tail):
+    """`data/dataset.py` and `data/iterator.py` port only the feed onto
+    the device: from the imports up to `iter_jax_batches`, and from the
+    method after it (`iter_torch_batches`, `make_streaming_split`) to
+    the end, each is the original's after the rewrite."""
+    orig = rewrite((REPO / "ray_tpu" / rel).read_text(), rel)
+    port = (REPO / "ray_tpu_torch" / rel).read_text()
+    start = "from __future__ import annotations"
+    assert (port[port.index(start):port.index(port_end)]
+            == orig[orig.index(start):orig.index(orig_end)])
+    assert port[port.index(tail):] == orig[orig.index(tail):]
 
 
 def test_rewrite_keeps_the_namespaces_apart():

@@ -41,6 +41,12 @@ RUNTIME_MODULES = (
     "dag/__init__.py", "dag/channel.py", "dag/compiled_dag.py",
     "dag/dag_node.py", "dag/execution.py", "parallel/moe.py",
     "parallel/pipeline.py", "parallel/pipeline_dag.py", "models/mixtral.py",
+    "data/__init__.py", "data/block.py", "data/context.py",
+    "data/aggregate.py", "data/plan.py", "data/datasource.py",
+    "data/tfrecord.py", "data/avro.py", "data/executor.py",
+    "data/shuffle.py", "data/iterator.py", "data/dataset.py",
+    "tune/__init__.py", "tune/search.py", "tune/schedulers.py",
+    "tune/trainable.py", "tune/controller.py", "tune/tuner.py",
 )
 
 
@@ -236,9 +242,11 @@ def test_engine_serves_with_jax_and_ray_tpu_blocked(tmp_path):
 
 def test_runtime_modules_do_not_import_torch():
     """Node daemons and workers import the package, the runtime, the
-    serve plane, the train plane (a train worker actor) and the compiled
-    graphs (an exec loop, a pipeline stage); none of that imports torch
-    (resolve_device imports it when called)."""
+    serve plane, the train plane (a train worker actor), the compiled
+    graphs (an exec loop, a pipeline stage), data (read, map and
+    shuffle tasks, the split coordinator) and tune (a trial actor);
+    none of that imports torch (resolve_device and the feed onto the
+    card import it when called)."""
     code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {str(REPO)!r})
@@ -253,6 +261,12 @@ def test_runtime_modules_do_not_import_torch():
         import ray_tpu_torch.dag
         import ray_tpu_torch.dag.execution
         import ray_tpu_torch.util.collective
+        import ray_tpu_torch.data
+        import ray_tpu_torch.data.shuffle
+        import ray_tpu_torch.data.tfrecord
+        import ray_tpu_torch.data.avro
+        import ray_tpu_torch.tune
+        import ray_tpu_torch.tune.controller
         bad = sorted(m for m in sys.modules if m.split(".")[0] == "torch")
         assert not bad, bad
         print("OK")
@@ -317,6 +331,58 @@ def test_runtime_serves_http_with_jax_and_ray_tpu_blocked(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                           env=env, capture_output=True, text=True,
                           timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")
+    assert not sorted(p.name for p in marks.iterdir())
+
+
+def test_data_and_tune_run_with_jax_and_ray_tpu_blocked(tmp_path):
+    """A driver, its node daemon and every worker run with `jax` and
+    `ray_tpu` replaced by modules that refuse to import: a shuffled,
+    sorted dataset reaches the driver through `iter_cuda_batches` on
+    the CPU, and a `Tuner` runs a grid of two trials, with nothing
+    trying to import the blocked packages."""
+    block = tmp_path / "block"
+    block.mkdir()
+    marks = tmp_path / "marks"
+    marks.mkdir()
+    for name in FORBIDDEN:
+        (block / f"{name}.py").write_text(textwrap.dedent(f"""
+            import os
+            open(os.path.join({str(marks)!r}, "{name}." + str(os.getpid())),
+                 "w").close()
+            raise ImportError("{name} is blocked for this run")
+        """))
+    code = textwrap.dedent("""
+        import ray_tpu_torch as rt
+        from ray_tpu_torch import data as rd
+        from ray_tpu_torch import tune
+        rt.init(num_workers=2, num_cpus=4)
+        try:
+            ds = (rd.range(64, parallelism=4)
+                  .map_batches(lambda b: {"id": b["id"], "sq": b["id"] ** 2})
+                  .random_shuffle(seed=0).sort("id"))
+            got = [b["sq"].tolist()
+                   for b in ds.iter_cuda_batches(batch_size=16, device="cpu")]
+            assert sum(got, []) == [i * i for i in range(64)], got
+
+            def objective(config):
+                tune.report({"score": config["x"] * 2})
+
+            grid = tune.Tuner(objective, param_space={
+                "x": tune.grid_search([1, 3])}).fit()
+            assert grid.num_errors == 0
+            assert grid.get_best_result("score", "max").metrics["score"] == 6
+        finally:
+            rt.shutdown()
+        print("OK")
+    """)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("RT_", "RTT_"))}
+    env["PYTHONPATH"] = f"{block}{os.pathsep}{REPO}"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=180)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK")
     assert not sorted(p.name for p in marks.iterdir())

@@ -245,7 +245,7 @@ def test_torch_trainer_ddp(cluster, tmp_path):
 # ----------------------------------------------------------------------
 # what the port changes
 # ----------------------------------------------------------------------
-def test_config_names_the_gpu_and_as_trainable_names_the_roadmap():
+def test_config_names_the_gpu_and_as_trainable_wraps_for_tune():
     from ray_tpu.train import JaxConfig, ScalingConfig as JScaling
 
     s = ScalingConfig(num_workers=2, use_gpu=True)
@@ -261,8 +261,15 @@ def test_config_names_the_gpu_and_as_trainable_names_the_roadmap():
         JaxConfig().distributed_mode, "cuda", JaxConfig().collective_group_name)
     assert c.process_group_backend == "nccl"
     assert CPU.process_group_backend == "gloo"
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        CudaTrainer(lambda c: None).as_trainable()
+    from ray_tpu_torch.tune import Tuner
+
+    trainer = CudaTrainer(lambda c: None)
+    trainable = trainer.as_trainable()
+    assert callable(trainable) and trainable.__name__ == "CudaTrainer"
+    # the trainable `Tuner` runs is the one `as_trainable` makes
+    kind, run = Tuner(trainer)._trainable_def
+    assert kind == "function" and run.__name__ == "CudaTrainer"
+    assert run.__code__ is trainable.__code__
 
 
 def test_fractional_gpu_workers_share_the_card(cluster, tmp_path):
