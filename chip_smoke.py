@@ -193,6 +193,23 @@ exits non-zero:
     execute over 3, the bytes through the channels, the bubble model's
     (S-1)/(M+S-1), and each stage's K1 / K2 launches over the timed
     executes (M each an execute), read in the stage.
+13h. rllib_ppo: BASELINE config #3's fleet (`rllib/bench.py`'s
+    defaults: CartPole, 8 runners x 16 envs x 64 steps, minibatch
+    2,048, 2 epochs, lr 3e-4, seed 0) with the learner on the card, a
+    gang of 1, 1 warm-up + 4 iterations in the overlap, sync and
+    compiled-DAG rounds: env steps/s, updates/s, the overlap, the
+    learner's ms a minibatch (h2d copy, forward + backward, optimizer;
+    CUDA events), the weights' device-to-host ms, the card's idle share
+    over one more profiled iteration, peak memory.  Held: exact
+    accounting and no replacement; the first update on the card against
+    the plain CPU learner from the same state and minibatch
+    (`RLLIB_TOL`); the runners' weights bit-equal to the learner's.
+    Then the reference's learning gate on the card (2 x 8 x 64,
+    minibatch 256, 4 epochs, 20 iterations: late > max(40, early +
+    15)).  rllib_ppo_pixels: `CatchPixelEnv` at 84 x 84 stacked to 4,
+    the default `CNNModule`, 4 runners x 8 envs x 64 steps, minibatch
+    512, 4 epochs, sync, 1 + 3 iterations, cuDNN's TF32 on around it:
+    the same readings and gate, and a runner's batch MB.
 14. K1-K4 timed at the training shape (bf16, causal), and K3 and K4 at
     the second split shape (BH 32, T 4,096, D 128), beside their bounds,
     plain versions and `scaled_dot_product_attention`, with each
@@ -228,6 +245,7 @@ HBM and its dense peaks (989 TFLOP/s bf16, 67 TFLOP/s f32).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -3391,6 +3409,373 @@ def xent_main_path(device, *, cfg=None, batch=32, seq=1024,
 
 
 # ----------------------------------------------------------------------
+# ----------------------------------------------------------------------
+# rllib: PPO at BASELINE config #3's fleet, and the CNN learner at
+# Atari's frame shape
+# ----------------------------------------------------------------------
+# the first update on the card against the plain CPU learner from the
+# same params, optimizer state and minibatch, both in f32 (the learner
+# turns TF32 off for its own forward and backward): the loss relative,
+# the gradient by the relative norm of the difference over all leaves,
+# and the params after the step element by element wherever the CPU
+# gradient is 0 or its magnitude above 1e-6.  Between, Adam's step sign
+# can be rounding noise (a flip moves a param by 2 lr): those elements
+# are counted and held to 2 lr
+RLLIB_TOL = {"loss": 1e-5, "grad_rel": 1e-5, "rtol": 1e-5, "atol": 1e-6,
+             "noisy_atol_lr": 2.0}
+RLLIB_NOISE = 1e-6
+
+
+class LearnerProbe:
+    """Instruments a live local learner through instance attributes over
+    its update's three parts: CUDA events around the host-to-device copy
+    (`_to_device`), the forward + backward (`_shard_grads`) and the
+    optimizer (`_apply`) of every minibatch, a host clock around every
+    weights read (`get_weights_numpy`, the device-to-host copy), and
+    copies of the first update's start state, minibatch, metrics,
+    gradient and stepped params."""
+
+    def __init__(self, learner):
+        self.learner = learner
+        self.first = None
+        self._capture = False
+        self.reset()
+        for name, span in (("_to_device", "h2d"),
+                           ("_shard_grads", "fwd_bwd"),
+                           ("_apply", "optimizer")):
+            self._time(name, span)
+        update = learner.update_minibatch_device
+        weights = learner.get_weights_numpy
+
+        def probed_update(batch):
+            if self.first is not None:
+                return update(batch)
+            state = learner.get_state()
+            self._capture = True
+            try:
+                metrics = update(batch)
+            finally:
+                self._capture = False
+            self.first.update(
+                state=state, batch={k: np.array(v) for k, v in batch.items()},
+                metrics={k: float(v) for k, v in metrics.items()},
+                params=weights())
+            return metrics
+
+        def timed_weights():
+            t0 = time.perf_counter()
+            out = weights()
+            self.d2h_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        learner.update_minibatch_device = probed_update
+        learner.get_weights_numpy = timed_weights
+
+    def _time(self, name: str, span: str) -> None:
+        fn = getattr(self.learner, name)
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            self.spans[span].append((start, end))
+            if name == "_apply" and self._capture:
+                self.first = {"grads": [g.detach().cpu().numpy()
+                                        for g in args[0]]}
+            return out
+
+        setattr(self.learner, name, timed)
+
+    def reset(self) -> None:
+        self.spans = {"h2d": [], "fwd_bwd": [], "optimizer": []}
+        self.d2h_ms = []
+
+    def split(self) -> dict:
+        """ms a minibatch of each part (CUDA events, mean over the
+        minibatches since `reset`), and the weights' ms an iteration."""
+        torch.cuda.synchronize()
+        out = {f"{span}_ms": statistics.fmean(s.elapsed_time(e)
+                                              for s, e in pairs)
+               for span, pairs in self.spans.items() if pairs}
+        out["minibatches"] = len(self.spans["fwd_bwd"])
+        out["weights_d2h_ms"] = (statistics.fmean(self.d2h_ms)
+                                 if self.d2h_ms else None)
+        return out
+
+
+def update_vs_cpu(algo, first: dict) -> dict:
+    """The first update on the card (`first`, a `LearnerProbe`'s)
+    against the plain CPU learner started from the same state, on the
+    same minibatch, with the algorithm's own loss and optimizer."""
+    from ray_tpu_torch.rllib.core.learner import Learner
+    from ray_tpu_torch.models.bridge import tree_leaves
+
+    card = algo.learner_group._local
+    cpu = Learner(card.module, card._loss_fn, device="cpu")
+    cpu.optimizer = card.optimizer
+    cpu.set_state(first["state"])
+    metrics, grads = cpu._grads(first["batch"])
+    cpu._apply(grads)
+    loss_rel = abs(first["metrics"]["total_loss"]
+                   - float(metrics["total_loss"])) / abs(
+                       float(metrics["total_loss"]))
+    want_g = np.concatenate([g.numpy().ravel() for g in grads])
+    got_g = np.concatenate([g.ravel() for g in first["grads"]])
+    grad_rel = float(np.linalg.norm(got_g - want_g)
+                     / np.linalg.norm(want_g))
+    lr = card.optimizer.schedule(0)
+    held = noisy = 0
+    worst = worst_noisy = 0.0
+    for got, want, g in zip(tree_leaves(first["params"]),
+                            tree_leaves(cpu.get_weights_numpy()), grads):
+        g = g.numpy()
+        mask = (np.abs(g) > RLLIB_NOISE) | (g == 0)
+        np.testing.assert_allclose(got[mask], want[mask],
+                                   rtol=RLLIB_TOL["rtol"],
+                                   atol=RLLIB_TOL["atol"])
+        np.testing.assert_allclose(got[~mask], want[~mask], rtol=0,
+                                   atol=RLLIB_TOL["noisy_atol_lr"] * lr)
+        held += int(mask.sum())
+        noisy += int((~mask).sum())
+        worst = max(worst, float(np.abs(got - want).max()))
+        worst_noisy = max(worst_noisy, float(np.abs(
+            got[~mask] - want[~mask]).max(initial=0.0)))
+    line = {"loss_rel": loss_rel, "grad_rel_norm": grad_rel,
+            "params_held_strictly": held, "params_noisy_grad": noisy,
+            "params_max_abs_err": worst,
+            "params_noisy_max_abs_err": worst_noisy, "lr": lr,
+            "tolerance": RLLIB_TOL,
+            "minibatch_rows": int(first["batch"]["obs"].shape[0])}
+    assert loss_rel <= RLLIB_TOL["loss"], line
+    assert grad_rel <= RLLIB_TOL["grad_rel"], line
+    return line
+
+
+def device_idle_share(algo) -> dict:
+    """One more iteration under `torch.profiler`: the card's busy ms
+    (the device time of every kernel and copy) over the iteration's wall
+    ms.  The profiler's host overhead lengthens the wall, so the share
+    reads high; None when the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        algo.train()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                  for e in prof.key_averages()) / 1e3
+    return {"profiled_iteration_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms
+            else None}
+
+
+def published_weights_equal(algo) -> bool:
+    """The weights the runners receive (the object they pull, or on the
+    channel plane the tree written to their rings) bit-equal to the
+    learner's."""
+    group = algo.env_runner_group
+    mine = algo.learner_group._local.get_weights_numpy()
+    sent = (group._weights if group._chan_mode else
+            rt.get(group._weights_refs[-1]["ref"], timeout=60))
+    from ray_tpu_torch.models.bridge import tree_leaves
+
+    a, b = tree_leaves(sent), tree_leaves(mine)
+    return len(a) == len(b) and all(np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def rllib_run(algo, probe, smi: str, *, iters: int, deadline: float
+              ) -> dict:
+    """1 warm-up + `iters` timed iterations of a built algorithm: the
+    bench's row (env steps/s, updates/s, the overlap, exactly-once
+    accounting), the learner's split, peak memory and the card's idle
+    share over one more iteration."""
+    group = algo.env_runner_group
+
+    def run():
+        algo.train()  # warm-up: primes the stream and the card
+        probe.reset()
+        torch.cuda.reset_peak_memory_stats()
+        led0 = group.ledger.snapshot()
+        t0 = time.perf_counter()
+        res = [algo.train() for _ in range(iters)]
+        torch.cuda.synchronize()
+        return res, led0, time.perf_counter() - t0
+
+    results, led0, wall_s = with_deadline(deadline, run, "rllib iterations")
+    split = probe.split()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    led1 = group.ledger.snapshot()
+    steps = sum(int(r["num_env_steps_sampled"]) for r in results)
+    updates = sum(int(r["num_learner_updates"]) for r in results)
+    batches = led1["batches"] - led0["batches"]
+    row = {
+        "env_steps_per_s": steps / wall_s, "updates_per_s": updates / wall_s,
+        "env_steps": steps, "updates": updates, "wall_s": wall_s,
+        "iters": iters,
+        "accounting_exact": float(
+            steps == int(led1["env_steps"] - led0["env_steps"])
+            and batches == led1["unique"] - led0["unique"]),
+        "replacements": group.num_replacements,
+        "batch_mb_object_plane": (led1["bytes"] - led0["bytes"])
+        / max(batches, 1) / 1e6,
+        # the runners' own sampling seconds, summed over the batches
+        "ledger_sample_s": led1["sample_s"] - led0["sample_s"],
+        "final_loss": results[-1]["total_loss"],
+        "learner": split, "peak_gb": peak_gb,
+        "weights_bit_equal": published_weights_equal(algo),
+        "nvidia_smi": smi,
+    }
+    if "sample_busy_s" in results[-1]:
+        busy = sum(r["sample_busy_s"] for r in results)
+        wait = sum(r["sample_wait_s"] for r in results)
+        row.update(sample_busy_s=busy, sample_wait_s=wait,
+                   overlap_ratio=max(0.0, busy - wait) / busy if busy
+                   else 0.0)
+    row.update(with_deadline(deadline, lambda: device_idle_share(algo),
+                             "rllib profiled iteration"))
+    assert row["accounting_exact"] == 1.0 and row["replacements"] == 0, row
+    assert row["weights_bit_equal"], row
+    return row
+
+
+def rllib_ppo(device, smi: str, *, runners=8, envs=16, rollout=64,
+              minibatch=2048, epochs=2, iters=4, learn_iters=20) -> dict:
+    """BASELINE config #3's fleet (`rllib/bench.py`'s defaults:
+    CartPole, 8 runners x 16 envs x 64 steps, minibatch 2,048, 2
+    epochs, lr 3e-4, seed 0) with the learner on the card, a gang of 1:
+    overlap, sync and compiled-DAG rounds; the first update held against
+    the plain CPU learner; then the reference's learning criterion
+    (tests/test_rllib.py:126-145) on the card."""
+    from ray_tpu_torch.rllib import PPOConfig
+
+    def config(overlap: bool, dag: bool):
+        return (PPOConfig().environment("CartPole-v1")
+                .env_runners(num_env_runners=runners,
+                             num_envs_per_env_runner=envs,
+                             rollout_fragment_length=rollout)
+                .learners(num_learner_devices=1, device=device)
+                .training(lr=3e-4, minibatch_size=minibatch,
+                          num_epochs=epochs, sample_train_overlap=overlap,
+                          use_compiled_dag=dag)
+                .debugging(seed=0))
+
+    out = {"phase": "rllib_ppo", "env": "CartPole-v1", "runners": runners,
+           "envs_per_runner": envs, "rollout": rollout,
+           "minibatch": minibatch, "epochs": epochs, "gang_devices": 1,
+           "nvidia_smi": smi}
+    rt.init(num_workers=runners + 2, num_cpus=max(16, 2 * runners))
+    try:
+        for mode, overlap, dag in (("overlap", True, False),
+                                   ("sync", False, False),
+                                   ("compiled_dag", True, True)):
+            algo = config(overlap, dag).build()
+            try:
+                probe = LearnerProbe(algo.learner_group._local)
+                out[mode] = rllib_run(algo, probe, smi, iters=iters,
+                                      deadline=120.0)
+                out[mode]["update_vs_cpu"] = update_vs_cpu(algo,
+                                                           probe.first)
+            finally:
+                algo.stop()
+        algo = (PPOConfig().environment("CartPole-v1")
+                .env_runners(num_env_runners=2, num_envs_per_env_runner=8,
+                             rollout_fragment_length=64)
+                .learners(device=device)
+                .training(lr=3e-4, minibatch_size=256, num_epochs=4)
+                .debugging(seed=0).build())
+        try:
+            t0 = time.perf_counter()
+            res = with_deadline(120.0, lambda: [
+                algo.train() for _ in range(learn_iters)], "rllib learning")
+            early = res[0]["episode_return_mean"]
+            late = res[-1]["episode_return_mean"]
+            out["learning"] = {"iters": learn_iters, "early": early,
+                               "late": late, "wall_s":
+                               time.perf_counter() - t0,
+                               "gate": "late > max(40, early + 15)"}
+            assert late > max(40.0, early + 15.0), out["learning"]
+        finally:
+            algo.stop()
+    finally:
+        rt.shutdown()
+    return out
+
+
+def rllib_ppo_pixels(device, smi: str, *, rows=84, cols=84, stack=4,
+                     runners=4, envs=8, rollout=64, minibatch=512,
+                     epochs=4, iters=3) -> dict:
+    """The CNN learner at Atari's frame shape: `CatchPixelEnv` at 84 x
+    84 through a picklable factory (built-in ids ignore `env_kwargs`), a
+    `FrameStack(4)` connector factory ((84, 84, 4), as
+    `wrap_atari_connectors` stacks; Catch renders 84 x 84 x 1 already,
+    so no warp and no 1/255), `CNNModule` at its defaults (conv (16,4,2)
+    (32,4,2) (64,3,2), hidden 256); 4 runners x 8 envs x 64 steps,
+    minibatch 512, 4 epochs, sync, 1 + 3 iterations.  PyTorch's default
+    TF32 for cuDNN is switched on around the phase: the learner's own
+    scope must keep its convolutions f32 (the gate holds it)."""
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.rllib.connectors import FrameStack
+    from ray_tpu_torch.rllib.core.rl_module import CNNModule
+    from ray_tpu_torch.rllib.env.envs import CatchPixelEnv
+
+    filters = ((16, 4, 2), (32, 4, 2), (64, 3, 2))
+    out = {"phase": "rllib_ppo_pixels", "obs_shape": [rows, cols, stack],
+           "runners": runners, "envs_per_runner": envs, "rollout": rollout,
+           "minibatch": minibatch, "epochs": epochs, "conv_filters": filters,
+           "hidden": [256], "nvidia_smi": smi,
+           "tf32": "off inside the learner's update (its own scope); "
+                   "cuDNN's TF32 on around it"}
+    ambient = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    rt.init(num_workers=runners + 2, num_cpus=max(16, 2 * runners),
+            object_store_memory=store_bytes(2 << 30))
+    try:
+        algo = (PPOConfig()
+                .environment(functools.partial(CatchPixelEnv, rows=rows,
+                                               cols=cols))
+                .env_runners(num_env_runners=runners,
+                             num_envs_per_env_runner=envs,
+                             rollout_fragment_length=rollout,
+                             env_to_module_connector=functools.partial(
+                                 FrameStack, stack))
+                .learners(device=device)
+                .training(lr=3e-4, minibatch_size=minibatch,
+                          num_epochs=epochs,
+                          model={"conv_filters": filters, "hidden": (256,)})
+                .debugging(seed=0).build())
+        try:
+            assert isinstance(algo.module, CNNModule)
+            assert algo.module.observation_shape == (rows, cols, stack)
+            probe = LearnerProbe(algo.learner_group._local)
+            out["sync"] = rllib_run(algo, probe, smi, iters=iters,
+                                    deadline=150.0)
+            out["sync"]["update_vs_cpu"] = update_vs_cpu(algo, probe.first)
+            assert torch.backends.cudnn.allow_tf32  # the scope restored it
+        finally:
+            algo.stop()
+    finally:
+        rt.shutdown()
+        torch.backends.cudnn.allow_tf32 = ambient
+    return out
+
+
+def rllib_phases(device, smi: str) -> None:
+    """rllib_ppo, then rllib_ppo_pixels; each boots the port's runtime
+    and shuts it down."""
+    t0 = time.perf_counter()
+    emit({**rllib_ppo(device, smi), "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    emit({**rllib_ppo_pixels(device, smi),
+          "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3638,6 +4023,10 @@ def main() -> int:
     # a shuffled token dataset streamed into the trainer's workers through
     # iter_cuda_batches, then a Tuner sweeping the trainer's learning rate
     data_tune_phases(device, smi)
+    # rllib's PPO: BASELINE config #3's fleet with the learner on the card
+    # (three rounds, the first update held against the CPU learner, the
+    # learning criterion), then the CNN learner at Atari's frame shape
+    rllib_phases(device, smi)
     # compiled graphs with the tensor codec, Mixtral's widths trained,
     # expert parallelism over a process group, a 1F1B pipeline of
     # Llama-3-8B blocks over the port's channels

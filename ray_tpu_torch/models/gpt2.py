@@ -31,6 +31,7 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.models.bridge import tree_leaves
 from ray_tpu_torch.parallel.ring_attention import select_attention
 
 
@@ -284,12 +285,9 @@ def loss_fn(cfg: GPT2Config, params: Dict, tokens: torch.Tensor,
 
 
 def _leaves(params: Dict) -> List[torch.Tensor]:
-    """Leaves in sorted-key order, as `jax.tree.leaves` lists them."""
-    out = []
-    for key in sorted(params):
-        node = params[key]
-        out.extend(_leaves(node) if isinstance(node, dict) else [node])
-    return out
+    """Leaves in sorted-key order (lists in order), as `jax.tree.leaves`
+    lists them."""
+    return tree_leaves(params)
 
 
 def num_params(params: Dict) -> int:

@@ -1,0 +1,86 @@
+"""RL library (reference: top-level `rllib/`, new API stack only).
+
+EnvRunner actors sample with pure-numpy policies on CPU; the Learner
+owns a tree of torch tensors on its device (the card unless the caller
+asks for the CPU) and an eager update — scaled over a learner gang of
+mesh devices (`num_learner_devices`) or via DDP learner actors on the
+CPU with host-collective gradient allreduce (the CPU-fleet path).
+Production shape (BASELINE config #3): the runner fleet ships sample
+batches as object-plane references into the learner with async
+sample/train overlap and exactly-once `SampleLedger` accounting.
+
+Landed: PPO, with its modules (`MLPModule`, `CNNModule`), learner,
+environments, runners, connectors and the fleet bench.  Waiting, in
+order (`ROADMAP.md` queue 1 item 8): IMPALA and APPO (v-trace), DQN,
+SAC and CQL, BC and MARWIL, multi-agent PPO with `env/multi_agent.py`,
+DreamerV3.
+
+No module here imports torch at load: runner actors unpickle modules
+and connectors, and stay numpy-only.
+"""
+
+from ray_tpu_torch.rllib.algorithms import (
+    PPO,
+    Algorithm,
+    AlgorithmConfig,
+    PPOConfig,
+)
+from ray_tpu_torch.rllib.connectors import (
+    ConnectorPipeline,
+    ConnectorV2,
+    FrameStack,
+    ImagePreprocess,
+    MeanStdObsFilter,
+    ObsClip,
+    RewardClip,
+    wrap_atari_connectors,
+)
+from ray_tpu_torch.rllib.core import Learner, LearnerGroup, MLPModule, RLModule
+from ray_tpu_torch.rllib.core.learner import make_data_mesh
+from ray_tpu_torch.rllib.core.rl_module import CNNModule, make_default_module
+from ray_tpu_torch.rllib.env import (
+    CartPoleVectorEnv,
+    EnvRunner,
+    EnvRunnerGroup,
+    VectorEnv,
+)
+from ray_tpu_torch.rllib.env.env_runner_group import (
+    DuplicateSampleError,
+    SampleLedger,
+)
+from ray_tpu_torch.rllib.env.envs import (
+    CatchPixelEnv,
+    ContinuousTargetEnv,
+    PendulumVectorEnv,
+)
+
+__all__ = [
+    "Algorithm",
+    "ConnectorPipeline",
+    "ConnectorV2",
+    "MeanStdObsFilter",
+    "ObsClip",
+    "RewardClip",
+    "AlgorithmConfig",
+    "CartPoleVectorEnv",
+    "CatchPixelEnv",
+    "CNNModule",
+    "ContinuousTargetEnv",
+    "FrameStack",
+    "ImagePreprocess",
+    "PendulumVectorEnv",
+    "make_default_module",
+    "wrap_atari_connectors",
+    "EnvRunner",
+    "EnvRunnerGroup",
+    "Learner",
+    "LearnerGroup",
+    "DuplicateSampleError",
+    "MLPModule",
+    "PPO",
+    "PPOConfig",
+    "RLModule",
+    "SampleLedger",
+    "VectorEnv",
+    "make_data_mesh",
+]

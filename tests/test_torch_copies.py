@@ -100,6 +100,10 @@ COPIES = (
     "data/shuffle.py",
     "tune/__init__.py", "tune/search.py", "tune/schedulers.py",
     "tune/trainable.py", "tune/controller.py", "tune/tuner.py",
+    "rllib/connectors.py", "rllib/core/__init__.py",
+    "rllib/algorithms/algorithm.py", "rllib/env/__init__.py",
+    "rllib/env/envs.py", "rllib/env/env_runner.py",
+    "rllib/env/env_runner_group.py",
 )
 
 # module -> the test that holds what it changes
@@ -188,6 +192,25 @@ ADAPTED = {
                        "test_iter_cuda_batches_equals_iter_jax_batches",
     "data/iterator.py": "test_torch_data_ingest.py::"
                         "test_split_iter_cuda_batches_equals_iter_jax_batches",
+    # rllib's PPO path: the learner and its loss in torch on an explicit
+    # device, the landed names only; the runner side is copied (the
+    # numpy paths, `compute_gae` and the training steps are the
+    # original's: test_rllib_outside_the_torch_learner_is_a_copy below)
+    "rllib/__init__.py": "test_torch_isolation.py::"
+                         "test_rllib_runner_side_imports_no_torch_or_jax",
+    "rllib/algorithms/__init__.py": "test_torch_rllib.py::"
+                                    "test_one_ppo_iteration_matches_jax",
+    "rllib/algorithms/algorithm_config.py": "test_torch_rllib.py::"
+                                            "test_one_ppo_iteration_"
+                                            "matches_jax",
+    "rllib/algorithms/ppo.py": "test_torch_rllib.py::"
+                               "test_ppo_loss_and_grad_match_jax",
+    "rllib/core/rl_module.py": "test_torch_rllib.py::"
+                               "test_cnn_forward_matches_jax",
+    "rllib/core/learner.py": "test_torch_rllib.py::"
+                             "test_learner_update_matches_jax",
+    "rllib/bench.py": "test_torch_rllib_algo.py::"
+                      "test_fleet_bench_row_accounts_exactly",
 }
 
 
@@ -207,7 +230,8 @@ def test_every_runtime_module_is_a_copy_or_adapted():
     port = REPO / "ray_tpu_torch"
     listed = set(COPIES) | set(ADAPTED)
     for sub in ("core", "metrics", "shm", "util", "serve", "parallel",
-                "train", "dag", "data", "tune"):
+                "train", "dag", "data", "tune", "rllib", "rllib/core",
+                "rllib/algorithms", "rllib/env"):
         for f in (port / sub).iterdir():
             if f.suffix in (".py", ".cc"):
                 assert f"{sub}/{f.name}" in listed, f"{sub}/{f.name}"
@@ -262,6 +286,76 @@ def test_data_outside_the_cuda_feed_is_a_copy(rel, orig_end, port_end, tail):
     assert (port[port.index(start):port.index(port_end)]
             == orig[orig.index(start):orig.index(orig_end)])
     assert port[port.index(tail):] == orig[orig.index(tail):]
+
+
+@pytest.mark.parametrize("rel,sections", [
+    # the loss is torch; the learner group takes the learner's device
+    ("rllib/algorithms/ppo.py", (
+        ("from __future__ import annotations", "def make_ppo_loss("),
+        ("ppo_loss = make_ppo_loss()", "        self.learner_group = "),
+        ("        self.env_runner_group.sync_weights(", None))),
+    # no XLA flags: the learner sits on `device`
+    ("rllib/bench.py", (("    try:\n        algo.train()", None),)),
+    # `learners(device=...)`
+    ("rllib/algorithms/algorithm_config.py", (
+        ("from __future__ import annotations", "class AlgorithmConfig:"),
+        ("        self.env_to_module_connector", "    # -- fluent"),
+        ("    def training(", None))),
+])
+def test_rllib_outside_the_torch_learner_is_a_copy(rel, sections):
+    """The adapted rllib modules port only the learner's side: each
+    section named here (from its first marker up to its second) is the
+    original's after the rewrite."""
+    orig = rewrite((REPO / "ray_tpu" / rel).read_text(), rel)
+    port = (REPO / "ray_tpu_torch" / rel).read_text()
+    for start, end in sections:
+        o = orig[orig.index(start):orig.index(end, orig.index(start))
+                 if end else None]
+        p = port[port.index(start):port.index(end, port.index(start))
+                 if end else None]
+        assert p == o, (rel, start)
+
+
+def _defs(text: str) -> dict:
+    """Source of each top-level function and each method, by qualified
+    name."""
+    import ast
+
+    tree = ast.parse(text)
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef):
+            out[node.name] = ast.get_source_segment(text, node)
+        elif isinstance(node, ast.ClassDef):
+            for sub in node.body:
+                if isinstance(sub, ast.FunctionDef):
+                    out[f"{node.name}.{sub.name}"] = \
+                        ast.get_source_segment(text, sub)
+    return out
+
+
+def test_rllib_numpy_paths_are_the_originals():
+    """`rl_module.py` ports the modules' torch half; their numpy half
+    (the runners' forward), the conv arithmetic and the module choice
+    are the original's, function by function; `compute_gae` and the
+    training steps of `ppo.py` too."""
+    for rel, names in (
+            ("rllib/core/rl_module.py", (
+                "MLPModule.__init__", "MLPModule._tower_dims",
+                "MLPModule.forward_numpy", "conv_out_dims",
+                "CNNModule.__init__",
+                "CNNModule._encode_numpy", "CNNModule.forward_numpy",
+                "_conv2d_numpy", "tower_numpy", "make_default_module",
+                "require_flat_obs", "require_discrete_actions")),
+            ("rllib/algorithms/ppo.py", (
+                "compute_gae", "PPO._postprocess", "PPO._update_epochs",
+                "PPO.training_step", "PPO._collect_pairs",
+                "PPO._training_step_overlap", "PPO.get_state",
+                "PPO.set_state", "PPO.stop"))):
+        orig = _defs(rewrite((REPO / "ray_tpu" / rel).read_text(), rel))
+        port = _defs((REPO / "ray_tpu_torch" / rel).read_text())
+        for name in names:
+            assert port[name] == orig[name], (rel, name)
 
 
 def test_rewrite_keeps_the_namespaces_apart():

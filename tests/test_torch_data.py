@@ -25,6 +25,7 @@ from ray_tpu_torch.data import avro as tavro
 from ray_tpu_torch.data import block as TB
 from ray_tpu_torch.data import tfrecord as ttfr
 from test_data import _write_avro_manually
+from test_torch_waits import bounded_fit
 
 
 @pytest.fixture(scope="module")
@@ -233,12 +234,12 @@ def test_streaming_split_in_train_workers(idle, tmp_path):
         )
         train.report({"world_total": int(world_total[0]), "mine": total})
 
-    result = CudaTrainer(
+    result = bounded_fit(CudaTrainer(
         loop, cuda_config=CudaConfig(device="cpu"),
         scaling_config=ScalingConfig(num_workers=2),
         run_config=RunConfig(name="data", storage_path=str(tmp_path)),
         datasets={"train": ds},
-    ).fit()
+    ))
     assert result.error is None
     assert result.metrics["world_total"] == sum(range(80))
 

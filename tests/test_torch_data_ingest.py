@@ -31,6 +31,7 @@ import ray_tpu_torch as rt  # noqa: E402
 import ray_tpu_torch.data as rd  # noqa: E402
 from ray_tpu.models import llama as jllama  # noqa: E402
 from ray_tpu_torch.models import llama as tllama  # noqa: E402
+from test_torch_waits import bounded_fit  # noqa: E402
 
 VOCAB = 128
 SEQ = 16
@@ -205,7 +206,7 @@ def test_cuda_trainer_covers_a_shuffled_dataset_once(cluster, tmp_path):
     tcfg = dataclasses.replace(tllama.LlamaConfig.tiny(vocab_size=VOCAB),
                                dtype=torch.float32)
     np_tree = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
-    result = CudaTrainer(
+    result = bounded_fit(CudaTrainer(
         train_llama_lora.ingest_train_loop,
         cuda_config=CudaConfig(device="cpu"),
         train_loop_config={"device": "cpu", "cfg": tcfg,
@@ -215,7 +216,7 @@ def test_cuda_trainer_covers_a_shuffled_dataset_once(cluster, tmp_path):
         scaling_config=ScalingConfig(num_workers=2),
         run_config=RunConfig(name="ingest", storage_path=str(tmp_path)),
         datasets={"train": ds},
-    ).fit()
+    ))
     assert result.error is None, result.error
     recs = {r: [json.loads(x) for x in open(out / f"rank{r}.jsonl")]
             for r in (0, 1)}

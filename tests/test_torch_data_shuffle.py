@@ -149,11 +149,11 @@ def test_split_reshard_redelivers_unacked_never_replays_acked(cluster):
     gen = its[0].iter_batches(batch_size=None)
     acked = next(gen)["id"].tolist()
     # deliver one block to shard 1 but never ack it (the consumer "dies")
-    rt.get(coord.start_epoch.remote(1, 0))
-    item = rt.get(coord.next_block.remote(1, 0))
+    rt.get(coord.start_epoch.remote(1, 0), timeout=60)
+    item = rt.get(coord.next_block.remote(1, 0), timeout=60)
     seq, (ref, _meta), off = item
     assert off == 0
-    unacked = rt.get(ref)["id"].tolist()
+    unacked = rt.get(ref, timeout=60)["id"].tolist()
 
     # mesh shrinks 2 -> 1: reshard requeues the unacked block only
     survivors = ds.streaming_split(1, elastic=True)

@@ -47,6 +47,12 @@ RUNTIME_MODULES = (
     "data/shuffle.py", "data/iterator.py", "data/dataset.py",
     "tune/__init__.py", "tune/search.py", "tune/schedulers.py",
     "tune/trainable.py", "tune/controller.py", "tune/tuner.py",
+    "rllib/__init__.py", "rllib/bench.py", "rllib/connectors.py",
+    "rllib/core/__init__.py", "rllib/core/rl_module.py",
+    "rllib/core/learner.py", "rllib/algorithms/__init__.py",
+    "rllib/algorithms/algorithm.py", "rllib/algorithms/algorithm_config.py",
+    "rllib/algorithms/ppo.py", "rllib/env/__init__.py", "rllib/env/envs.py",
+    "rllib/env/env_runner.py", "rllib/env/env_runner_group.py",
 )
 
 
@@ -386,6 +392,45 @@ def test_data_and_tune_run_with_jax_and_ray_tpu_blocked(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK")
     assert not sorted(p.name for p in marks.iterdir())
+
+
+def test_rllib_runner_side_imports_no_torch_or_jax():
+    """A runner actor's side of rllib loads with torch, jax and ray_tpu
+    blocked: `rllib.env` (runners, environments, the group) and
+    `rllib.connectors`, and with them the package, its modules and its
+    algorithms (a runner unpickles module objects and connector
+    factories).  A CartPole runner there samples a rollout through an
+    `MLPModule`'s numpy forward, and a frame stack stacks."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {str(REPO)!r})
+        for name in {FORBIDDEN + ("torch",)!r}:
+            sys.modules[name] = None
+        import numpy as np
+        import ray_tpu_torch.rllib.connectors
+        import ray_tpu_torch.rllib.env
+        from ray_tpu_torch.rllib import PPOConfig, bench
+        from ray_tpu_torch.rllib.connectors import FrameStack
+        from ray_tpu_torch.rllib.core.rl_module import MLPModule
+        from ray_tpu_torch.rllib.env import EnvRunner
+        runner = EnvRunner("CartPole-v1", 2, 8, seed=0)
+        tower = lambda n: [{{"w": np.full((4, n), 0.1, np.float32),
+                             "b": np.zeros(n, np.float32)}}]
+        runner.set_weights({{"pi": tower(2), "vf": tower(1)}}, 1)
+        batch = runner.sample(MLPModule(4, 2, hidden=()))
+        assert batch["obs"].shape == (8, 2, 4), batch["obs"].shape
+        assert np.isfinite(batch["logp"]).all()
+        stacked = FrameStack(4).on_observations(np.ones((2, 3, 3, 1)))
+        assert stacked.shape == (2, 3, 3, 4)
+        assert PPOConfig and bench.measure_rllib_ppo
+        assert not any(m.split(".")[0] in {FORBIDDEN + ("torch",)!r}
+                       for m, mod in sys.modules.items() if mod is not None)
+        print("OK")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
 
 
 @pytest.fixture

@@ -26,6 +26,7 @@ from ray_tpu_torch.tune import (
     Tuner,
 )
 from ray_tpu_torch.tune import controller as tcontroller
+from test_torch_waits import bounded_fit
 
 
 @pytest.fixture(scope="module")
@@ -65,13 +66,13 @@ def test_tuner_function_trainable(cluster, tmp_path):
             score += config["lr"]
             tune.report({"score": score})
 
-    results = Tuner(
+    results = bounded_fit(Tuner(
         objective,
         param_space={"lr": tune.grid_search([1.0, 2.0, 3.0])},
         tune_config=TuneConfig(metric="score", mode="max",
                                max_concurrent_trials=2),
         run_config=train.RunConfig(name="fn", storage_path=str(tmp_path)),
-    ).fit()
+    ))
     assert len(results) == 3
     assert results.num_errors == 0
     best = results.get_best_result()
@@ -96,7 +97,7 @@ def test_tuner_class_trainable_with_checkpoint(cluster, tmp_path):
             if isinstance(state, dict):
                 self.val = state["val"]
 
-    results = Tuner(
+    results = bounded_fit(Tuner(
         Quad,
         param_space={"x": tune.grid_search([1.0, 5.0])},
         tune_config=TuneConfig(metric="val", mode="max",
@@ -105,7 +106,7 @@ def test_tuner_class_trainable_with_checkpoint(cluster, tmp_path):
             name="cls", storage_path=str(tmp_path),
             stop={"training_iteration": 4}
         ),
-    ).fit()
+    ))
     assert results.num_errors == 0
     best = results.get_best_result()
     assert best.metrics["val"] == pytest.approx(20.0)
@@ -121,7 +122,7 @@ def test_asha_stops_bad_trials(cluster, tmp_path):
             _t.sleep(0.15)  # in-flight long enough for culling decisions
             tune.report({"acc": config["q"] * (i + 1)})
 
-    results = Tuner(
+    results = bounded_fit(Tuner(
         objective,
         param_space={"q": tune.grid_search([0.1, 0.2, 0.9, 1.0])},
         tune_config=TuneConfig(
@@ -134,7 +135,7 @@ def test_asha_stops_bad_trials(cluster, tmp_path):
             max_concurrent_trials=4,
         ),
         run_config=train.RunConfig(name="asha", storage_path=str(tmp_path)),
-    ).fit()
+    ))
     assert results.num_errors == 0
     iters = {
         r.metrics["config"]["q"]: r.metrics.get("training_iteration", 0)
@@ -167,10 +168,10 @@ def test_tuner_restore_resumes(cluster, tmp_path):
         run_config=train.RunConfig(name="resume",
                                    storage_path=str(tmp_path)),
     )
-    results = tuner.fit()
+    results = bounded_fit(tuner)
     assert results.num_errors == 1  # crashy failed
 
-    restored = Tuner.restore(str(tmp_path / "resume"), objective).fit()
+    restored = bounded_fit(Tuner.restore(str(tmp_path / "resume"), objective))
     assert restored.num_errors == 0
     for r in restored:
         assert r.metrics["i"] == 5
@@ -188,7 +189,7 @@ def test_pbt_exploits(cluster, tmp_path):
                 {"fitness": v}, checkpoint=train.Checkpoint.from_dict({"v": v})
             )
 
-    results = Tuner(
+    results = bounded_fit(Tuner(
         objective,
         param_space={"lr": tune.grid_search([0.0, 1.0])},
         tune_config=TuneConfig(
@@ -202,7 +203,7 @@ def test_pbt_exploits(cluster, tmp_path):
             max_concurrent_trials=2,
         ),
         run_config=train.RunConfig(name="pbt", storage_path=str(tmp_path)),
-    ).fit()
+    ))
     assert results.num_errors == 0
     # the lr=0 trial exploited the better trial at least once
     fits = sorted(r.metrics["fitness"] for r in results)
@@ -225,14 +226,14 @@ def test_tuner_over_cuda_trainer(cluster, tmp_path):
         run_config=train.RunConfig(name="inner",
                                    storage_path=str(tmp_path / "inner")),
     )
-    results = Tuner(
+    results = bounded_fit(Tuner(
         trainer,
         param_space={"train_loop_config": {
             "delta": tune.grid_search([1.0, 2.0])}},
         tune_config=TuneConfig(metric="m", mode="max",
                                resources_per_trial={"CPU": 0.5}),
         run_config=train.RunConfig(name="outer", storage_path=str(tmp_path)),
-    ).fit()
+    ))
     assert results.num_errors == 0
     assert results.get_best_result().metrics["m"] == pytest.approx(6.0)
     assert sorted(len(r.metrics_history) for r in results) == [3, 3]
@@ -250,7 +251,7 @@ def test_hyperband_brackets_and_culling(cluster, tmp_path):
             _t.sleep(0.15)  # in-flight long enough for culling decisions
             tune.report({"acc": config["q"] * (i + 1)})
 
-    results = Tuner(
+    results = bounded_fit(Tuner(
         objective,
         param_space={"q": tune.grid_search([0.1, 0.2, 0.3, 0.9, 1.0])},
         tune_config=TuneConfig(
@@ -262,7 +263,7 @@ def test_hyperband_brackets_and_culling(cluster, tmp_path):
             max_concurrent_trials=5,
         ),
         run_config=train.RunConfig(name="hb", storage_path=str(tmp_path)),
-    ).fit()
+    ))
     assert results.num_errors == 0
     iters = [r.metrics.get("training_iteration", 0) for r in results]
     assert max(iters) >= 8  # someone ran (nearly) the full budget
@@ -294,13 +295,13 @@ def test_pb2_explores_within_bounds_and_improves(cluster, tmp_path):
         hyperparam_bounds={"lr": (0.0, 2.0)},
         quantile_fraction=0.5, seed=0,
     )
-    results = Tuner(
+    results = bounded_fit(Tuner(
         objective,
         param_space={"lr": tune.grid_search([0.0, 0.1, 1.5])},
         tune_config=TuneConfig(metric="fitness", mode="max",
                                scheduler=pb2, max_concurrent_trials=3),
         run_config=train.RunConfig(name="pb2", storage_path=str(tmp_path)),
-    ).fit()
+    ))
     assert results.num_errors == 0
     fits = sorted(r.metrics["fitness"] for r in results)
     assert fits[0] > 0.0
@@ -351,12 +352,12 @@ def test_custom_searcher_seam(cluster, tmp_path):
             tune.report({"score": config["x"]})
 
     s = MySearcher()
-    results = Tuner(
+    results = bounded_fit(Tuner(
         objective,
         tune_config=TuneConfig(metric="score", mode="max",
                                search_alg=s, max_concurrent_trials=2),
         run_config=train.RunConfig(name="seam", storage_path=str(tmp_path)),
-    ).fit()
+    ))
     assert results.num_errors == 0
     assert s.suggested == 5
     assert s.completed == 5
@@ -517,7 +518,7 @@ def test_tuner_sweeps_a_dataset_fed_cuda_trainer(cluster, tmp_path):
         run_config=train.RunConfig(name="inner",
                                    storage_path=str(tmp_path / "inner")))
     lrs = [1e-3, 5e-2]
-    grid = Tuner(
+    grid = bounded_fit(Tuner(
         trainer,
         param_space={"train_loop_config": {
             "lr": tune.grid_search(lrs), "device": "cpu",
@@ -530,7 +531,7 @@ def test_tuner_sweeps_a_dataset_fed_cuda_trainer(cluster, tmp_path):
                                max_concurrent_trials=2,
                                resources_per_trial={"CPU": 0.5}),
         run_config=train.RunConfig(name="sweep", storage_path=str(tmp_path)),
-    ).fit()
+    ))
     assert grid.num_errors == 0
     state = json.load(open(os.path.join(grid.experiment_path,
                                         "experiment_state.json")))

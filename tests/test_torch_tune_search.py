@@ -13,6 +13,7 @@ import ray_tpu_torch as rt
 from ray_tpu import tune as jtune
 from ray_tpu_torch import train, tune
 from ray_tpu_torch.tune import TuneConfig, Tuner
+from test_torch_waits import bounded_fit
 
 
 @pytest.fixture(scope="module")
@@ -35,12 +36,12 @@ def test_tpe_searcher_beats_random_on_quadratic(cluster, tmp_path):
         {"x": tune.uniform(0, 1), "y": tune.uniform(0, 1)},
         metric="score", mode="max", num_samples=40, n_startup=8, seed=0,
     )
-    results = Tuner(
+    results = bounded_fit(Tuner(
         objective,
         tune_config=TuneConfig(metric="score", mode="max",
                                search_alg=searcher, max_concurrent_trials=4),
         run_config=train.RunConfig(name="tpe", storage_path=str(tmp_path)),
-    ).fit()
+    ))
     assert results.num_errors == 0
     scores = sorted(
         (r.metrics["score"] for r in results if "score" in (r.metrics or {})),
@@ -65,7 +66,7 @@ def test_bohb_beats_startup_random_on_quadratic(cluster, tmp_path):
         {"x": tune.uniform(0, 1), "y": tune.uniform(0, 1)},
         metric="score", mode="max", num_samples=32, n_startup=6, seed=0,
     )
-    results = Tuner(
+    results = bounded_fit(Tuner(
         objective,
         tune_config=TuneConfig(
             metric="score", mode="max", search_alg=searcher,
@@ -74,7 +75,7 @@ def test_bohb_beats_startup_random_on_quadratic(cluster, tmp_path):
             max_concurrent_trials=4,
         ),
         run_config=train.RunConfig(name="bohb", storage_path=str(tmp_path)),
-    ).fit()
+    ))
     assert results.num_errors == 0
     scores = sorted(
         (r.metrics["score"] for r in results if "score" in (r.metrics or {})),
