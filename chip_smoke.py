@@ -210,6 +210,23 @@ exits non-zero:
     the default `CNNModule`, 4 runners x 8 envs x 64 steps, minibatch
     512, 4 epochs, sync, 1 + 3 iterations, cuDNN's TF32 on around it:
     the same readings and gate, and a runner's batch MB.
+13i. rllib_impala and rllib_appo: the same fleet with each algorithm's
+    own defaults (lr 5e-4, minibatch 256; IMPALA's async pipeline with
+    4 batches a step at most, APPO's one epoch), the learner on the card
+    in a gang of 1, 1 warm-up + 4 iterations + 1 profiled: env steps/s,
+    updates/s, the learner's split, the weights' d2h ms, the driver's
+    v-trace ms an iteration (numpy), IMPALA's `num_async_batches`, the
+    idle share.  Held: exact accounting over the batches the iterations
+    consumed, no replacement, the first update against the CPU learner
+    (`RLLIB_TOL`), the runners' weights bit-equal to the learner's after
+    one blocking sync at the end; then the reference's learning gates
+    (2 x 8 x 64, minibatch 256, 25 iterations: late > max(40, early +
+    15); IMPALA delivers some iteration from the async pipeline).
+    rllib_replay: DQN, discrete SAC and continuous SAC at the shapes and
+    gates of the reference's tests, with the no-grad target forward's
+    and `_td_targets`' ms (CUDA events), updates/s and the same holds.
+    rllib_offline: BC, MARWIL and CQL from datasets made from seeds as
+    the reference's tests make them, with their gates.
 14. K1-K4 timed at the training shape (bf16, causal), and K3 and K4 at
     the second split shape (BH 32, T 4,096, D 128), beside their bounds,
     plain versions and `scaled_dot_product_attention`, with each
@@ -3776,6 +3793,514 @@ def rllib_phases(device, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# rllib: the v-trace, replay and offline algorithms with the learner on
+# the card
+# ----------------------------------------------------------------------
+class CudaTimer:
+    """CUDA events around every call of one instance attribute (a
+    target forward, `_td_targets`): the mean ms a call, and the calls,
+    over the calls since `reset`."""
+
+    def __init__(self, obj, name: str):
+        fn = getattr(obj, name)
+        self.reset()
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+
+        setattr(obj, name, timed)
+
+    def reset(self) -> None:
+        self.pairs = []
+
+    def read(self) -> dict:
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for s, e in self.pairs]
+        return {"ms": statistics.fmean(ms) if ms else None,
+                "calls": len(ms)}
+
+
+class HostTimer:
+    """The host clock around every call of an attribute (a module's
+    function or an instance's method): seconds summed since `reset`."""
+
+    def __init__(self, obj, name: str):
+        self.obj, self.name, self.fn = obj, name, getattr(obj, name)
+        self.reset()
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self.fn(*args, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        setattr(obj, name, timed)
+
+    def reset(self) -> None:
+        self.seconds = 0.0
+
+    def restore(self) -> None:
+        setattr(self.obj, self.name, self.fn)
+
+
+def rllib_learner_line(algo, probe, smi: str) -> dict:
+    """The learner's readings every new rllib phase prints: its device
+    (a gang of 1 on the card), its split a minibatch and the weights'
+    d2h ms (`LearnerProbe`), peak memory, and the first update on the
+    card against the plain CPU learner (`update_vs_cpu`)."""
+    group = algo.learner_group
+    assert group.num_gang_devices == 1 and group.device.type == "cuda", (
+        group.device)
+    return {"learner_device": str(group.device), "learner": probe.split(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "update_vs_cpu": update_vs_cpu(algo, probe.first),
+            "nvidia_smi": smi}
+
+
+def vtrace_run(algo, probe, smi: str, *, iters: int, deadline: float,
+               vtrace_timers) -> dict:
+    """1 warm-up + `iters` timed iterations of APPO or IMPALA at the
+    fleet shape, then one profiled iteration: env steps/s, updates/s
+    (the learner's minibatches over the wall), exact accounting over the
+    batches the iterations consumed (the ledger's unique keys against
+    its batches, its env steps against the steps the results report),
+    no replacement, the driver's v-trace seconds an iteration (numpy:
+    the current weights' forward over the rollouts and `compute_vtrace`)
+    and, after one blocking weights sync at the end of the round, the
+    runners' weights bit-equal to the learner's (IMPALA broadcasts
+    without waiting, so in-flight rollouts are stale by design)."""
+    group = algo.env_runner_group
+
+    def run():
+        algo.train()  # warm-up: primes the card and, for IMPALA, the stream
+        probe.reset()
+        for t in vtrace_timers:
+            t.reset()
+        torch.cuda.reset_peak_memory_stats()
+        led0 = group.ledger.snapshot()
+        t0 = time.perf_counter()
+        res = [algo.train() for _ in range(iters)]
+        torch.cuda.synchronize()
+        return res, led0, time.perf_counter() - t0
+
+    results, led0, wall_s = with_deadline(deadline, run, "rllib iterations")
+    vtrace_s = sum(t.seconds for t in vtrace_timers)
+    led1 = group.ledger.snapshot()
+    steps = sum(int(r["num_env_steps_sampled"]) for r in results)
+    batches = led1["batches"] - led0["batches"]
+    row = {
+        "env_steps_per_s": steps / wall_s,
+        "updates_per_s": len(probe.spans["fwd_bwd"]) / wall_s,
+        "env_steps": steps, "wall_s": wall_s, "iters": iters,
+        "accounting_exact": float(
+            steps == int(led1["env_steps"] - led0["env_steps"])
+            and batches == led1["unique"] - led0["unique"]),
+        "batches_consumed": batches,
+        "replacements": group.num_replacements,
+        "vtrace_ms_per_iter": vtrace_s / iters * 1e3,
+        "final_loss": results[-1]["total_loss"],
+        **rllib_learner_line(algo, probe, smi),
+    }
+    if "num_async_batches" in results[-1]:
+        row["num_async_batches"] = [r["num_async_batches"] for r in results]
+    row.update(with_deadline(deadline, lambda: device_idle_share(algo),
+                             "rllib profiled iteration"))
+    group.sync_weights(algo.learner_group.get_weights_numpy())
+    row["weights_bit_equal_after_sync"] = published_weights_equal(algo)
+    assert row["accounting_exact"] == 1.0 and row["replacements"] == 0, row
+    assert row["weights_bit_equal_after_sync"], row
+    return row
+
+
+def vtrace_learning(config, device, *, iters: int = 25) -> dict:
+    """The reference's learning gate (tests/test_rllib.py: APPO
+    `:485-504`, IMPALA `:538-563`) with the learner on the card: 2 x 8 x
+    64, minibatch 256, 25 iterations, late > max(40, early + 15); IMPALA
+    also delivers some iteration from the async pipeline."""
+    algo = (config().environment("CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=8,
+                         rollout_fragment_length=64)
+            .learners(device=device)
+            .training(lr=5e-4, minibatch_size=256)
+            .debugging(seed=0).build())
+    try:
+        t0 = time.perf_counter()
+        res = with_deadline(120.0, lambda: [algo.train()
+                                            for _ in range(iters)],
+                            "rllib learning")
+        early = next(r["episode_return_mean"] for r in res
+                     if "episode_return_mean" in r)
+        late = res[-1]["episode_return_mean"]
+        out = {"iters": iters, "early": early, "late": late,
+               "wall_s": time.perf_counter() - t0,
+               "gate": "late > max(40, early + 15)"}
+        assert np.isfinite(res[-1]["total_loss"]), out
+        assert late > max(40.0, early + 15.0), out
+        if "num_async_batches" in res[-1]:
+            out["max_async_batches"] = max(r.get("num_async_batches", 0)
+                                           for r in res)
+            assert out["max_async_batches"] >= 1, out
+        return out
+    finally:
+        algo.stop()
+
+
+def rllib_vtrace(device, smi: str, which: str, *, runners=8, envs=16,
+                 rollout=64, iters=4, learn_iters=25) -> dict:
+    """rllib_impala / rllib_appo: BASELINE config #3's fleet
+    (`rllib/bench.py`'s: CartPole, 8 runners x 16 envs x 64 steps, seed
+    0) with each algorithm's own defaults (lr 5e-4, minibatch 256;
+    IMPALA's async pipeline with 4 batches a step at most, APPO's one
+    epoch), the learner on the card in a gang of 1: 1 warm-up + `iters`
+    + 1 profiled iteration (`vtrace_run`), then the learning gate."""
+    from ray_tpu_torch.rllib import APPOConfig, IMPALAConfig
+    from ray_tpu_torch.rllib.algorithms import appo
+
+    config = {"impala": IMPALAConfig, "appo": APPOConfig}[which]
+    out = {"phase": f"rllib_{which}", "env": "CartPole-v1",
+           "runners": runners, "envs_per_runner": envs, "rollout": rollout,
+           "minibatch": 256, "lr": 5e-4, "gang_devices": 1}
+    rt.init(num_workers=runners + 2, num_cpus=max(16, 2 * runners))
+    try:
+        algo = (config().environment("CartPole-v1")
+                .env_runners(num_env_runners=runners,
+                             num_envs_per_env_runner=envs,
+                             rollout_fragment_length=rollout)
+                .learners(num_learner_devices=1, device=device)
+                .debugging(seed=0).build())
+        timers = []
+        try:
+            if which == "impala":
+                out["max_batches_per_step"] = algo.config.max_batches_per_step
+                timers = [HostTimer(algo, "_vtrace_batch")]
+            else:
+                out["epochs"] = algo.config.num_epochs
+                timers = [HostTimer(algo, "_current_forward"),
+                          HostTimer(appo, "compute_vtrace")]
+            probe = LearnerProbe(algo.learner_group._local)
+            out["fleet"] = vtrace_run(algo, probe, smi, iters=iters,
+                                      deadline=120.0, vtrace_timers=timers)
+        finally:
+            for t in timers:
+                t.restore()
+            algo.stop()
+        out["learning"] = vtrace_learning(config, device, iters=learn_iters)
+    finally:
+        rt.shutdown()
+    return out
+
+
+def replay_run(algo, smi: str, *, iters: int, target: str, deadline: float,
+               stop=None) -> tuple:
+    """`iters` iterations of DQN or SAC with the learner on the card
+    (fewer when `stop(results)` says so): updates/s over the whole run,
+    the learner's split, the no-grad target forward's ms a call (CUDA
+    events around `target`) and `_td_targets`' (the `next_obs` upload,
+    the forwards and the targets' download), exact accounting, the
+    runners' weights bit-equal to the learner's, and the first update
+    against the CPU learner.  Returns (line, results)."""
+    group = algo.env_runner_group
+    probe = LearnerProbe(algo.learner_group._local)
+    fwd = CudaTimer(algo, target)
+    tds = CudaTimer(algo, "_td_targets")
+    torch.cuda.reset_peak_memory_stats()
+    led0 = group.ledger.snapshot()
+
+    def run():
+        res = []
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            res.append(algo.train())
+            if stop is not None and stop(res):
+                break
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    results, wall_s = with_deadline(deadline, run, "rllib replay run")
+    led1 = group.ledger.snapshot()
+    steps = sum(int(r["num_env_steps_sampled"]) for r in results)
+    updates = len(probe.spans["fwd_bwd"])
+    line = {
+        "iters": len(results), "updates": updates, "wall_s": wall_s,
+        "updates_per_s": updates / wall_s, "env_steps": steps,
+        "target_forward": fwd.read(), "td_targets": tds.read(),
+        "accounting_exact": float(
+            steps == int(led1["env_steps"] - led0["env_steps"])),
+        "replacements": group.num_replacements,
+        "weights_bit_equal": published_weights_equal(algo),
+        **rllib_learner_line(algo, probe, smi),
+    }
+    assert line["accounting_exact"] == 1.0 and line["replacements"] == 0, \
+        line
+    assert line["weights_bit_equal"], line
+    return line, results
+
+
+def rllib_replay(device, smi: str, *, dqn_iters=30, sac_iters=20,
+                 cont_iters=30) -> dict:
+    """DQN, discrete SAC and continuous SAC at the shapes of the
+    reference's tests (BASELINE has no fleet config for them), the
+    learner on the card, each with its learning gate: DQN
+    (tests/test_rllib.py:435-455: 1 x 8 x 32, lr 1e-3, learn batch 64,
+    32 updates an iteration, epsilon over 15 iterations, 30 iterations,
+    late > max(35, early + 10)); discrete SAC (`:719-745`: 1 x 8 x 64,
+    lr 3e-3, 20 iterations, late > max(40, early + 15), alpha > 0);
+    continuous SAC on `ContinuousTargetEnv` (`:1347-1376`: 1 x 16 x 8,
+    lr 3e-3, 64 updates an iteration, up to 30 iterations, best >
+    -0.15, alpha < 0.9)."""
+    from ray_tpu_torch.rllib import DQNConfig, SACConfig
+    from ray_tpu_torch.rllib.env.envs import ContinuousTargetEnv
+
+    out = {"phase": "rllib_replay", "gang_devices": 1}
+    rt.init(num_workers=4, num_cpus=16)
+    try:
+        algo = (DQNConfig().environment("CartPole-v1")
+                .env_runners(num_env_runners=1, num_envs_per_env_runner=8,
+                             rollout_fragment_length=32)
+                .learners(num_learner_devices=1, device=device)
+                .training(lr=1e-3, learn_batch_size=64,
+                          num_updates_per_iter=32, epsilon_decay_iters=15)
+                .debugging(seed=0).build())
+        try:
+            line, res = replay_run(algo, smi, iters=dqn_iters,
+                                   target="_target_q", deadline=150.0)
+            early = res[2].get("episode_return_mean", 15.0)
+            late = res[-1]["episode_return_mean"]
+            line["learning"] = {"early": early, "late": late,
+                                "gate": "late > max(35, early + 10)"}
+            assert np.isfinite(res[-1]["td_error_mean"]), line
+            assert late > max(35.0, early + 10.0), line
+            out["dqn"] = line
+        finally:
+            algo.stop()
+
+        algo = (SACConfig().environment("CartPole-v1")
+                .env_runners(num_env_runners=1, num_envs_per_env_runner=8,
+                             rollout_fragment_length=64)
+                .learners(num_learner_devices=1, device=device)
+                .training(lr=3e-3).debugging(seed=0).build())
+        try:
+            line, res = replay_run(algo, smi, iters=sac_iters,
+                                   target="_target_terms", deadline=150.0)
+            early = next(r["episode_return_mean"] for r in res
+                         if "episode_return_mean" in r)
+            late = res[-1]["episode_return_mean"]
+            line["learning"] = {"early": early, "late": late,
+                                "alpha": res[-1]["alpha"],
+                                "gate": "late > max(40, early + 15), "
+                                        "alpha > 0"}
+            assert np.isfinite(res[-1]["critic_loss"]), line
+            assert res[-1]["alpha"] > 0, line
+            assert late > max(40.0, early + 15.0), line
+            out["sac_discrete"] = line
+        finally:
+            algo.stop()
+
+        # the package's class: a factory of this script would make every
+        # runner import the script
+        cfg = (SACConfig().environment(ContinuousTargetEnv)
+               .env_runners(num_env_runners=1, num_envs_per_env_runner=16,
+                            rollout_fragment_length=8)
+               .learners(num_learner_devices=1, device=device)
+               .debugging(seed=0))
+        cfg.lr = 3e-3
+        cfg.num_updates_per_iter = 64
+        algo = cfg.build()
+        try:
+            def best(res):
+                rets = [r["episode_return_mean"] for r in res
+                        if np.isfinite(r.get("episode_return_mean", np.nan))]
+                return max(rets, default=-10.0)
+
+            line, res = replay_run(algo, smi, iters=cont_iters,
+                                   target="_target_terms", deadline=180.0,
+                                   stop=lambda res: best(res) > -0.05)
+            line["learning"] = {"best": best(res), "alpha": res[-1]["alpha"],
+                                "gate": "best > -0.15, alpha < 0.9"}
+            assert best(res) > -0.15, line
+            assert res[-1]["alpha"] < 0.9, line
+            out["sac_continuous"] = line
+        finally:
+            algo.stop()
+    finally:
+        rt.shutdown()
+    return out
+
+
+def cartpole_heuristic_dataset(n_episodes: int = 60, seed: int = 0) -> dict:
+    """The reference's offline CartPole log (tests/test_rllib.py:743-775):
+    a scripted policy (pole angle + 0.5 angular velocity) with 20%
+    random actions, from a seed, in the port's CartPole."""
+    from ray_tpu_torch.rllib.env.envs import make_vector_env
+
+    env = make_vector_env("CartPole-v1", 1, seed=seed)
+    rng = np.random.default_rng(seed)
+    data = {k: [] for k in ("obs", "actions", "rewards", "next_obs",
+                            "terminated")}
+    for _ep in range(n_episodes):
+        obs = env.reset()
+        for _t in range(500):
+            if rng.random() < 0.2:
+                a = rng.integers(0, 2)
+            else:
+                a = 1 if (obs[0][2] + 0.5 * obs[0][3]) > 0 else 0
+            nobs, r, term, trunc, _ = env.step(np.array([a], np.int32))
+            data["obs"].append(obs[0])
+            data["actions"].append(a)
+            data["rewards"].append(float(r[0]))
+            data["next_obs"].append(nobs[0])
+            data["terminated"].append(bool(term[0]))
+            obs = nobs
+            if bool(term[0] or trunc[0]):
+                break
+    return {"obs": np.asarray(data["obs"], np.float32),
+            "actions": np.asarray(data["actions"], np.int32),
+            "rewards": np.asarray(data["rewards"], np.float32),
+            "next_obs": np.asarray(data["next_obs"], np.float32),
+            "terminated": np.asarray(data["terminated"], np.bool_)}
+
+
+def offline_run(algo, smi: str, *, iters: int, deadline: float,
+                target: str = None) -> tuple:
+    """`iters` iterations of an offline algorithm with the learner on
+    the card: updates/s, the learner's split, the first update against
+    the CPU learner (and CQL's target forward ms).  Returns (line,
+    results)."""
+    probe = LearnerProbe(algo.learner_group._local)
+    fwd = CudaTimer(algo, target) if target else None
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        t0 = time.perf_counter()
+        res = [algo.train() for _ in range(iters)]
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    results, wall_s = with_deadline(deadline, run, "rllib offline run")
+    updates = len(probe.spans["fwd_bwd"])
+    line = {"iters": iters, "updates": updates, "wall_s": wall_s,
+            "updates_per_s": updates / wall_s,
+            **rllib_learner_line(algo, probe, smi)}
+    if fwd is not None:
+        line["target_forward"] = fwd.read()
+    return line, results
+
+
+def rllib_offline(device, smi: str, *, bc_iters=5, marwil_iters=4,
+                  cql_iters=12) -> dict:
+    """BC, MARWIL and CQL from datasets made in the phase from seeds, as
+    the reference's tests make them, the learner on the card: BC
+    (tests/test_rllib.py:507-535: 4,096 expert rows, minibatch 256, 64
+    updates an iteration, action accuracy > 0.95 in 5 iterations);
+    MARWIL (`:846-888`: 2,048 rows, half relabelled against the expert
+    with reward 0, beta 2, lr 2e-3, 4 iterations: agreement with the
+    expert > 0.8, the high-advantage actions up-weighted); CQL
+    (`:778-806`: the scripted CartPole log through an .npz, 12
+    iterations of 64 updates of 256, evaluation over 3 greedy episodes
+    an iteration: the conservatism gap falls, evaluation > 60)."""
+    from ray_tpu_torch.rllib import BCConfig, CQLConfig, MARWILConfig
+
+    out = {"phase": "rllib_offline", "gang_devices": 1}
+    rt.init(num_workers=2, num_cpus=4)
+    try:
+        rng = np.random.default_rng(0)
+        obs = rng.uniform(-0.2, 0.2, size=(4096, 4)).astype(np.float32)
+        actions = ((obs[:, 2] + 0.5 * obs[:, 3]) > 0).astype(np.int32)
+        algo = (BCConfig().environment("CartPole-v1")
+                .offline_data(input_={"obs": obs, "actions": actions})
+                .learners(num_learner_devices=1, device=device)
+                .training(lr=1e-3, minibatch_size=256,
+                          num_updates_per_iter=64)
+                .debugging(seed=0).build())
+        try:
+            line, res = offline_run(algo, smi, iters=bc_iters,
+                                    deadline=120.0)
+            line["learning"] = {"action_accuracy":
+                                res[-1]["action_accuracy"],
+                                "gate": "action_accuracy > 0.95"}
+            assert res[-1]["action_accuracy"] > 0.95, line
+            out["bc"] = line
+        finally:
+            algo.stop()
+
+        rng = np.random.default_rng(1)
+        n = 2048
+        obs = rng.uniform(-0.2, 0.2, size=(n, 4)).astype(np.float32)
+        expert = ((obs[:, 2] + 0.5 * obs[:, 3]) > 0).astype(np.int32)
+        flip = rng.random(n) < 0.5
+        algo = (MARWILConfig().environment("CartPole-v1")
+                .offline_data(input_={
+                    "obs": obs, "actions": np.where(flip, 1 - expert, expert),
+                    "rewards": np.where(flip, 0.0, 1.0).astype(np.float32),
+                    "dones": np.ones(n, bool)})
+                .learners(num_learner_devices=1, device=device)
+                .training(beta=2.0, lr=2e-3, minibatch_size=256,
+                          num_updates_per_iter=64)
+                .debugging(seed=0).build())
+        try:
+            line, res = offline_run(algo, smi, iters=marwil_iters,
+                                    deadline=120.0)
+            logits, _ = algo.module.forward_numpy(
+                algo.learner_group.get_weights_numpy(), obs)
+            agree = float((logits.argmax(axis=-1) == expert).mean())
+            line["learning"] = {"expert_agreement": agree,
+                                "mean_weight": res[-1]["mean_weight"],
+                                "gate": "expert_agreement > 0.8"}
+            assert agree > 0.8, line
+            out["marwil"] = line
+        finally:
+            algo.stop()
+
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "cartpole_offline.npz")
+            np.savez(path, **cartpole_heuristic_dataset())
+            cfg = CQLConfig()
+            cfg.offline_data(input_=path)
+            cfg.evaluation(evaluation_env="CartPole-v1",
+                           evaluation_episodes=3)
+            cfg.training(lr=1e-3, cql_alpha=1.0)
+            cfg.learners(num_learner_devices=1, device=device)
+            cfg.debugging(seed=0)
+            algo = cfg.build()
+            try:
+                line, res = offline_run(algo, smi, iters=cql_iters,
+                                        deadline=150.0, target="_q")
+                line["learning"] = {
+                    "cql_gap_first": res[0]["cql_gap"],
+                    "cql_gap_last": res[-1]["cql_gap"],
+                    "evaluation_return_mean":
+                        res[-1]["evaluation_return_mean"],
+                    "gate": "cql_gap falls, evaluation > 60"}
+                assert np.isfinite(res[-1]["td_loss"]), line
+                assert res[-1]["cql_gap"] < res[0]["cql_gap"], line
+                assert res[-1]["evaluation_return_mean"] > 60.0, line
+                out["cql"] = line
+            finally:
+                algo.stop()
+    finally:
+        rt.shutdown()
+    return out
+
+
+def rllib_algo_phases(device, smi: str) -> None:
+    """rllib_impala, rllib_appo, rllib_replay and rllib_offline; each
+    boots the port's runtime and shuts it down."""
+    for phase in (functools.partial(rllib_vtrace, which="impala"),
+                  functools.partial(rllib_vtrace, which="appo"),
+                  rllib_replay, rllib_offline):
+        t0 = time.perf_counter()
+        emit({**phase(device, smi), "wall_s": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4027,6 +4552,10 @@ def main() -> int:
     # (three rounds, the first update held against the CPU learner, the
     # learning criterion), then the CNN learner at Atari's frame shape
     rllib_phases(device, smi)
+    # the rest of rllib's algorithms with the learner on the card: IMPALA
+    # and APPO at the same fleet, DQN and SAC (discrete, continuous),
+    # BC, MARWIL and CQL, each with the reference's learning gate
+    rllib_algo_phases(device, smi)
     # compiled graphs with the tensor codec, Mixtral's widths trained,
     # expert parallelism over a process group, a 1F1B pipeline of
     # Llama-3-8B blocks over the port's channels

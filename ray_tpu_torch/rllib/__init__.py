@@ -10,20 +10,35 @@ batches as object-plane references into the learner with async
 sample/train overlap and exactly-once `SampleLedger` accounting.
 
 Landed: PPO, with its modules (`MLPModule`, `CNNModule`), learner,
-environments, runners, connectors and the fleet bench.  Waiting, in
-order (`ROADMAP.md` queue 1 item 8): IMPALA and APPO (v-trace), DQN,
-SAC and CQL, BC and MARWIL, multi-agent PPO with `env/multi_agent.py`,
-DreamerV3.
+environments, runners, connectors and the fleet bench; IMPALA and APPO
+(v-trace on the driver); DQN and SAC, discrete and continuous (replay,
+target networks kept on the learner's device); CQL, BC and MARWIL
+(offline datasets).  Waiting, in order (`ROADMAP.md` queue 1 item 8):
+multi-agent PPO with `env/multi_agent.py`, then DreamerV3.
 
 No module here imports torch at load: runner actors unpickle modules
 and connectors, and stay numpy-only.
 """
 
 from ray_tpu_torch.rllib.algorithms import (
+    APPO,
+    BC,
+    CQL,
+    DQN,
+    IMPALA,
+    MARWIL,
     PPO,
+    SAC,
     Algorithm,
     AlgorithmConfig,
+    APPOConfig,
+    BCConfig,
+    CQLConfig,
+    DQNConfig,
+    IMPALAConfig,
+    MARWILConfig,
     PPOConfig,
+    SACConfig,
 )
 from ray_tpu_torch.rllib.connectors import (
     ConnectorPipeline,
@@ -62,6 +77,14 @@ __all__ = [
     "ObsClip",
     "RewardClip",
     "AlgorithmConfig",
+    "APPO",
+    "APPOConfig",
+    "BC",
+    "BCConfig",
+    "MARWIL",
+    "MARWILConfig",
+    "CQL",
+    "CQLConfig",
     "CartPoleVectorEnv",
     "CatchPixelEnv",
     "CNNModule",
@@ -71,6 +94,12 @@ __all__ = [
     "PendulumVectorEnv",
     "make_default_module",
     "wrap_atari_connectors",
+    "DQN",
+    "DQNConfig",
+    "IMPALA",
+    "IMPALAConfig",
+    "SAC",
+    "SACConfig",
     "EnvRunner",
     "EnvRunnerGroup",
     "Learner",

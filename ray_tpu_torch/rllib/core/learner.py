@@ -30,8 +30,13 @@ one-process counterpart.  Here the mesh is a list of devices
 mesh device, each shard's gradient is taken there from a replica of the
 params, and the shards' gradients are averaged onto the first device
 before one optimizer step (the psum XLA inserts).  Every term of the
-PPO loss is a row mean, so equal shards give the unsharded update.  On
-one card the gang is 1.
+PPO loss is a row mean, so equal shards give the unsharded update.  A
+loss with a whole-batch statistic (MARWIL's advantage normaliser, the
+root mean square over the minibatch) carries a `batch_stats(module,
+params, batch)` attribute: the gang computes it once over the whole
+minibatch, without autograd, and hands it to every shard as batch
+entries, as the reference's one program sees the whole batch.  On one
+card the gang is 1.
 
 DDP learners (`num_learners >= 1`) are the reference's CPU fleet: its
 `_RemoteLearner` forces `JAX_PLATFORMS=cpu`, so the port's run with
@@ -142,7 +147,11 @@ class Learner:
         from ray_tpu_torch.models.bridge import tree_leaves
 
         loss, metrics = self._loss_fn(self.module, params, batch)
-        grads = torch.autograd.grad(loss, tree_leaves(params))
+        # a leaf the loss does not reach (DQN's value tower) gets a zero
+        # gradient, as `jax.grad` gives it
+        grads = torch.autograd.grad(loss, tree_leaves(params),
+                                    allow_unused=True,
+                                    materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = loss.detach()
         return metrics, list(grads)
@@ -155,6 +164,8 @@ class Learner:
             if self._mesh is None:
                 return self._shard_grads(
                     self.params, self._to_device(batch, self.device))
+            import torch
+
             n = len(self._mesh)
             rows = batch["obs"].shape[0]
             if rows % n:
@@ -163,6 +174,12 @@ class Learner:
                     f"gang of {n} learner devices"
                 )
             k = rows // n
+            whole = {}
+            stats = getattr(self._loss_fn, "batch_stats", None)
+            if stats is not None:
+                with torch.no_grad():
+                    whole = stats(self.module, self.params,
+                                  self._to_device(batch, self.device))
             parts = []
             for i, dev in enumerate(self._mesh):
                 params = (self.params if dev == self.device
@@ -170,6 +187,7 @@ class Learner:
                 shard = self._to_device(
                     {key: v[i * k:(i + 1) * k] for key, v in batch.items()},
                     dev)
+                shard.update({key: v.to(dev) for key, v in whole.items()})
                 parts.append(self._shard_grads(params, shard))
             metrics = {key: sum(m[key].to(self.device) for m, _ in parts) / n
                        for key in parts[0][0]}
@@ -358,6 +376,17 @@ class LearnerGroup:
             self._local.set_state(state)
         else:
             rt.get([a.set_state.remote(state) for a in self._actors])
+
+    @property
+    def device(self):
+        """Where the local learner's params live (the first device of a
+        gang); the CPU for DDP learner actors.  Driver-side forwards of
+        the params (DQN's and SAC's targets) run here."""
+        import torch
+
+        if self._local is not None:
+            return self._local.device
+        return torch.device("cpu")
 
     @property
     def num_gang_devices(self) -> int:

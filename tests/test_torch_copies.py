@@ -104,6 +104,7 @@ COPIES = (
     "rllib/algorithms/algorithm.py", "rllib/env/__init__.py",
     "rllib/env/envs.py", "rllib/env/env_runner.py",
     "rllib/env/env_runner_group.py",
+    "cluster_utils.py",
 )
 
 # module -> the test that holds what it changes
@@ -211,6 +212,31 @@ ADAPTED = {
                              "test_learner_update_matches_jax",
     "rllib/bench.py": "test_torch_rllib_algo.py::"
                       "test_fleet_bench_row_accounts_exactly",
+    # the rest of rllib's algorithms: each loss in torch, the learner
+    # group on the learner's device, DQN's, SAC's and CQL's target
+    # forwards eager and no-grad on target params kept on that device;
+    # the numpy paths and training steps are the originals'
+    # (test_rllib_algorithms_outside_the_torch_learner_are_copies below)
+    "rllib/algorithms/appo.py": "test_torch_rllib_vtrace.py::"
+                                "test_loss_and_grad_match_jax",
+    "rllib/algorithms/impala.py": "test_torch_rllib_vtrace.py::"
+                                  "test_update_matches_jax",
+    "rllib/algorithms/dqn.py": "test_torch_rllib_replay.py::"
+                               "test_td_targets_match_the_jitted_jax_"
+                               "functions",
+    "rllib/algorithms/sac.py": "test_torch_rllib_replay.py::"
+                               "test_loss_and_grad_match_jax",
+    "rllib/algorithms/cql.py": "test_torch_rllib_offline.py::"
+                               "test_cql_td_targets_match_the_jitted_jax_"
+                               "forward",
+    "rllib/algorithms/bc.py": "test_torch_rllib_offline.py::"
+                              "test_loss_and_grad_match_jax",
+    "rllib/algorithms/marwil.py": "test_torch_rllib_offline.py::"
+                                  "test_gang_form_equals_the_whole_batch",
+    # the fault injectors are copies; the JAX probes become a gloo probe
+    # and a kernel probe (test_testing_outside_the_probes_is_a_copy below)
+    "testing.py": "test_torch_testing.py::"
+                  "test_cuda_kernel_support_answers_for_each_family",
 }
 
 
@@ -235,6 +261,8 @@ def test_every_runtime_module_is_a_copy_or_adapted():
         for f in (port / sub).iterdir():
             if f.suffix in (".py", ".cc"):
                 assert f"{sub}/{f.name}" in listed, f"{sub}/{f.name}"
+    for f in port.glob("*.py"):
+        assert f.name in listed, f.name
     for rel, test in ADAPTED.items():
         assert (port / rel).is_file(), rel
         path, name = test.split("::")
@@ -375,3 +403,73 @@ def test_rewrite_keeps_the_namespaces_apart():
     # registry, not in a namespace the two runtimes share
     assert '"rt_serve_requests_total"' in out
     assert rewrite(out, "shm/__init__.py") == out  # idempotent
+
+
+def test_testing_outside_the_probes_is_a_copy():
+    """`testing.py` keeps the original's fault injectors
+    (`list_workers`, `kill_random_worker`, `WorkerKiller`) and replaces
+    its JAX probes: everything up to the probes is the original's after
+    the rewrite."""
+    orig = rewrite((REPO / "ray_tpu" / "testing.py").read_text())
+    port = (REPO / "ray_tpu_torch" / "testing.py").read_text()
+    mark = "# environment capability probes"
+    assert port[:port.index(mark)] == orig[:orig.index(mark)]
+
+
+# a training step's one port line: the online params cross to the
+# learner's device once an iteration (the target forwards run there)
+_ONLINE_RULE = (re.compile(
+    r"self\._on_learner_device\(\n\s+self\.learner_group\."
+    r"get_weights_numpy\(\)\)"), "self.learner_group.get_weights_numpy()")
+
+_ALGO_COPIED = {
+    "rllib/algorithms/appo.py": (
+        "APPOConfig.__init__", "APPOConfig.algo_class", "compute_vtrace",
+        "APPO._current_forward", "APPO.training_step", "APPO.get_state",
+        "APPO.set_state", "APPO.stop", "_logsumexp"),
+    "rllib/algorithms/impala.py": (
+        "IMPALAConfig.__init__", "IMPALAConfig.algo_class",
+        "IMPALA._vtrace_batch", "IMPALA.training_step", "IMPALA.get_state",
+        "IMPALA.set_state", "IMPALA.stop"),
+    "rllib/algorithms/dqn.py": (
+        "QMLPModule.select_actions_numpy", "DQNConfig.__init__",
+        "DQNConfig.algo_class", "ReplayBuffer.__init__",
+        "ReplayBuffer.__len__", "ReplayBuffer.add_batch",
+        "ReplayBuffer.sample", "_transitions", "DQN._epsilon",
+        "DQN.training_step", "DQN.get_state", "DQN.set_state", "DQN.stop"),
+    "rllib/algorithms/sac.py": (
+        "SACModule.forward_numpy", "ContinuousSACModule.__init__",
+        "ContinuousSACModule.select_actions_numpy",
+        "ContinuousSACModule.forward_numpy", "SACConfig.__init__",
+        "SACConfig.algo_class", "SAC.training_step", "SAC.get_state",
+        "SAC.set_state", "SAC.stop"),
+    "rllib/algorithms/cql.py": (
+        "CQLConfig.__init__", "CQLConfig.offline_data",
+        "CQLConfig.evaluation", "CQLConfig.algo_class", "_load_dataset",
+        "CQL.training_step", "CQL.evaluate", "CQL.get_state",
+        "CQL.set_state", "CQL.stop"),
+    "rllib/algorithms/bc.py": (
+        "BCConfig.__init__", "BCConfig.offline_data", "BCConfig.algo_class",
+        "_coerce_offline", "BC._loss_fn", "BC._prepare_dataset",
+        "BC.training_step", "BC.get_state", "BC.set_state", "BC.stop"),
+    "rllib/algorithms/marwil.py": (
+        "MARWILConfig.__init__", "MARWILConfig.training",
+        "MARWILConfig.algo_class", "discounted_returns",
+        "_coerce_offline_marwil", "MARWIL._loss_fn",
+        "MARWIL._prepare_dataset", "MARWIL.training_step"),
+}
+
+
+@pytest.mark.parametrize("rel", list(_ALGO_COPIED))
+def test_rllib_algorithms_outside_the_torch_learner_are_copies(rel):
+    """Each algorithm ports its loss, its learner group's device and its
+    target forwards; its configs, numpy helpers (v-trace, the replay
+    buffer, the dataset readers, discounted returns), runner-side
+    policies, state and training steps are the original's, function by
+    function (the training steps of DQN, SAC and CQL after their one
+    port line, `_ONLINE_RULE`)."""
+    orig = _defs(rewrite((REPO / "ray_tpu" / rel).read_text(), rel))
+    port = _defs(_ONLINE_RULE[0].sub(
+        _ONLINE_RULE[1], (REPO / "ray_tpu_torch" / rel).read_text()))
+    for name in _ALGO_COPIED[rel]:
+        assert port[name] == orig[name], (rel, name)

@@ -14,6 +14,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -53,6 +54,10 @@ RUNTIME_MODULES = (
     "rllib/algorithms/algorithm.py", "rllib/algorithms/algorithm_config.py",
     "rllib/algorithms/ppo.py", "rllib/env/__init__.py", "rllib/env/envs.py",
     "rllib/env/env_runner.py", "rllib/env/env_runner_group.py",
+    "rllib/algorithms/appo.py", "rllib/algorithms/impala.py",
+    "rllib/algorithms/dqn.py", "rllib/algorithms/sac.py",
+    "rllib/algorithms/cql.py", "rllib/algorithms/bc.py",
+    "rllib/algorithms/marwil.py", "testing.py", "cluster_utils.py",
 )
 
 
@@ -273,6 +278,8 @@ def test_runtime_modules_do_not_import_torch():
         import ray_tpu_torch.data.avro
         import ray_tpu_torch.tune
         import ray_tpu_torch.tune.controller
+        import ray_tpu_torch.testing
+        import ray_tpu_torch.cluster_utils
         bad = sorted(m for m in sys.modules if m.split(".")[0] == "torch")
         assert not bad, bad
         print("OK")
@@ -400,7 +407,10 @@ def test_rllib_runner_side_imports_no_torch_or_jax():
     `rllib.connectors`, and with them the package, its modules and its
     algorithms (a runner unpickles module objects and connector
     factories).  A CartPole runner there samples a rollout through an
-    `MLPModule`'s numpy forward, and a frame stack stacks."""
+    `MLPModule`'s numpy forward, and a frame stack stacks; DQN's
+    epsilon-greedy `QMLPModule`, discrete SAC's policy and continuous
+    SAC's squashed Gaussian act through their numpy paths, and the
+    offline readers and v-trace run, all without torch."""
     code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {str(REPO)!r})
@@ -423,6 +433,41 @@ def test_rllib_runner_side_imports_no_torch_or_jax():
         stacked = FrameStack(4).on_observations(np.ones((2, 3, 3, 1)))
         assert stacked.shape == (2, 3, 3, 4)
         assert PPOConfig and bench.measure_rllib_ppo
+        from ray_tpu_torch.rllib import (
+            APPOConfig, BCConfig, CQLConfig, DQNConfig, IMPALAConfig,
+            MARWILConfig, SACConfig)
+        from ray_tpu_torch.rllib.algorithms import appo, cql, marwil
+        from ray_tpu_torch.rllib.algorithms.dqn import (
+            QMLPModule, ReplayBuffer, _transitions)
+        from ray_tpu_torch.rllib.algorithms.sac import (
+            ContinuousSACModule, SACModule)
+        rng = np.random.default_rng(0)
+        obs = batch["obs"][0]
+        q_tower = lambda n, i=4: [{{"w": np.full((i, n), 0.1, np.float32),
+                                   "b": np.zeros(n, np.float32)}}]
+        act, _, _ = QMLPModule(4, 2, hidden=()).select_actions_numpy(
+            {{"pi": q_tower(2), "vf": q_tower(1)}}, obs, rng, 0.5)
+        assert act.shape == (2,)
+        logits, _ = SACModule(4, 2, hidden=()).forward_numpy(
+            {{"pi": q_tower(2)}}, obs)
+        assert logits.shape == (2, 2)
+        a, logp, _ = ContinuousSACModule(4, 1, hidden=()).select_actions_numpy(
+            {{"pi": q_tower(2)}}, obs, rng, True)
+        assert a.shape == (2, 1) and np.isfinite(logp).all()
+        buf = ReplayBuffer(16, 4)
+        buf.add_batch(*_transitions(batch))
+        assert buf.sample(4, rng)["obs"].shape == (4, 4)
+        adv, vs = appo.compute_vtrace(
+            batch["logp"], batch["logp"], batch["rewards"],
+            np.zeros((8, 2), np.float32), np.zeros(2, np.float32),
+            batch["terminated"], batch["truncated"],
+            np.zeros((8, 2), np.float32), 0.99)
+        assert vs.shape == (8, 2)
+        assert marwil.discounted_returns(np.ones(3), np.zeros(3), 0.5)[0] == 1.75
+        assert cql._load_dataset({{k: np.zeros(2) for k in (
+            "obs", "actions", "rewards", "next_obs", "terminated")}})
+        assert (APPOConfig and BCConfig and CQLConfig and DQNConfig
+                and IMPALAConfig and MARWILConfig and SACConfig)
         assert not any(m.split(".")[0] in {FORBIDDEN + ("torch",)!r}
                        for m, mod in sys.modules.items() if mod is not None)
         print("OK")
@@ -461,6 +506,40 @@ def test_entry_points_raise_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_rllib_learners_raise_without_a_card(no_card):
+    """Every algorithm's learner defaults to the card: its learner
+    group raises without one unless `device="cpu"` is given; the offline
+    algorithms (no runners) raise from `build()`."""
+    from ray_tpu_torch.rllib import BCConfig, CQLConfig, MARWILConfig
+    from ray_tpu_torch.rllib.algorithms import (
+        appo, bc, cql, dqn, impala, marwil, sac)
+    from ray_tpu_torch.rllib.core.learner import LearnerGroup
+    from ray_tpu_torch.rllib.core.rl_module import MLPModule
+
+    for module, loss in (
+            (MLPModule(4, 2), appo.make_appo_loss(0.3, 0.5, 0.01)),
+            (MLPModule(4, 2), impala.make_impala_loss(0.5, 0.01)),
+            (dqn.QMLPModule(4, 2), dqn.make_dqn_loss()),
+            (sac.SACModule(4, 2), sac.make_sac_loss(0.3)),
+            (sac.ContinuousSACModule(4, 1), sac.make_continuous_sac_loss(-1)),
+            (dqn.QMLPModule(4, 2), cql.make_cql_loss(1.0)),
+            (MLPModule(4, 2), bc.bc_loss),
+            (MLPModule(4, 2), marwil.make_marwil_loss(1.0, 1.0, 20.0))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            LearnerGroup(module, loss)
+        assert LearnerGroup(module, loss, device="cpu").device == \
+            torch.device("cpu")
+    rng = np.random.default_rng(0)
+    data = {"obs": rng.normal(size=(8, 4)).astype(np.float32),
+            "next_obs": rng.normal(size=(8, 4)).astype(np.float32),
+            "actions": rng.integers(0, 2, 8).astype(np.int32),
+            "rewards": np.ones(8, np.float32),
+            "terminated": np.zeros(8, bool)}
+    for cfg in (CQLConfig(), BCConfig(), MARWILConfig()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cfg.offline_data(input_=data).build()
 
 
 def test_engine_refuses_params_on_another_device():

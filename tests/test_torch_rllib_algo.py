@@ -5,9 +5,11 @@ stacking, the default module, the learner's update, its gang and DDP
 actors, the runner fleet's object-plane refs, weights broadcast and
 sample/train overlap, PPO learning CartPole on the sync, overlap and
 compiled-DAG rounds at the reference's thresholds, checkpoints, pixel
-Catch with the CNN encoder, a frame-stacked run, and the fleet bench's
-row.  The other algorithms' cases wait for their ports (`ROADMAP.md`
-queue 1 item 8), and the chaos cases for `testing.list_workers`.
+Catch with the CNN encoder, a frame-stacked run, the fleet bench's row,
+Pendulum's vector env and the gymnasium adapter (which skips only
+where `gymnasium` is not installed).  The other algorithms' cases are
+in `test_torch_rllib_vtrace.py`, `_replay.py` and `_offline.py`, the
+chaos cases in `test_torch_chaos_rllib.py`.
 
 One module-scoped port cluster serves every case (the JAX file's
 fixture too).  What the runners run (connector factories) is defined
@@ -75,6 +77,38 @@ def test_cartpole_vector_env():
         assert np.isfinite(obs).all()
     # always pushing right must topple the pole repeatedly (auto-reset)
     assert total_done > 4
+
+
+def test_pendulum_vector_env():
+    from ray_tpu_torch.rllib.env.envs import PendulumVectorEnv
+
+    env = PendulumVectorEnv(num_envs=4, seed=0)
+    assert env.continuous and env.action_dim == 1
+    obs = env.reset()
+    assert obs.shape == (4, 3)
+    for _ in range(200):
+        obs, rew, term, trunc, info = env.step(
+            np.zeros((4, 1), np.float32)
+        )
+        assert (rew <= 0).all()  # Pendulum cost is always >= 0
+        assert np.isfinite(obs).all()
+    assert trunc.all() and "final_observation" in info  # 200-step limit
+
+
+def test_gymnasium_vector_env_adapter():
+    pytest.importorskip("gymnasium")
+    from ray_tpu_torch.rllib.env.envs import GymnasiumVectorEnv
+
+    env = GymnasiumVectorEnv("CartPole-v1", num_envs=2, seed=0)
+    obs = env.reset()
+    assert obs.shape == (2, 4)
+    saw_final = False
+    for _ in range(400):
+        obs, rew, term, trunc, info = env.step(np.ones(2, dtype=np.int64))
+        if (term | trunc).any():
+            saw_final = "final_observation" in info
+            break
+    assert saw_final
 
 
 def test_module_numpy_and_torch_forward_agree():

@@ -6,13 +6,17 @@ monitor (SIGKILL, breaker trip), bounded finish, and elastic recovery
 from a SIGKILLed rank without spending the failure budget.
 
 Chaos conventions follow the JAX package's: seeded inputs, real
-SIGKILLs.  Its host-preemption test needs `cluster_utils` (a second node
-daemon), which the port does not have yet (ROADMAP.md queue 1 item 9).
+SIGKILLs.  Its host-preemption case runs on the port's
+`cluster_utils.Cluster` (two node daemons on one host): a rank and its
+host SIGKILLed mid-run, the group shrunk onto the surviving host over a
+smaller gloo group, the sharded checkpoint resharded from two writers
+onto one reader, then re-grown when a replacement host joins.
 """
 
 import json
 import os
 import signal
+import threading
 import time
 
 import numpy as np
@@ -446,3 +450,237 @@ def test_elastic_recovery_resyncs_the_collective_group(cluster, tmp_path):
     # the mean of (0 + 3) and (1 + 3) when both ranks are back
     want = 3.5 if last["world"] == 2 else 3.0
     assert last["g"] == pytest.approx(want)
+
+
+# ----------------------------------------------------------------------
+# host preemption: a rank and its node daemon SIGKILLed (two hosts)
+# ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def multiproc_cpu():
+    from ray_tpu_torch.testing import torch_multiprocess_cpu_support
+
+    ok, why = torch_multiprocess_cpu_support()
+    if not ok:
+        pytest.skip(f"multi-process gloo unsupported here: {why}")
+
+
+def test_host_preemption_shrink_reshard_resume_regrow(
+        multiproc_cpu, tmp_path):
+    """The JAX package's acceptance scenario on the port: SIGKILL one
+    training rank AND its host daemon mid-step.  Without restarting
+    fit(): the loss is detected through the health plane, the group
+    re-forms on the surviving host over a SMALLER gloo group, restores
+    the latest atomic checkpoint (2-writer pieces resharded onto the
+    1-process layout) at the same global step, and — when a replacement
+    node joins — re-grows to full width and finishes.  The post-shrink
+    loss trajectory must match a never-killed run restored from the
+    same checkpoint.
+
+    The model is a least-squares weight [16, 8], data-parallel over the
+    process group (each rank's gradient on the same seeded batch,
+    mean-allreduced), checkpointed as a DTensor sharded by rows over
+    the fsdp axis: its loss does not depend on the group's width."""
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    def loop(config):
+        import tempfile
+
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.tensor import (
+            Replicate,
+            Shard,
+            distribute_tensor,
+        )
+
+        from ray_tpu_torch import train as rtrain
+        from ray_tpu_torch.parallel import MeshSpec
+        from ray_tpu_torch.train.checkpoint import Checkpoint as Ck
+        from ray_tpu_torch.train.sharded_checkpoint import (
+            load_sharded,
+            save_sharded,
+        )
+
+        ctx = rtrain.get_context()
+        rank = ctx.get_world_rank()
+        # deterministic chaos markers: the driver picks its victim by
+        # the host (ppid == the node daemon) carrying the rank
+        with open(os.path.join(config["marker_dir"],
+                               f"rank{rank}_pid{os.getpid()}.json"),
+                  "w") as f:
+            json.dump({"rank": rank, "pid": os.getpid(),
+                       "ppid": os.getppid(),
+                       "world": ctx.get_world_size()}, f)
+
+        world = dist.get_world_size()
+        mesh = MeshSpec(fsdp=world).build(device_type="cpu")
+        rows = [Replicate(), Shard(0)] + [Replicate()] * 4
+        rng = np.random.default_rng(7)  # seeded: every attempt, same data
+        x = torch.from_numpy(rng.normal(size=(32, 16)).astype(np.float32))
+        y = torch.from_numpy(rng.normal(size=(32, 8)).astype(np.float32))
+        w = torch.from_numpy(np.random.default_rng(0).normal(
+            size=(16, 8)).astype(np.float32) * 0.1)
+
+        start_step = 0
+        resume = rtrain.get_checkpoint()
+        if resume is not None:
+            with resume.as_directory() as d:
+                state = load_sharded(d, {
+                    "w": distribute_tensor(torch.zeros(16, 8), mesh, rows),
+                    "step": 0, "pnorm": 0.0})
+            w = state["w"].full_tensor()
+            start_step = int(state["step"])
+            # reshard-on-restore correctness: the norm computed under
+            # the OLD layout must survive re-laying onto this mesh
+            restored = float(w.norm())
+            assert abs(restored - state["pnorm"]) < 1e-3 * state["pnorm"], (
+                restored, state["pnorm"])
+
+        for step in range(start_step, config["num_steps"]):
+            time.sleep(config.get("step_sleep_s", 0.0))
+            wt = w.clone().requires_grad_(True)
+            loss = ((x @ wt - y) ** 2).mean()
+            (g,) = torch.autograd.grad(loss, wt)
+            dist.all_reduce(g)
+            w = w - 0.1 * g / world
+            d = tempfile.mkdtemp(prefix="rtt_elastic_ck_")
+            save_sharded({"w": distribute_tensor(w, mesh, rows),
+                          "step": step + 1, "pnorm": float(w.norm())}, d)
+            ck = Ck(d)
+            ck._temp_source = True
+            rtrain.report(
+                {"loss": float(loss), "step": step + 1,
+                 "world": ctx.get_world_size(),
+                 "global_devices": mesh.size(), "process_count": world},
+                checkpoint=ck,
+            )
+
+    marker_dir = str(tmp_path / "markers")
+    os.makedirs(marker_dir)
+    num_steps = 12
+    # one runtime a process: drop the module's local cluster, if any
+    rt.shutdown()
+    c = Cluster(initialize_head=True,
+                head_node_args={"num_cpus": 1, "num_workers": 1})
+    node_b = c.add_node(num_cpus=1, num_workers=1)
+    c.connect()
+    c.wait_for_nodes()
+    try:
+        history = []
+        trainer = CudaTrainer(
+            loop,
+            train_loop_config={
+                "num_steps": num_steps, "marker_dir": marker_dir,
+                "step_sleep_s": 0.4,
+            },
+            cuda_config=CudaConfig(distributed_mode="torch_distributed",
+                                   device="cpu",
+                                   env_vars={"OMP_NUM_THREADS": "1"}),
+            scaling_config=ScalingConfig(
+                num_workers=2, placement_strategy="SPREAD"
+            ),
+            run_config=RunConfig(
+                storage_path=str(tmp_path), name="elastic_preemption",
+                failure_config=FailureConfig(
+                    elastic=True, min_workers=1, detect_poll_s=0.25,
+                    drain_timeout_s=4.0, reform_timeout_s=3.0,
+                    regrow_interval_s=1.0,
+                ),
+            ),
+        )
+        trainer._result_callback = (
+            lambda m, ck: history.append(dict(m))
+        )
+        box = {}
+
+        def run():
+            box["result"] = trainer.fit()
+
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+
+        # let two full checkpoints commit before preempting
+        _wait_for(lambda: len(history) >= 2, 180.0, "2 iterations")
+        victim = None
+        for fn in os.listdir(marker_dir):
+            with open(os.path.join(marker_dir, fn)) as f:
+                info = json.load(f)
+            if info["ppid"] == node_b.proc.pid:
+                victim = info
+        assert victim is not None, "no rank found on the victim host"
+        os.kill(victim["pid"], signal.SIGKILL)  # the rank, mid-step
+        c.remove_node(node_b, graceful=False)   # ... and its host
+
+        # shrunk-phase steps must flow before the replacement appears,
+        # so the width-1 resume is actually exercised
+        _wait_for(lambda: any(m.get("world") == 1 for m in history),
+                  180.0, "post-shrink step on the smaller mesh")
+        c.add_node(num_cpus=1, num_workers=1)  # replacement host joins
+        _wait_for(lambda: not t.is_alive(), 240.0, "fit completion")
+        t.join()
+        result = box["result"]
+
+        assert result.error is None, result.error
+        # finished at FULL width on the re-grown group
+        assert result.metrics["step"] == num_steps
+        assert result.metrics["world"] == 2
+        assert result.metrics["process_count"] == 2
+        assert result.metrics["global_devices"] == 2
+
+        # lifecycle: shrink -> reform(1) -> regrow -> reform(2)
+        kinds = [e["kind"] for e in trainer._elastic_events]
+        assert kinds.count("shrink") == 1, trainer._elastic_events
+        assert "regrow" in kinds, trainer._elastic_events
+        widths = [e["width"] for e in trainer._elastic_events
+                  if e["kind"] == "reform"]
+        assert widths[0] == 1 and widths[-1] == 2, trainer._elastic_events
+        shrink = next(e for e in trainer._elastic_events
+                      if e["kind"] == "shrink")
+        assert shrink["lost_ranks"], shrink
+
+        # step continuity: every resume landed exactly at the
+        # checkpointed step — the metric stream is gapless and
+        # duplicate-free across both membership changes
+        steps = [m["step"] for m in result.metrics_history]
+        assert steps == list(range(1, num_steps + 1)), steps
+        shrunk = {m["step"]: m["loss"] for m in result.metrics_history
+                  if m["world"] == 1}
+        assert shrunk, "no steps ran on the shrunk mesh"
+        # the shrunk phase ran on the smaller global mesh
+        shrunk_devices = {m["global_devices"]
+                          for m in result.metrics_history
+                          if m["world"] == 1}
+        assert shrunk_devices == {1}
+
+        # loss continuity: a never-killed run restored from the SAME
+        # atomic checkpoint (the one the shrink resumed from) must
+        # produce the same losses over the shrunk segment
+        first_shrunk = min(shrunk)
+        resume_dir = os.path.join(
+            result.path, f"checkpoint_{first_shrunk - 1:06d}"
+        )
+        ok, why = validate_checkpoint(resume_dir)
+        assert ok, why
+        control = CudaTrainer(
+            loop,
+            train_loop_config={
+                "num_steps": max(shrunk), "marker_dir": marker_dir,
+            },
+            cuda_config=CudaConfig(distributed_mode="torch_distributed",
+                                   device="cpu"),
+            scaling_config=ScalingConfig(num_workers=1),
+            run_config=RunConfig(
+                storage_path=str(tmp_path), name="elastic_control",
+            ),
+            resume_from_checkpoint=Checkpoint(resume_dir),
+        ).fit()
+        assert control.error is None, control.error
+        control_losses = {m["step"]: m["loss"]
+                          for m in control.metrics_history}
+        for step, loss in shrunk.items():
+            assert control_losses[step] == pytest.approx(
+                loss, rel=1e-5
+            ), (step, loss, control_losses[step])
+    finally:
+        c.shutdown()
