@@ -227,6 +227,28 @@ exits non-zero:
     and `_td_targets`' ms (CUDA events), updates/s and the same holds.
     rllib_offline: BC, MARWIL and CQL from datasets made from seeds as
     the reference's tests make them, with their gates.
+13j. rllib_multi_agent: multi-agent PPO at the reference test's
+    configuration (the coordination game, 2 runners x 200 steps, lr
+    3e-3, minibatch 128, 4 epochs, modules `pol_a` / `pol_b`), both
+    learners on the card: agent steps/s, each module's updates/s and
+    learner split, peak memory, the idle share.  Held: each module's
+    first update against the plain CPU learner (`RLLIB_TOL`); every
+    iteration's rollouts recomputed from the learners' published
+    weights, bit for bit; the reference's gate (15 iterations, late >
+    7.0); the shared-policy case (2 x 100 agent steps on one module).
+    rllib_dreamer: DreamerV3 on CartPole at `DreamerConfig()`'s widths:
+    one world-model and one actor-critic update on the card against the
+    CPU from one state, batch and Gumbel noise (losses 1e-5 relative,
+    gradients 1e-5 relative norm, params and Adam moments at
+    `RLLIB_TOL`); 1 + 3 iterations: each update's device and host ms,
+    updates/s, the replay's rows, the policy weights' d2h ms, what the
+    updates' host reads cost, the idle share; then the reference test's
+    configuration with its gate.  rllib_dreamer_pixels: the reference's
+    pixel case (Catch 10 x 5) with its gates over 20 iterations, then
+    the default filters at 84 x 84 for 1 + 2 iterations: the updates'
+    ms, the decoder's output shape, `decode` against the CPU.
+    examples: `ppo_pixels.run` and `mnist.run` on the card with the
+    reference tests' gates, each worker's peak memory.
 14. K1-K4 timed at the training shape (bf16, causal), and K3 and K4 at
     the second split shape (BH 32, T 4,096, D 128), beside their bounds,
     plain versions and `scaled_dot_product_attention`, with each
@@ -261,6 +283,7 @@ HBM and its dense peaks (989 TFLOP/s bf16, 67 TFLOP/s f32).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import gc
@@ -3522,14 +3545,16 @@ class LearnerProbe:
         return out
 
 
-def update_vs_cpu(algo, first: dict) -> dict:
+def update_vs_cpu(algo, first: dict, learner=None) -> dict:
     """The first update on the card (`first`, a `LearnerProbe`'s)
     against the plain CPU learner started from the same state, on the
-    same minibatch, with the algorithm's own loss and optimizer."""
+    same minibatch, with the algorithm's own loss and optimizer.
+    `learner`: the card's learner (default: the algorithm's one local
+    learner; multi-agent PPO has one a module)."""
     from ray_tpu_torch.rllib.core.learner import Learner
     from ray_tpu_torch.models.bridge import tree_leaves
 
-    card = algo.learner_group._local
+    card = learner if learner is not None else algo.learner_group._local
     cpu = Learner(card.module, card._loss_fn, device="cpu")
     cpu.optimizer = card.optimizer
     cpu.set_state(first["state"])
@@ -3570,21 +3595,29 @@ def update_vs_cpu(algo, first: dict) -> dict:
     return line
 
 
-def device_idle_share(algo) -> dict:
-    """One more iteration under `torch.profiler`: the card's busy ms
-    (the device time of every kernel and copy) over the iteration's wall
-    ms.  The profiler's host overhead lengthens the wall, so the share
-    reads high; None when the trace shows no device time."""
+def profile_call(fn) -> tuple:
+    """`fn()` under `torch.profiler`: (its value, the wall ms to the
+    card's last work, the card's busy ms: the device time of every
+    kernel and copy in the trace)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        algo.train()
+        value = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = sum(getattr(e, "self_device_time_total", 0.0)
                   for e in prof.key_averages()) / 1e3
+    return value, wall_ms, busy_ms
+
+
+def device_idle_share(algo) -> dict:
+    """One more iteration under `torch.profiler`: the card's busy ms
+    over the iteration's wall ms.  The profiler's host overhead
+    lengthens the wall, so the share reads high; None when the trace
+    shows no device time."""
+    _, wall_ms, busy_ms = profile_call(algo.train)
     return {"profiled_iteration_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms
             else None}
@@ -4301,6 +4334,659 @@ def rllib_algo_phases(device, smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# rllib: multi-agent PPO and DreamerV3 with the learners on the card;
+# the examples
+# ----------------------------------------------------------------------
+def _pol_ab(agent_id: str) -> str:
+    return "pol_a" if agent_id == "agent_0" else "pol_b"
+
+
+class RolloutCheck:
+    """Holds multi-agent PPO's runners to the learners' weights at every
+    iteration: each batch the training step hands to the GAE
+    (`multi_agent_gae`, wrapped) is recomputed row by row with the numpy
+    forward the runners run, from the weights the learners published at
+    the last sync; its `logp` and `values` must equal one module's bit
+    for bit.  `seconds` is the checks' own time, left out of the
+    rates."""
+
+    def __init__(self, algo):
+        from ray_tpu_torch.rllib.algorithms import multi_agent_ppo as mappo
+
+        self.algo, self.mappo, self.gae = algo, mappo, mappo.multi_agent_gae
+        self.weights = algo._weights()  # what setup synced
+        self.matched = []
+        self.seconds = 0.0
+        sync = algo._sync_weights
+
+        def synced():
+            sync()
+            self.weights = algo._weights()
+
+        def checked(batch, gamma, lambda_):
+            t0 = time.perf_counter()
+            hits = [mid for mid, params in self.weights.items()
+                    if self._same(mid, params, batch)]
+            assert len(hits) == 1, hits
+            self.matched.append(hits[0])
+            self.seconds += time.perf_counter() - t0
+            return self.gae(batch, gamma, lambda_)
+
+        algo._sync_weights = synced
+        mappo.multi_agent_gae = checked
+
+    def _same(self, mid, params, batch) -> bool:
+        module = self.algo.modules[mid]
+        for o, a, lp, v in zip(batch["obs"], batch["actions"],
+                               batch["logp"], batch["values"]):
+            logits, value = module.forward_numpy(params, o[None])
+            z = logits[0] - logits[0].max()
+            probs = np.exp(z) / np.exp(z).sum()
+            if (np.float32(np.log(probs[a] + 1e-10)) != lp
+                    or np.float32(value[0]) != v):
+                return False
+        return True
+
+    def restore(self) -> None:
+        self.mappo.multi_agent_gae = self.gae
+
+
+def rllib_multi_agent(device, smi: str, *, iters=15) -> dict:
+    """Multi-agent PPO at the reference test's configuration
+    (tests/test_rllib.py:675-695: the coordination game of 10 rounds, 2
+    runners x 200 steps, lr 3e-3, minibatch 128, 4 epochs, modules
+    `pol_a` / `pol_b`, the default 64-64 MLP), both learners on the
+    card: agent steps/s, each module's updates/s and learner split over
+    iterations 2-15, peak memory, the idle share over one more
+    profiled iteration.  Held: each module's first update against the
+    plain CPU learner (`RLLIB_TOL`); at every iteration the runners'
+    rollouts recomputed from each learner's published weights, bit for
+    bit (`RolloutCheck`); the reference's gate (late > 7.0, both
+    modules' metrics).  Then its shared-policy case (`:698-712`, 1
+    runner x 100 steps: 2 x 100 agent steps on one "shared" module)."""
+    from ray_tpu_torch.rllib import MultiAgentPPOConfig
+
+    out = {"phase": "rllib_multi_agent", "env": "coordination",
+           "episode_len": 10, "runners": 2, "rollout": 200, "lr": 3e-3,
+           "minibatch": 128, "epochs": 4, "policies": ["pol_a", "pol_b"],
+           "hidden": [64, 64], "nvidia_smi": smi}
+    rt.init(num_workers=4, num_cpus=16)
+    try:
+        cfg = MultiAgentPPOConfig()
+        cfg.environment("coordination", env_config={"episode_len": 10})
+        cfg.env_runners(num_env_runners=2, rollout_fragment_length=200)
+        cfg.training(lr=3e-3, minibatch_size=128, num_epochs=4)
+        cfg.multi_agent(policies=["pol_a", "pol_b"],
+                        policy_mapping_fn=_pol_ab)
+        cfg.learners(device=device)
+        algo = cfg.build()
+        check = None
+        try:
+            learners = {mid: lg._local for mid, lg in algo.learners.items()}
+            assert all(lg.device.type == "cuda"
+                       for lg in algo.learners.values()), out
+            probes = {mid: LearnerProbe(lr) for mid, lr in learners.items()}
+            check = RolloutCheck(algo)
+            torch.cuda.reset_peak_memory_stats()
+
+            def run():
+                res = [algo.train()]  # primes the card; the first updates
+                for p in probes.values():
+                    p.reset()
+                check_s = check.seconds
+                t0 = time.perf_counter()
+                res += [algo.train() for _ in range(iters - 1)]
+                torch.cuda.synchronize()
+                return res, time.perf_counter() - t0 - (check.seconds
+                                                        - check_s)
+
+            results, wall_s = with_deadline(180.0, run, "multi-agent PPO")
+            steps = sum(int(r["num_env_steps_sampled"]) for r in results[1:])
+            line = {"iters": iters, "timed_iters": iters - 1,
+                    "wall_s": wall_s, "agent_steps_per_s": steps / wall_s,
+                    "agent_steps": steps,
+                    "rollout_check_s": check.seconds,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            for mid, probe in probes.items():
+                line[mid] = {
+                    "updates_per_s": len(probe.spans["fwd_bwd"]) / wall_s,
+                    "learner": probe.split(),
+                    "update_vs_cpu": update_vs_cpu(
+                        algo, probe.first, learner=learners[mid])}
+            # every iteration: one batch a runner a module, each matched
+            assert (sorted(check.matched)
+                    == sorted(["pol_a", "pol_b"] * 2 * iters)), check.matched
+            line["rollouts_bit_equal_to_published_weights"] = len(
+                check.matched)
+            early = results[0].get("episode_return_mean")
+            late = results[-1]["episode_return_mean"]
+            line["learning"] = {"early": early, "late": late,
+                                "gate": "late > 7.0, pol_a/ and pol_b/ "
+                                        "metrics"}
+            assert late > 7.0, line
+            assert any(k.startswith("pol_a/") for k in results[-1]), line
+            assert any(k.startswith("pol_b/") for k in results[-1]), line
+            line.update(with_deadline(60.0, lambda: device_idle_share(algo),
+                                      "multi-agent profiled iteration"))
+            out["coordination"] = line
+        finally:
+            if check is not None:
+                check.restore()
+            algo.stop()
+
+        cfg = MultiAgentPPOConfig()
+        cfg.environment("coordination")
+        cfg.env_runners(num_env_runners=1, rollout_fragment_length=100)
+        cfg.training(minibatch_size=64, num_epochs=2)
+        cfg.learners(device=device)
+        algo = cfg.build()
+        try:
+            r = with_deadline(60.0, algo.train, "shared-policy iteration")
+            out["shared"] = {
+                "num_env_steps_sampled": r["num_env_steps_sampled"],
+                "modules": list(algo.learners),
+                "learner_device": str(algo.learners["shared"].device),
+                "gate": "num_env_steps_sampled == 2 x 100, shared/ metrics"}
+            assert r["num_env_steps_sampled"] == 2 * 100, out["shared"]
+            assert any(k.startswith("shared/") for k in r), out["shared"]
+        finally:
+            algo.stop()
+    finally:
+        rt.shutdown()
+    return out
+
+
+class _NoRunners:
+    """A Dreamer twin's runner group: nothing to sync or restore."""
+
+    def sync_weights(self, weights) -> None:
+        pass
+
+    def restore_connector_state(self, state) -> None:
+        pass
+
+    def connector_state(self):
+        return None
+
+
+def dreamer_twin(algo, device):
+    """`algo`'s model, config, optimizers (copies) and state with the
+    learner on `device` and no runners."""
+    from ray_tpu_torch.rllib.algorithms.dreamer import Dreamer
+
+    twin = Dreamer.__new__(Dreamer)
+    twin.config, twin.model = algo.config, algo.model
+    twin.device = torch.device(device)
+    twin.env_runner_group = _NoRunners()
+    twin.wm_opt, twin.actor_opt, twin.critic_opt = (
+        copy.copy(o) for o in (algo.wm_opt, algo.actor_opt, algo.critic_opt))
+    twin._gen = torch.Generator(device=twin.device)
+    twin.iteration = 0
+    twin._ret_std = algo._ret_std
+    twin.set_state(algo.get_state())
+    return twin
+
+
+def _record_grads(opt) -> list:
+    """The gradients (as numpy) each call of `opt.update` receives."""
+    seen = []
+    update = opt.update
+
+    def recording(grads, state, params):
+        seen.append([g.detach().cpu().numpy().copy() for g in grads])
+        return update(grads, state, params)
+
+    opt.update = recording
+    return seen
+
+
+def _rel(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def _grad_rel(got: list, want: list) -> float:
+    g = np.concatenate([x.ravel() for x in got]).astype(np.float64)
+    w = np.concatenate([x.ravel() for x in want]).astype(np.float64)
+    return float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+
+
+def _stepped_vs_cpu(got_tree, want_tree, cpu_grads, lr: float) -> dict:
+    """Params after one Adam step, card against CPU: `RLLIB_TOL` where
+    the CPU gradient is 0 or above `RLLIB_NOISE` of its leaf's largest,
+    within `noisy_atol_lr` lr elsewhere.  Relative to the leaf, not
+    absolute as `update_vs_cpu`'s: the actor's whole gradient is ~1e-7
+    (its advantages are small), and Adam's first step is ~lr x sign(g)
+    there too, so only a gradient at the leaf's rounding level can turn
+    its step around."""
+    from ray_tpu_torch.models.bridge import tree_leaves
+
+    held = noisy = 0
+    worst = 0.0
+    for got, want, g in zip(tree_leaves(got_tree), tree_leaves(want_tree),
+                            cpu_grads):
+        a = np.abs(g)
+        mask = (a > RLLIB_NOISE * a.max()) | (g == 0)
+        np.testing.assert_allclose(got[mask], want[mask],
+                                   rtol=RLLIB_TOL["rtol"],
+                                   atol=RLLIB_TOL["atol"])
+        np.testing.assert_allclose(got[~mask], want[~mask], rtol=0,
+                                   atol=RLLIB_TOL["noisy_atol_lr"] * lr)
+        held += int(mask.sum())
+        noisy += int((~mask).sum())
+        worst = max(worst, float(np.abs(got - want).max()))
+    return {"params_held_strictly": held, "params_noisy_grad": noisy,
+            "params_max_abs_err": worst}
+
+
+def _moments_vs_cpu(got: dict, want: dict) -> float:
+    from ray_tpu_torch.models.bridge import tree_leaves
+
+    assert int(got["count"]) == int(want["count"])
+    worst = 0.0
+    for part in ("mu", "nu"):
+        for g, w in zip(tree_leaves(got[part]), tree_leaves(want[part])):
+            np.testing.assert_allclose(g, w, rtol=RLLIB_TOL["rtol"],
+                                       atol=RLLIB_TOL["atol"])
+            worst = max(worst, float(np.abs(g - w).max()))
+    return worst
+
+
+def dreamer_updates_vs_cpu(algo, seed: int = 0) -> dict:
+    """One `_wm_update` and one `_ac_update` on the card against the
+    CPU, each pair from one state (`dreamer_twin`s of `algo`), on a
+    batch of `algo`'s replay and the same Gumbel noise (drawn on the
+    CPU, copied to the card): the losses 1e-5 relative, each gradient
+    1e-5 by the relative norm of the difference, the stepped params,
+    the target critic and Adam's moments at `RLLIB_TOL`, `ret_std`
+    1e-5 relative.  The actor-critic pair starts from the CPU's stepped
+    world model and posterior states on both sides."""
+    from ray_tpu_torch.rllib.algorithms.dreamer import gumbel
+
+    cfg, dev = algo.config, algo.device
+    card, cpu = dreamer_twin(algo, dev), dreamer_twin(algo, "cpu")
+    grads = {name: (_record_grads(getattr(card, name)),
+                    _record_grads(getattr(cpu, name)))
+             for name in ("wm_opt", "actor_opt", "critic_opt")}
+    batch = algo._sample_segments()
+    L, B = batch["prev_actions"].shape
+    G, C = cfg.stoch_groups, cfg.stoch_classes
+    gen = torch.Generator().manual_seed(seed)
+    post = gumbel((L, B, G, C), gen, "cpu")
+    m_card, h_card, z_card = card._wm_update(batch, post.to(dev))
+    m_cpu, h_cpu, z_cpu = cpu._wm_update(batch, post)
+    s_card, s_cpu = card.get_state(), cpu.get_state()
+    wm = {"loss_rel": {k: _rel(float(m_card[k]), float(m_cpu[k]))
+                       for k in m_cpu},
+          "grad_rel_norm": _grad_rel(grads["wm_opt"][0][0],
+                                     grads["wm_opt"][1][0]),
+          "start_h_max_abs_err": float((h_card.cpu() - h_cpu).abs().max()),
+          **_stepped_vs_cpu(s_card["wm"], s_cpu["wm"],
+                            grads["wm_opt"][1][0], cfg.lr),
+          "moments_max_abs_err": _moments_vs_cpu(s_card["wm_opt"],
+                                                 s_cpu["wm_opt"])}
+    np.testing.assert_allclose(h_card.cpu().numpy(), h_cpu.numpy(),
+                               rtol=RLLIB_TOL["rtol"],
+                               atol=RLLIB_TOL["atol"])
+    assert wm["loss_rel"]["wm_loss"] <= RLLIB_TOL["loss"], wm
+    assert wm["grad_rel_norm"] <= RLLIB_TOL["grad_rel"], wm
+
+    card.set_state(s_cpu)
+    N = L * B
+    noise = (gumbel((cfg.horizon, N, algo.model.num_actions), gen, "cpu"),
+             gumbel((cfg.horizon, N, G, C), gen, "cpu"))
+    ac_card, std_card = card._ac_update(
+        h_cpu.to(dev), z_cpu.to(dev), algo._ret_std,
+        tuple(n.to(dev) for n in noise))
+    ac_cpu, std_cpu = cpu._ac_update(h_cpu, z_cpu, algo._ret_std, noise)
+    s_card, s_cpu = card.get_state(), cpu.get_state()
+    ac = {"loss_rel": {k: _rel(float(ac_card[k]), float(ac_cpu[k]))
+                       for k in ac_cpu},
+          "ret_std_rel": _rel(float(std_card), float(std_cpu)),
+          "ret_scale": algo._ret_std}
+    for part, lr in (("actor", cfg.actor_lr), ("critic", cfg.critic_lr)):
+        g_card, g_cpu = grads[f"{part}_opt"][0][0], grads[f"{part}_opt"][1][0]
+        ac[part] = {"grad_rel_norm": _grad_rel(g_card, g_cpu),
+                    **_stepped_vs_cpu(s_card[part], s_cpu[part], g_cpu, lr),
+                    "moments_max_abs_err": _moments_vs_cpu(
+                        s_card[f"{part}_opt"], s_cpu[f"{part}_opt"])}
+        assert ac[part]["grad_rel_norm"] <= RLLIB_TOL["grad_rel"], ac
+    from ray_tpu_torch.models.bridge import tree_leaves
+
+    for got, want in zip(tree_leaves(s_card["target_critic"]),
+                         tree_leaves(s_cpu["target_critic"])):
+        np.testing.assert_allclose(got, want, rtol=RLLIB_TOL["rtol"],
+                                   atol=RLLIB_TOL["atol"])
+    for k in ("actor_loss", "critic_loss"):
+        assert ac["loss_rel"][k] <= RLLIB_TOL["loss"], ac
+    assert ac["ret_std_rel"] <= RLLIB_TOL["loss"], ac
+    return {"wm_update": wm, "ac_update": ac, "tolerance": RLLIB_TOL,
+            "batch": [L, B], "imagined_starts": N}
+
+
+def dreamer_sync_cost(algo, n: int = 8) -> dict:
+    """What the updates' host reads cost: `n` update pairs on a card
+    twin as `training_step` runs them (the return scale and the metrics
+    read back as floats after every pair) against the same pairs read
+    back once at the end; ms a pair each way."""
+    twin = dreamer_twin(algo, algo.device)
+    batches = [algo._sample_segments() for _ in range(n)]
+
+    def pairs(read_each: bool) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kept = []
+        for b in batches:
+            m, h, z = twin._wm_update(b)
+            ac, std = twin._ac_update(h, z, 1.0)
+            if read_each:
+                float(std)
+                [float(v) for v in (*m.values(), *ac.values())]
+            else:
+                kept.append((m, ac, std))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    pairs(True)  # warm-up
+    each, once = pairs(True), pairs(False)
+    return {"pair_ms_reads_each": each, "pair_ms_reads_once": once,
+            "sync_cost_ms_per_pair": each - once, "pairs": n}
+
+
+def dreamer_run(algo, smi: str, *, iters: int, deadline: float) -> tuple:
+    """1 warm-up + `iters` iterations of a built Dreamer on the card:
+    each update's device ms (CUDA events around `_wm_update` and
+    `_ac_update`) and host ms (the launches), updates/s over the wall,
+    the replay's rows, the policy weights' device-to-host ms an
+    iteration (`_policy_weights`), peak memory.  Returns (line, the
+    iterations' results)."""
+    assert algo.device.type == "cuda", algo.device
+    wm_t, ac_t = CudaTimer(algo, "_wm_update"), CudaTimer(algo, "_ac_update")
+    hosts = {name: HostTimer(algo, name) for name in (
+        "_wm_update", "_ac_update", "_sample_segments", "_policy_weights")}
+
+    def run():
+        res = [algo.train()]  # warm-up: primes the card and the replay
+        for t in (wm_t, ac_t, *hosts.values()):
+            t.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res += [algo.train() for _ in range(iters)]
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    try:
+        results, wall_s = with_deadline(deadline, run, "dreamer iterations")
+    finally:
+        for t in hosts.values():
+            t.restore()
+    updates = iters * algo.config.num_updates_per_iter
+    line = {"iters": iters, "updates": updates, "wall_s": wall_s,
+            "updates_per_s": updates / wall_s,
+            "wm_update": wm_t.read(), "ac_update": ac_t.read(),
+            "wm_update_host_ms": hosts["_wm_update"].seconds / updates * 1e3,
+            "ac_update_host_ms": hosts["_ac_update"].seconds / updates * 1e3,
+            "sample_segments_ms":
+                hosts["_sample_segments"].seconds / updates * 1e3,
+            "policy_weights_d2h_ms":
+                hosts["_policy_weights"].seconds / iters * 1e3,
+            "replay_rows": results[-1]["replay_rows"],
+            "final": {k: results[-1][k] for k in (
+                "wm_loss", "recon_loss", "kl_loss", "actor_loss",
+                "critic_loss", "imagined_return_mean")},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "learner_device": str(algo.device), "nvidia_smi": smi}
+    return line, results
+
+
+def rllib_dreamer(device, smi: str, *, iters=3) -> dict:
+    """DreamerV3 on CartPole with the learner on the card.  First at
+    `DreamerConfig()`'s own widths (deter 128, 8 x 8 categoricals, embed
+    and head 128, segments 16 x 16, horizon 15, 8 updates an iteration;
+    1 runner x 4 envs x 32 steps): one `_wm_update` and one `_ac_update`
+    against the CPU (`dreamer_updates_vs_cpu`), then 1 + `iters`
+    iterations (`dreamer_run`), the host reads' cost, the idle share
+    over one more profiled iteration.  Then the reference test's
+    configuration (tests/test_rllib.py:1114-1139: deter 64, 4 x 4,
+    widths 64, 2 updates of 8 segments) with its gate: 3 iterations,
+    every metric finite, replay_rows >= 384, wm_loss falling."""
+    from ray_tpu_torch.rllib.algorithms.dreamer import DreamerConfig
+
+    def config():
+        cfg = DreamerConfig()
+        cfg.environment("CartPole-v1")
+        cfg.env_runners(num_env_runners=1, num_envs_per_env_runner=4,
+                        rollout_fragment_length=32)
+        cfg.debugging(seed=0)
+        cfg.learners(device=device)
+        return cfg
+
+    out = {"phase": "rllib_dreamer", "env": "CartPole-v1", "runners": 1,
+           "envs_per_runner": 4, "rollout": 32, "nvidia_smi": smi}
+    rt.init(num_workers=3, num_cpus=8)
+    try:
+        algo = config().build()
+        try:
+            c = algo.config
+            out["defaults"] = {"deter": c.deter_size,
+                               "stoch": [c.stoch_groups, c.stoch_classes],
+                               "embed": list(c.embed_hidden),
+                               "head": list(c.head_hidden),
+                               "segments": [c.batch_segments, c.batch_length],
+                               "horizon": c.horizon,
+                               "updates_per_iter": c.num_updates_per_iter}
+            line, _ = dreamer_run(algo, smi, iters=iters, deadline=180.0)
+            line["update_vs_cpu"] = dreamer_updates_vs_cpu(algo)
+            line["host_reads"] = dreamer_sync_cost(algo)
+            line.update(with_deadline(60.0, lambda: device_idle_share(algo),
+                                      "dreamer profiled iteration"))
+            out["default_widths"] = line
+        finally:
+            algo.stop()
+
+        cfg = config()
+        cfg.deter_size, cfg.stoch_groups, cfg.stoch_classes = 64, 4, 4
+        cfg.embed_hidden = cfg.head_hidden = (64,)
+        cfg.num_updates_per_iter = 2
+        cfg.batch_segments = 8
+        algo = cfg.build()
+        try:
+            results = with_deadline(60.0, lambda: [algo.train()
+                                                   for _ in range(3)],
+                                    "dreamer reference case")
+            last = results[-1]
+            gate = {k: last[k] for k in ("wm_loss", "actor_loss",
+                                         "critic_loss",
+                                         "imagined_return_mean",
+                                         "replay_rows")}
+            gate.update(first_wm_loss=results[0]["wm_loss"],
+                        gate="metrics finite, replay_rows >= 384, "
+                             "wm_loss falls")
+            out["reference_case"] = gate
+            for k in ("wm_loss", "actor_loss", "critic_loss",
+                      "imagined_return_mean"):
+                assert np.isfinite(last[k]), gate
+            assert last["replay_rows"] >= 3 * 4 * 32, gate
+            assert last["wm_loss"] < results[0]["wm_loss"], gate
+        finally:
+            algo.stop()
+    finally:
+        rt.shutdown()
+    return out
+
+
+def rllib_dreamer_pixels(device, smi: str, *, iters=2, rows=84,
+                         cols=84) -> dict:
+    """DreamerV3 in pixel mode with the learner on the card.  First the
+    reference's pixel case (tests/test_rllib.py:1402-1430: Catch at 10 x
+    5, 1 runner x 16 envs x 16 steps, filters ((8, 3, 2), (16, 3, 2)),
+    deter 64, lr 1e-3, segments 16 x 9, 16 updates an iteration) with
+    its gates over 20 iterations: recon_loss below 0.95 of the first
+    iteration's and below 1.9, best return above -0.55.  Then
+    `DreamerConfig()`'s default filters ((16, 4, 2), (32, 4, 2)) and
+    widths on `CatchPixelEnv` at 84 x 84 (1 runner x 8 envs x 32 steps)
+    for 1 + `iters` iterations: the updates' ms, the decoder's output
+    shape against the frame, and `decode` on the card against the CPU
+    (`RLLIB_TOL`) on the same params and features."""
+    from ray_tpu_torch.models.bridge import params_from_numpy
+    from ray_tpu_torch.rllib.algorithms.dreamer import DreamerConfig
+    from ray_tpu_torch.rllib.core.learner import _full_f32
+    from ray_tpu_torch.rllib.env.envs import CatchPixelEnv
+
+    out = {"phase": "rllib_dreamer_pixels", "nvidia_smi": smi}
+    rt.init(num_workers=3, num_cpus=8)
+    try:
+        cfg = DreamerConfig()
+        cfg.environment("Catch-v0")
+        cfg.env_runners(num_env_runners=1, num_envs_per_env_runner=16,
+                        rollout_fragment_length=16)
+        cfg.debugging(seed=0)
+        cfg.learners(device=device)
+        cfg.conv_filters = ((8, 3, 2), (16, 3, 2))
+        cfg.deter_size = 64
+        cfg.lr = 1e-3
+        cfg.batch_length = 9
+        cfg.batch_segments = 16
+        cfg.num_updates_per_iter = 16
+        algo = cfg.build()
+        try:
+            assert algo.model.pixel and algo.device.type == "cuda"
+            wm_t = CudaTimer(algo, "_wm_update")
+            ac_t = CudaTimer(algo, "_ac_update")
+            torch.cuda.reset_peak_memory_stats()
+
+            def run():
+                t0 = time.perf_counter()
+                res = [algo.train() for _ in range(20)]
+                torch.cuda.synchronize()
+                return res, time.perf_counter() - t0
+
+            results, wall_s = with_deadline(180.0, run, "dreamer pixels")
+            first, r = results[0], results[-1]
+            best = max((x["episode_return_mean"] for x in results[1:]
+                        if np.isfinite(x.get("episode_return_mean",
+                                             np.nan))), default=-1.0)
+            line = {"env": "Catch-v0", "obs_shape": [10, 5, 1],
+                    "conv_filters": cfg.conv_filters, "iters": 20,
+                    "wall_s": wall_s, "updates_per_s": 20 * 16 / wall_s,
+                    "wm_update": wm_t.read(), "ac_update": ac_t.read(),
+                    "first_recon_loss": first["recon_loss"],
+                    "recon_loss": r["recon_loss"], "best_return": best,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "gate": "recon_loss < 0.95 first and < 1.9, best > "
+                            "-0.55"}
+            line.update(with_deadline(60.0, lambda: device_idle_share(algo),
+                                      "dreamer pixels profiled iteration"))
+            out["reference_case"] = line
+            assert r["recon_loss"] < first["recon_loss"] * 0.95, line
+            assert r["recon_loss"] < 1.9, line
+            assert best > -0.55, line
+        finally:
+            algo.stop()
+
+        cfg = DreamerConfig()
+        cfg.environment(functools.partial(CatchPixelEnv, rows=rows,
+                                          cols=cols))
+        cfg.env_runners(num_env_runners=1, num_envs_per_env_runner=8,
+                        rollout_fragment_length=32)
+        cfg.debugging(seed=0)
+        cfg.learners(device=device)
+        algo = cfg.build()
+        try:
+            model = algo.model
+            assert model.pixel and model.obs_shape == (rows, cols, 1)
+            line, _ = dreamer_run(algo, smi, iters=iters, deadline=180.0)
+            line.update(obs_shape=[rows, cols, 1],
+                        conv_filters=algo.config.conv_filters,
+                        conv_dims=model.conv_dims)
+            gen = torch.Generator().manual_seed(0)
+            feats = torch.randn((2, 4, model.feat_size), generator=gen)
+            wm_cpu = params_from_numpy(algo.get_state()["wm"], "cpu")
+            with torch.no_grad(), _full_f32():
+                got = model.decode(algo.wm_params, feats.to(algo.device))
+                want = model.decode(wm_cpu, feats)
+            line["decode_shape"] = list(got.shape)
+            assert tuple(got.shape) == (2, 4, rows, cols, 1), line
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                       rtol=RLLIB_TOL["rtol"],
+                                       atol=RLLIB_TOL["atol"])
+            line["decode_max_abs_err_vs_cpu"] = float(
+                (got.cpu() - want).abs().max())
+            line["decode_max_abs"] = float(want.abs().max())
+            line.update(with_deadline(60.0, lambda: device_idle_share(algo),
+                                      "dreamer 84x84 profiled iteration"))
+            out["atari_frame"] = line
+        finally:
+            algo.stop()
+    finally:
+        rt.shutdown()
+    return out
+
+
+def examples_phase(device, smi: str) -> dict:
+    """The two examples through their entry points on the card, with
+    the reference tests' gates (tests/test_examples.py): `ppo_pixels.
+    run(target_return=0.35, seed=0)` (`:60-80`: loss finite, env steps,
+    best return >= 0.35; under the profiler, for the card's idle share
+    over the run) and `mnist.run(num_workers=2, epochs=4)` (`:15-24`:
+    no error, epoch 3, accuracy > 0.5), its two workers sharing the card
+    (`GPU` 0.5 each), each worker's peak memory from its reports."""
+    from ray_tpu_torch.examples import mnist, ppo_pixels
+
+    out = {"phase": "examples", "nvidia_smi": smi}
+    rt.init(num_workers=3, num_cpus=8)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        res, wall_ms, busy_ms = with_deadline(300.0, lambda: profile_call(
+            lambda: ppo_pixels.run(iterations=45, target_return=0.35,
+                                   seed=0, device=device)), "ppo_pixels")
+        line = {"iterations": res["training_iteration"],
+                "best_return": res["best_return"],
+                "total_loss": res["total_loss"],
+                "num_env_steps_sampled": res["num_env_steps_sampled"],
+                "wall_s": wall_ms / 1e3, "device_busy_ms": busy_ms,
+                "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms
+                else None,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "gate": "loss finite, env steps > 0, best >= 0.35"}
+        out["ppo_pixels"] = line
+        assert np.isfinite(res["total_loss"]), line
+        assert res["num_env_steps_sampled"] > 0, line
+        assert res["best_return"] >= 0.35, line
+
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            result = with_deadline(300.0, lambda: mnist.run(
+                num_workers=2, epochs=4, storage_path=d, device=device),
+                "mnist")
+            wall_s = time.perf_counter() - t0
+        m = result.metrics
+        line = {"error": None if result.error is None else str(result.error),
+                "epoch": m.get("epoch"), "accuracy": m.get("accuracy"),
+                "loss": m.get("loss"), "wall_s": wall_s,
+                "worker_peak_gb": m.get("peak_mem_gb"),
+                "device_idle_share": "not measured: the card's work is in "
+                                     "the two workers' processes",
+                "gate": "no error, epoch 3, accuracy > 0.5"}
+        out["mnist"] = line
+        assert result.error is None, line
+        assert m["epoch"] == 3 and m["accuracy"] > 0.5, line
+        assert len(m["peak_mem_gb"]) == 2 and min(m["peak_mem_gb"]) > 0, line
+    finally:
+        rt.shutdown()
+    return out
+
+
+def rllib_last_phases(device, smi: str) -> None:
+    """rllib_multi_agent, rllib_dreamer, rllib_dreamer_pixels and the
+    examples; each boots the port's runtime and shuts it down."""
+    for phase in (rllib_multi_agent, rllib_dreamer, rllib_dreamer_pixels,
+                  examples_phase):
+        t0 = time.perf_counter()
+        emit({**phase(device, smi), "wall_s": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4556,6 +5242,11 @@ def main() -> int:
     # and APPO at the same fleet, DQN and SAC (discrete, continuous),
     # BC, MARWIL and CQL, each with the reference's learning gate
     rllib_algo_phases(device, smi)
+    # rllib's last two algorithms with the learners on the card:
+    # multi-agent PPO (a learner a module), DreamerV3 (its world model
+    # and imagination updates; vector, then pixels at 10 x 5 and 84 x
+    # 84), then the two examples through their entry points
+    rllib_last_phases(device, smi)
     # compiled graphs with the tensor codec, Mixtral's widths trained,
     # expert parallelism over a process group, a 1F1B pipeline of
     # Llama-3-8B blocks over the port's channels

@@ -9,12 +9,15 @@ Production shape (BASELINE config #3): the runner fleet ships sample
 batches as object-plane references into the learner with async
 sample/train overlap and exactly-once `SampleLedger` accounting.
 
-Landed: PPO, with its modules (`MLPModule`, `CNNModule`), learner,
-environments, runners, connectors and the fleet bench; IMPALA and APPO
-(v-trace on the driver); DQN and SAC, discrete and continuous (replay,
-target networks kept on the learner's device); CQL, BC and MARWIL
-(offline datasets).  Waiting, in order (`ROADMAP.md` queue 1 item 8):
-multi-agent PPO with `env/multi_agent.py`, then DreamerV3.
+Every algorithm of the reference is here: PPO, with its modules
+(`MLPModule`, `CNNModule`), learner, environments, runners, connectors
+and the fleet bench; IMPALA and APPO (v-trace on the driver); DQN and
+SAC, discrete and continuous (replay, target networks kept on the
+learner's device); CQL, BC and MARWIL (offline datasets); multi-agent
+PPO (a learner group a module over dict-keyed envs,
+`env/multi_agent.py`); and DreamerV3 (an RSSM world model and an
+actor-critic trained in imagination, vector or pixel observations,
+its two updates eager on the learner's device).
 
 No module here imports torch at load: runner actors unpickle modules
 and connectors, and stay numpy-only.
@@ -35,8 +38,12 @@ from ray_tpu_torch.rllib.algorithms import (
     BCConfig,
     CQLConfig,
     DQNConfig,
+    Dreamer,
+    DreamerConfig,
     IMPALAConfig,
     MARWILConfig,
+    MultiAgentPPO,
+    MultiAgentPPOConfig,
     PPOConfig,
     SACConfig,
 )
@@ -96,10 +103,14 @@ __all__ = [
     "wrap_atari_connectors",
     "DQN",
     "DQNConfig",
+    "Dreamer",
+    "DreamerConfig",
     "IMPALA",
     "IMPALAConfig",
     "SAC",
     "SACConfig",
+    "MultiAgentPPO",
+    "MultiAgentPPOConfig",
     "EnvRunner",
     "EnvRunnerGroup",
     "Learner",

@@ -101,9 +101,10 @@ COPIES = (
     "tune/__init__.py", "tune/search.py", "tune/schedulers.py",
     "tune/trainable.py", "tune/controller.py", "tune/tuner.py",
     "rllib/connectors.py", "rllib/core/__init__.py",
+    "rllib/algorithms/__init__.py",
     "rllib/algorithms/algorithm.py", "rllib/env/__init__.py",
     "rllib/env/envs.py", "rllib/env/env_runner.py",
-    "rllib/env/env_runner_group.py",
+    "rllib/env/env_runner_group.py", "rllib/env/multi_agent.py",
     "cluster_utils.py",
 )
 
@@ -199,8 +200,6 @@ ADAPTED = {
     # original's: test_rllib_outside_the_torch_learner_is_a_copy below)
     "rllib/__init__.py": "test_torch_isolation.py::"
                          "test_rllib_runner_side_imports_no_torch_or_jax",
-    "rllib/algorithms/__init__.py": "test_torch_rllib.py::"
-                                    "test_one_ppo_iteration_matches_jax",
     "rllib/algorithms/algorithm_config.py": "test_torch_rllib.py::"
                                             "test_one_ppo_iteration_"
                                             "matches_jax",
@@ -233,6 +232,22 @@ ADAPTED = {
                               "test_loss_and_grad_match_jax",
     "rllib/algorithms/marwil.py": "test_torch_rllib_offline.py::"
                                   "test_gang_form_equals_the_whole_batch",
+    # multi-agent PPO: a learner group a module on the learner's device
+    # (test_rllib_outside_the_torch_learner_is_a_copy below); DreamerV3:
+    # the world model, imagination and both updates in torch, the
+    # config, replay and the runners' numpy policy the original's
+    # (test_rllib_algorithms_outside_the_torch_learner_are_copies below)
+    "rllib/algorithms/multi_agent_ppo.py": "test_torch_rllib_multi_agent.py::"
+                                           "test_one_training_step_matches_"
+                                           "jax",
+    "rllib/algorithms/dreamer.py": "test_torch_rllib_dreamer.py::"
+                                   "test_wm_and_ac_updates_match_the_jitted_"
+                                   "jax_ones",
+    # the examples on the port's trainer and PPO, on `device`
+    # (test_examples_outside_the_device_are_copies below)
+    "examples/ppo_pixels.py": "test_torch_examples.py::"
+                              "test_ppo_pixels_example",
+    "examples/mnist.py": "test_torch_examples.py::test_mnist_fashion_ddp",
     # the fault injectors are copies; the JAX probes become a gloo probe
     # and a kernel probe (test_testing_outside_the_probes_is_a_copy below)
     "testing.py": "test_torch_testing.py::"
@@ -329,6 +344,11 @@ def test_data_outside_the_cuda_feed_is_a_copy(rel, orig_end, port_end, tail):
         ("from __future__ import annotations", "class AlgorithmConfig:"),
         ("        self.env_to_module_connector", "    # -- fluent"),
         ("    def training(", None))),
+    # each module's learner group takes `device=cfg.learner_device`
+    ("rllib/algorithms/multi_agent_ppo.py", (
+        ("from __future__ import annotations",
+         "                seed=cfg.seed + i, mesh=cfg.mesh,"),
+        ("            for i, mid in enumerate(module_ids)", None))),
 ])
 def test_rllib_outside_the_torch_learner_is_a_copy(rel, sections):
     """The adapted rllib modules port only the learner's side: each
@@ -457,6 +477,12 @@ _ALGO_COPIED = {
         "MARWILConfig.algo_class", "discounted_returns",
         "_coerce_offline_marwil", "MARWIL._loss_fn",
         "MARWIL._prepare_dataset", "MARWIL.training_step"),
+    "rllib/algorithms/dreamer.py": (
+        "DreamerConfig.__init__", "DreamerConfig.algo_class",
+        "DreamerModel.__init__", "Dreamer._add_to_replay",
+        "Dreamer._sample_segments", "Dreamer.stop",
+        "_DreamerPolicy.__init__", "_DreamerPolicy._np_mlp",
+        "_DreamerPolicy._np_encode", "_DreamerPolicy.forward_numpy"),
 }
 
 
@@ -464,12 +490,38 @@ _ALGO_COPIED = {
 def test_rllib_algorithms_outside_the_torch_learner_are_copies(rel):
     """Each algorithm ports its loss, its learner group's device and its
     target forwards; its configs, numpy helpers (v-trace, the replay
-    buffer, the dataset readers, discounted returns), runner-side
-    policies, state and training steps are the original's, function by
-    function (the training steps of DQN, SAC and CQL after their one
-    port line, `_ONLINE_RULE`)."""
+    buffer, the dataset readers, discounted returns, DreamerV3's
+    replay), runner-side policies (DreamerV3's `_DreamerPolicy`), state
+    and training steps are the original's, function by function (the
+    training steps of DQN, SAC and CQL after their one port line,
+    `_ONLINE_RULE`)."""
     orig = _defs(rewrite((REPO / "ray_tpu" / rel).read_text(), rel))
     port = _defs(_ONLINE_RULE[0].sub(
         _ONLINE_RULE[1], (REPO / "ray_tpu_torch" / rel).read_text()))
     for name in _ALGO_COPIED[rel]:
         assert port[name] == orig[name], (rel, name)
+
+
+@pytest.mark.parametrize("rel,sections", [
+    # `run(device=...)` reaches the learner; the rest is the original's
+    ("examples/ppo_pixels.py", (
+        ("from __future__ import annotations", "def run("),
+        ("    cfg = (PPOConfig()", "           .learners("),
+        ("           .debugging(seed=seed))", None))),
+    # the dataset and the script's entry are the original's
+    ("examples/mnist.py", (
+        ("def make_dataset(", "def train_func("),
+        ('if __name__ == "__main__":', None))),
+])
+def test_examples_outside_the_device_are_copies(rel, sections):
+    """The examples port their train loop (mnist: the torch MLP on the
+    worker's device) and their device argument; each section named
+    here is the original's after the rewrite."""
+    orig = rewrite((REPO / "ray_tpu" / rel).read_text(), rel)
+    port = (REPO / "ray_tpu_torch" / rel).read_text()
+    for start, end in sections:
+        o = orig[orig.index(start):orig.index(end, orig.index(start))
+                 if end else None]
+        p = port[port.index(start):port.index(end, port.index(start))
+                 if end else None]
+        assert p == o, (rel, start)

@@ -7,7 +7,9 @@ learner from the same params, optimizer state and minibatch: APPO and
 IMPALA (v-trace targets in the batch), DQN, discrete and continuous SAC
 (the same reparameterisation draw, `batch["noise"]`), CQL, BC and
 MARWIL, each at CartPole's default widths and its algorithm's default
-minibatch.  DQN's, SAC's and CQL's no-grad target forwards on the card
+minibatch; a multi-agent PPO module (the coordination game's 2 inputs,
+the config's coefficients, lr 3e-3) on a minibatch its runner sampled.
+DQN's, SAC's and CQL's no-grad target forwards on the card
 are held against the CPU's on the same trees.  Limits as in
 `test_torch_cuda_rllib.py` (`chip_smoke.py`'s rllib limits): the loss
 1e-5 relative, the gradient 1e-5 by the relative norm of the
@@ -50,7 +52,8 @@ def _case(which, rng):
     CartPole (obs 4, actions 2) or, for continuous SAC, the target env
     (obs 2, action 2)."""
     n = {"appo": 256, "impala": 256, "dqn": 64, "sac_discrete": 128,
-         "sac_continuous": 128, "cql": 256, "bc": 256, "marwil": 256}[which]
+         "sac_continuous": 128, "cql": 256, "bc": 256, "marwil": 256,
+         "multi_agent_ppo": 128}[which]
     batch = {"obs": rng.normal(size=(n, 4)).astype(np.float32),
              "actions": rng.integers(0, 2, n).astype(np.int32)}
     if which in ("appo", "impala"):
@@ -81,13 +84,48 @@ def _case(which, rng):
             sac.make_continuous_sac_loss(-2.0), 3e-3, batch
     if which == "bc":
         return MLPModule(4, 2), bc.bc_loss, 1e-3, batch
+    if which == "multi_agent_ppo":
+        return _multi_agent_case(n)
     batch["returns"] = (rng.normal(size=n) * 3).astype(np.float32)
     return MLPModule(4, 2), marwil.make_marwil_loss(1.0, 1.0, 20.0), 1e-3, \
         batch
 
 
+def _multi_agent_case(n):
+    """A module of multi-agent PPO as `setup_components` builds it, on a
+    minibatch as `training_step` cuts it from the runner's rollout of
+    the coordination game (GAE a lane, normalised advantages)."""
+    from ray_tpu_torch.rllib.algorithms.multi_agent_ppo import (
+        MultiAgentPPOConfig,
+    )
+    from ray_tpu_torch.rllib.algorithms.ppo import make_ppo_loss
+    from ray_tpu_torch.rllib.env.multi_agent import (
+        MultiAgentEnvRunner,
+        multi_agent_gae,
+    )
+
+    cfg = MultiAgentPPOConfig()
+    loss = make_ppo_loss(cfg.clip_param, vf_loss_coeff=cfg.vf_loss_coeff,
+                         entropy_coeff=cfg.entropy_coeff)
+    module = MLPModule(2, 2)
+    runner = MultiAgentEnvRunner("coordination", 200,
+                                 {"agent_0": "pol_a", "agent_1": "pol_b"},
+                                 seed=0)
+    gen = torch.Generator().manual_seed(0)
+    runner.set_weights({m: params_to_numpy(module.init_params(gen))
+                        for m in ("pol_a", "pol_b")}, 1)
+    b = runner.sample({m: module for m in ("pol_a", "pol_b")})["pol_a"]
+    adv, tgt = multi_agent_gae(b, cfg.gamma, cfg.gae_lambda)
+    adv = (adv - adv.mean()) / (adv.std() + 1e-8)
+    idx = np.random.default_rng(0).permutation(len(adv))[:n]
+    return module, loss, 3e-3, {
+        "obs": b["obs"][idx], "actions": b["actions"][idx],
+        "logp": b["logp"][idx], "advantages": adv[idx],
+        "value_targets": tgt[idx]}
+
+
 ALGOS = ["appo", "impala", "dqn", "sac_discrete", "sac_continuous", "cql",
-         "bc", "marwil"]
+         "bc", "marwil", "multi_agent_ppo"]
 
 
 @pytest.mark.cuda

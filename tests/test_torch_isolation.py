@@ -57,7 +57,10 @@ RUNTIME_MODULES = (
     "rllib/algorithms/appo.py", "rllib/algorithms/impala.py",
     "rllib/algorithms/dqn.py", "rllib/algorithms/sac.py",
     "rllib/algorithms/cql.py", "rllib/algorithms/bc.py",
-    "rllib/algorithms/marwil.py", "testing.py", "cluster_utils.py",
+    "rllib/algorithms/marwil.py", "rllib/env/multi_agent.py",
+    "rllib/algorithms/multi_agent_ppo.py", "rllib/algorithms/dreamer.py",
+    "examples/ppo_pixels.py", "examples/mnist.py", "testing.py",
+    "cluster_utils.py",
 )
 
 
@@ -410,7 +413,10 @@ def test_rllib_runner_side_imports_no_torch_or_jax():
     `MLPModule`'s numpy forward, and a frame stack stacks; DQN's
     epsilon-greedy `QMLPModule`, discrete SAC's policy and continuous
     SAC's squashed Gaussian act through their numpy paths, and the
-    offline readers and v-trace run, all without torch."""
+    offline readers and v-trace run; a multi-agent runner samples the
+    coordination game a module a policy, DreamerV3's runner policy
+    (`_DreamerPolicy`) acts, and the examples load, all without
+    torch."""
     code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {str(REPO)!r})
@@ -468,6 +474,34 @@ def test_rllib_runner_side_imports_no_torch_or_jax():
             "obs", "actions", "rewards", "next_obs", "terminated")}})
         assert (APPOConfig and BCConfig and CQLConfig and DQNConfig
                 and IMPALAConfig and MARWILConfig and SACConfig)
+        import types
+        from ray_tpu_torch.examples import mnist, ppo_pixels
+        from ray_tpu_torch.rllib import DreamerConfig, MultiAgentPPOConfig
+        from ray_tpu_torch.rllib.algorithms.dreamer import (
+            DreamerModel, _DreamerPolicy)
+        from ray_tpu_torch.rllib.env.multi_agent import (
+            MultiAgentEnvRunner, multi_agent_gae)
+        ma = MultiAgentEnvRunner("coordination", 12,
+                                 {{"agent_0": "a", "agent_1": "b"}}, seed=0)
+        ma.set_weights({{m: {{"pi": q_tower(2, 2), "vf": q_tower(1, 2)}}
+                        for m in "ab"}}, 1)
+        out = ma.sample({{m: MLPModule(2, 2, hidden=()) for m in "ab"}})
+        assert out["a"]["obs"].shape == (12, 2)
+        adv, _ = multi_agent_gae(out["b"], 0.99, 0.95)
+        assert np.isfinite(adv).all()
+        cfg = DreamerConfig()
+        cfg.deter_size, cfg.stoch_groups, cfg.stoch_classes = 8, 2, 2
+        cfg.embed_hidden = cfg.head_hidden = (8,)
+        policy = _DreamerPolicy(types.SimpleNamespace(
+            model=DreamerModel(cfg, 4, 2)))
+        layer = lambda m, n: {{"w": np.full((m, n), 0.1, np.float32),
+                              "b": np.zeros(n, np.float32)}}
+        logits, _ = policy.forward_numpy(
+            {{"wm": {{"encoder": [layer(4, 8)],
+                     "posterior": [layer(16, 8), layer(8, 4)]}},
+              "actor": [layer(12, 8), layer(8, 2)]}}, obs)
+        assert logits.shape == (2, 2) and np.isfinite(logits).all()
+        assert MultiAgentPPOConfig and mnist.make_dataset and ppo_pixels.run
         assert not any(m.split(".")[0] in {FORBIDDEN + ("torch",)!r}
                        for m, mod in sys.modules.items() if mod is not None)
         print("OK")
@@ -511,7 +545,8 @@ def test_entry_points_raise_without_a_card(no_card):
 def test_rllib_learners_raise_without_a_card(no_card):
     """Every algorithm's learner defaults to the card: its learner
     group raises without one unless `device="cpu"` is given; the offline
-    algorithms (no runners) raise from `build()`."""
+    algorithms (no runners), multi-agent PPO and DreamerV3 raise from
+    `build()`, and both examples' `run()` raise."""
     from ray_tpu_torch.rllib import BCConfig, CQLConfig, MARWILConfig
     from ray_tpu_torch.rllib.algorithms import (
         appo, bc, cql, dqn, impala, marwil, sac)
@@ -540,6 +575,18 @@ def test_rllib_learners_raise_without_a_card(no_card):
     for cfg in (CQLConfig(), BCConfig(), MARWILConfig()):
         with pytest.raises(RuntimeError, match="CUDA"):
             cfg.offline_data(input_=data).build()
+    # multi-agent PPO's learner groups and DreamerV3's device raise at
+    # setup, before any runner starts; the examples before anything
+    from ray_tpu_torch.examples import mnist, ppo_pixels
+    from ray_tpu_torch.rllib import DreamerConfig, MultiAgentPPOConfig
+
+    for cfg in (MultiAgentPPOConfig(), DreamerConfig()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cfg.build()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ppo_pixels.run()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mnist.run()
 
 
 def test_engine_refuses_params_on_another_device():
