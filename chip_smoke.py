@@ -249,6 +249,32 @@ exits non-zero:
     ms, the decoder's output shape, `decode` against the CPU.
     examples: `ppo_pixels.run` and `mnist.run` on the card with the
     reference tests' gates, each worker's peak memory.
+13k. ops_plane: the port's runtime boots with a head of no GPU
+    (`num_gpus=0`), the dashboard actor, and `AutoscalerV2` over the
+    local provider in a thread (one node type, `gpu_worker`: 4 CPUs,
+    `{"GPU": 1}`, at most one node, 5 s idle timeout, a pass every
+    0.5 s).  The workflow `gpt2_wf` (make_batch: 8 x 1,025 seeded int32
+    tokens on a CPU; train: `num_gpus=1`, GPT-2 124M at full width and
+    depth, bf16, flash attention, 3 steps on the card, host values out;
+    report: fails on its first run through a flag file) runs through
+    `workflow.run_async`; `train`'s pending `{"GPU": 1}` scales the GPU
+    node up, and its worker is profiled over `/api/profile` while it
+    runs.  `workflow.resume` reruns only `report` and returns the stored
+    losses and digest bit for bit.  Held: step-0 loss within 0.5 of ln
+    50,257 and falling; 72 K1 and 36 K2 in `train` (24 and 12 a step),
+    no plain dispatch; the node advertises `GPU` 1 and `train`'s worker
+    sees one device; `train`'s frame in the flamegraph; `/api/timeline`
+    equal to `timeline()` with the three steps as complete slices and
+    `train`'s worker the profiled one on the GPU node; the node
+    terminated after it idles, its daemon gone, no `GPU` left.  Then
+    `scripts/train_gpt2.py` as a job (batch 8, 2 steps after 1 warm-up)
+    followed to SUCCEEDED, its first warm-up loss held as step 0; a
+    second (100,000 steps) stopped after its first line: STOPPED within
+    30 s, the card's memory back within 512 MiB; `/api/jobs` lists
+    both.  Recorded: scale-up and scale-down s, train's ms a step and
+    tokens/s, the workflow's first run and resume s, the job's submit ->
+    RUNNING -> SUCCEEDED s, the stop's s and MiB, each endpoint's ms,
+    the timeline's event count.
 14. K1-K4 timed at the training shape (bf16, causal), and K3 and K4 at
     the second split shape (BH 32, T 4,096, D 128), beside their bounds,
     plain versions and `scaled_dot_product_attention`, with each
@@ -296,10 +322,12 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
+import cloudpickle
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -4987,6 +5015,470 @@ def rllib_last_phases(device, smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# the operations plane: a GPU node scaled up on demand runs a durable
+# GPT-2 workflow, beside submitted jobs, read through the dashboard
+# ----------------------------------------------------------------------
+OPS_BATCH, OPS_SEQ, OPS_STEPS = 8, 1024, 3
+# the GPU node type: scaled up for the workflow's `num_gpus=1` step and
+# down once it has idled this long
+OPS_IDLE_S = 5.0
+# a stopped job's card memory must come back to within this of the
+# reading taken before it started
+OPS_MEM_SLACK_MIB = 512
+
+
+def gpt2_workflow_steps(device: str, cfg_kw: dict, steps: int):
+    """The workflow's three steps, made here so that they pickle by
+    value: `make_batch` (CPU) draws `[batch, seq + 1]` int32 tokens from
+    a seed; `train` (`num_gpus=1`) takes `steps` GPT-2 steps on
+    `device` with flash attention and returns host values only: the
+    losses, each step's ms, the K1-K4 launches and plain dispatches read
+    in its own process, a digest of the final params, the devices the
+    process sees and where it ran; `report` (CPU) fails while a flag
+    file exists and otherwise passes on what `train` returned."""
+
+    @rt.remote(num_cpus=1)
+    def make_batch(seed: int, batch: int, seq: int, vocab: int):
+        rng = np.random.default_rng(seed)
+        return rng.integers(0, vocab, (batch, seq + 1), dtype=np.int32)
+
+    @rt.remote(num_gpus=1, num_cpus=1)
+    def train(tokens):
+        import hashlib
+        import os as os_
+        import time as time_
+
+        import torch as torch_
+
+        from ray_tpu_torch import resolve_device
+        from ray_tpu_torch.core.runtime import get_runtime
+        from ray_tpu_torch.models import gpt2 as gpt2_
+        from ray_tpu_torch.ops import attention as fa_
+
+        t_start = time_.time()
+        torch_.backends.cuda.matmul.allow_tf32 = False
+        torch_.backends.cudnn.allow_tf32 = False
+        dev = resolve_device(device)
+        seen = {"cuda_visible_devices":
+                os_.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device_count": torch_.cuda.device_count(),
+                "device": (torch_.cuda.get_device_name(dev)
+                           if dev.type == "cuda" else "cpu")}
+        cfg = gpt2_.GPT2Config(attention="flash",
+                               logits_dtype=torch_.bfloat16, **cfg_kw)
+        params = gpt2_.init_params(cfg, 0, device=dev)
+        opt = gpt2_.default_optimizer(total_steps=1000)
+        opt_state = opt.init(params)
+        step = gpt2_.make_train_step(cfg, opt)
+        toks = torch_.tensor(tokens, device=dev)
+        names = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+                 "flash_bwd_dkv")
+        for n in names:
+            getattr(fa_, n).launches = 0
+        fa_.flash_attention.plain_dispatches = 0
+        losses, step_ms = [], []
+        for _ in range(steps):
+            t0 = time_.perf_counter()
+            params, opt_state, m = step(params, opt_state, toks)
+            losses.append(float(m["loss"]))
+            if dev.type == "cuda":
+                torch_.cuda.synchronize(dev)
+            step_ms.append((time_.perf_counter() - t0) * 1e3)
+        h = hashlib.sha256()
+        for leaf in gpt2_._leaves(params):
+            h.update(leaf.detach().cpu().contiguous().numpy().tobytes())
+        rt_ = get_runtime()
+        return {"losses": losses, "step_ms": step_ms,
+                "launches": {n: getattr(fa_, n).launches for n in names},
+                "plain_dispatches": fa_.flash_attention.plain_dispatches,
+                "digest": h.hexdigest(), "seen": seen,
+                "node_id": rt_.node_id, "pid": os_.getpid(),
+                "t_start": t_start, "t_end": time_.time(),
+                "n_layer": cfg.n_layer, "vocab": cfg.vocab_size,
+                "tokens_per_step": int(toks.shape[0] * (toks.shape[1] - 1)),
+                "peak_mem_gb": (torch_.cuda.max_memory_allocated(dev) / 1e9
+                                if dev.type == "cuda" else None)}
+
+    @rt.remote(num_cpus=1)
+    def report(trained: dict, flag: str):
+        import os as os_
+
+        if os_.path.exists(flag):
+            raise RuntimeError(f"report: injected failure ({flag} exists)")
+        return {k: trained[k] for k in ("losses", "digest", "launches",
+                                        "plain_dispatches")}
+
+    return make_batch, train, report
+
+
+def _http_json(url: str, timings: dict, key: str, timeout: float = 30.0):
+    """GET `url`; its JSON, with the ms it took under `timings[key]`."""
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        body = r.read()
+    timings.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+    return json.loads(body)
+
+
+def card_mib() -> float:
+    """The card's used memory, as `nvidia-smi` reads it (every process)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def _poll(seconds: float, fn, what: str, every: float = 0.2):
+    """`fn()` until it returns something truthy; fails past `seconds`."""
+    deadline = time.monotonic() + seconds
+    while True:
+        got = fn()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not within {seconds} s")
+        time.sleep(every)
+
+
+def profile_train(base: str, gpu_node: str, timings: dict) -> dict:
+    """The flamegraph of the GPU node's busy worker, taken while `train`
+    runs there: the worker's id and whether `train`'s frame is in it."""
+    def busy_worker():
+        for w in _http_json(base + "/api/workers", timings, "workers"):
+            if (w.get("node_id") == gpu_node and w.get("kind") == "worker"
+                    and not w.get("idle") and not w.get("actor_id")):
+                return w
+        return None
+
+    w = _poll(120.0, busy_worker, "a busy worker on the GPU node", 0.1)
+    t0 = time.perf_counter()
+    url = (f"{base}/api/profile?node_id={gpu_node}&worker_id="
+           f"{w['worker_id']}&mode=flamegraph&duration=2")
+    with urllib.request.urlopen(url, timeout=60) as r:
+        folded = r.read().decode()
+    timings.setdefault("profile", []).append(
+        (time.perf_counter() - t0) * 1e3)
+    lines = [ln for ln in folded.splitlines() if ln.strip()]
+    frames = {f.split(" (", 1)[0] for ln in lines
+              for f in ln.rsplit(" ", 1)[0].split(";")}
+    return {"worker_id": w["worker_id"], "pid": w["pid"],
+            "stacks": len(lines), "train_frame": "train" in frames,
+            "folded_head": lines[:2]}
+
+
+def ops_plane(device, smi: str, *, cfg_kw=None, batch=OPS_BATCH,
+              seq=OPS_SEQ, steps=OPS_STEPS) -> dict:
+    """The operations plane on the card, through the port's entry
+    points.  The head starts with no GPU (`num_gpus=0`), so the
+    workflow's `num_gpus=1` step is pending demand that only a new node
+    can serve; the dashboard runs on the head; `AutoscalerV2` over the
+    local provider (one type, `gpu_worker`: 4 CPUs, `{"GPU": 1}`, at
+    most one node, `OPS_IDLE_S` idle timeout) reconciles every 0.5 s in
+    a thread.
+
+    1. workflow `gpt2_wf`: make_batch -> train (`num_gpus=1`, GPT-2
+       124M at full width and depth by default, `steps` steps on the
+       card) -> report (fails on its first run through a flag file).
+       While `train` runs, its worker is profiled over `/api/profile`.
+       Then `resume` reruns only `report`.
+    2. while the GPU node is up: `/api/nodes`, `/api/cluster_status`
+       and `cluster_status()` show it with `GPU` 1; `/api/timeline`
+       equals `timeline()` over the same window, with the three steps
+       as complete slices and `train` on the GPU node's worker lane;
+       `summarize_tasks()` counts them.
+    3. the node idles and is terminated: its daemon exits and no `GPU`
+       is left in the cluster.
+    4. jobs (after the scale-down, so the card's memory readings are
+       this process's and the jobs' alone): `scripts/train_gpt2.py` as a
+       submitted job, followed to SUCCEEDED through `follow_job_logs`;
+       a second one stopped after its first line, STOPPED within
+       `stop_bound_s`, the card's memory back within
+       `OPS_MEM_SLACK_MIB`; `/api/jobs` lists both with their statuses.
+    """
+    from ray_tpu_torch import job, workflow
+    from ray_tpu_torch.autoscaler import (AutoscalerV2, AutoscalerV2Config,
+                                          LocalNodeProvider,
+                                          NodeTypeConfigV2)
+    from ray_tpu_torch.dashboard import start_dashboard
+    from ray_tpu_torch.util import state
+
+    cfg_kw = cfg_kw or {}
+    job_args = "--batch 8 --steps 2 --warmup 1"
+    stop_bound_s = 30.0
+    out = {"phase": "ops_plane", "nvidia_smi": smi,
+           "model": "gpt2_124m" if not cfg_kw else f"gpt2 {cfg_kw}",
+           "batch": batch, "seq": seq, "steps": steps,
+           "gpu_node_type": {"num_cpus": 4, "resources": {"GPU": 1},
+                             "max_nodes": 1, "idle_timeout_s": OPS_IDLE_S}}
+    ms: dict = {}
+    t_phase = time.perf_counter()
+    info = rt.init(num_workers=2, num_cpus=4, num_gpus=0)
+    stop = threading.Event()
+    store = tempfile.mkdtemp(prefix="rtt_ops_wf_")
+    provider = loop = head = None
+    try:
+        head, (host, port) = start_dashboard()
+        base = f"http://{host}:{port}"
+        provider = LocalNodeProvider(info["controller_addr"])
+        scaler = AutoscalerV2(provider, AutoscalerV2Config(
+            node_types={"gpu_worker": NodeTypeConfigV2(
+                num_cpus=4, resources={"GPU": 1}, num_workers=2,
+                max_slices=1)},
+            max_hosts=1, idle_timeout_s=OPS_IDLE_S))
+        loop = threading.Thread(target=scaler.run, name="autoscaler",
+                                kwargs={"interval_s": 0.5,
+                                        "stop_event": stop}, daemon=True)
+        loop.start()
+        nodes0 = _http_json(base + "/api/nodes", ms, "nodes")
+        assert [n["resources"].get("GPU", 0) for n in nodes0] == [0], nodes0
+
+        # -- 1. the workflow, its first run failing at `report`
+        workflow.init_storage(store)
+        flag = os.path.join(store, "report.fail")
+        open(flag, "w").close()
+        make_batch, train, report = gpt2_workflow_steps(
+            str(device), cfg_kw, steps)
+        vocab = gpt2.GPT2Config(**cfg_kw).vocab_size
+        dag = report.bind(train.bind(make_batch.bind(0, batch, seq, vocab)),
+                          flag)
+        t0 = time.perf_counter()
+        fut = workflow.run_async(dag, workflow_id="gpt2_wf")
+
+        def gpu_node():
+            live = provider.non_terminated_nodes()
+            try:
+                return live and provider.runtime_node_id(live[0])
+            except KeyError:
+                return None
+
+        gpu_node_id = _poll(180.0, gpu_node, "the GPU node's launch")
+        out["profile"] = profile_train(base, gpu_node_id, ms)
+        err = fut.exception(timeout=600)
+        if err is None or "injected failure" not in str(err):
+            raise AssertionError("the first run did not fail at report's "
+                                 "injected failure") from err
+        first_run_s = time.perf_counter() - t0
+        assert workflow.get_status("gpt2_wf") == "FAILED"
+        meta1 = workflow.get_metadata("gpt2_wf")
+        key = {s["name"]: k for k, s in meta1["steps"].items()}
+        assert meta1["steps"][key["train"]]["status"] == "SUCCESSFUL", meta1
+        assert meta1["steps"][key["report"]]["status"] == "FAILED", meta1
+        with open(os.path.join(store, "gpt2_wf", "tasks",
+                               key["train"] + ".pkl"), "rb") as f:
+            stored = cloudpickle.load(f)
+        train_mtime = os.path.getmtime(os.path.join(
+            store, "gpt2_wf", "tasks", key["train"] + ".pkl"))
+
+        # -- 2. the GPU node, seen through the dashboard and the state API
+        nodes = _http_json(base + "/api/nodes", ms, "nodes")
+        gpu_rows = [n for n in nodes if n["alive"]
+                    and n["resources"].get("GPU")]
+        status = _http_json(base + "/api/cluster_status", ms,
+                            "cluster_status")
+        total = state.cluster_status()["total_resources"]
+        out["gpu_node"] = {"node_id": gpu_node_id,
+                           "resources": gpu_rows[0]["resources"]
+                           if gpu_rows else None,
+                           "nodes_alive": status["nodes_alive"],
+                           "cluster_gpu": total.get("GPU")}
+        assert [n["node_id"] for n in gpu_rows] == [gpu_node_id], nodes
+        assert gpu_rows[0]["resources"]["GPU"] == 1.0, gpu_rows
+        assert status["nodes_alive"] == 2 and total.get("GPU") == 1.0, (
+            status, total)
+        assert stored["node_id"] == gpu_node_id, stored["node_id"]
+        seen = stored["seen"]
+        if device.type == "cuda":
+            assert seen["device_count"] == 1, seen
+            assert len((seen["cuda_visible_devices"] or "").split(",")) \
+                == 1, seen
+
+        # -- resume: only `report` reruns
+        os.remove(flag)
+        t0 = time.perf_counter()
+        resumed = with_deadline(120.0, lambda: workflow.resume("gpt2_wf"),
+                                "workflow.resume")
+        resume_s = time.perf_counter() - t0
+        t_resumed = time.time()
+        meta2 = workflow.get_metadata("gpt2_wf")
+        assert meta2["status"] == "SUCCESSFUL", meta2
+        assert meta2["steps"][key["train"]] == meta1["steps"][key["train"]]
+        assert meta2["steps"][key["make_batch"]] == \
+            meta1["steps"][key["make_batch"]]
+        assert meta2["steps"][key["report"]]["status"] == "SUCCESSFUL"
+        assert os.path.getmtime(os.path.join(
+            store, "gpt2_wf", "tasks", key["train"] + ".pkl")) == train_mtime
+        assert resumed == {k: stored[k] for k in resumed}, (resumed, stored)
+        assert workflow.get_output("gpt2_wf") == resumed
+
+        losses = stored["losses"]
+        ln_v = math.log(vocab)
+        want = {"flash_fwd": steps * stored["n_layer"] * 2,
+                "flash_bwd_fused": steps * stored["n_layer"],
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        out["train"] = {
+            "losses": losses, "step_ms": stored["step_ms"],
+            "tokens_per_s": stored["tokens_per_step"] * (steps - 1)
+            / (sum(stored["step_ms"][1:]) / 1e3) if steps > 1 else None,
+            "launches": stored["launches"], "launches_want": want,
+            "plain_dispatches": stored["plain_dispatches"],
+            "digest": stored["digest"], "seen": seen,
+            "peak_mem_gb": stored["peak_mem_gb"],
+            "wall_s": stored["t_end"] - stored["t_start"]}
+        assert all(math.isfinite(x) for x in losses), losses
+        assert abs(losses[0] - ln_v) < 0.5, (losses[0], ln_v)
+        assert losses[-1] < losses[0], losses
+        assert stored["launches"] == want, (stored["launches"], want)
+        assert stored["plain_dispatches"] == 0, stored["plain_dispatches"]
+        assert out["profile"]["train_frame"], out["profile"]
+
+        # the demand appears when the executor submits `train`; it runs
+        # once the scaled-up node's worker starts it
+        out["scale_up_s"] = (stored["t_start"]
+                             - meta1["steps"][key["train"]]["start_ts"])
+
+        # -- the timeline: three complete step slices, `train` on the
+        # GPU node's worker lane, and the endpoint equal to timeline()
+        def settled():
+            doc = _http_json(base + "/api/timeline", ms, "timeline")
+            slices = [e for e in doc["traceEvents"]
+                      if e.get("cat") == "task" and e["ph"] == "X"]
+            # the failed first `report` leaves no complete slice (an
+            # owner records a failure without a duration)
+            if not {"make_batch", "train", "report"} <= {
+                    e["name"] for e in slices}:
+                return None
+            if doc["traceEvents"] != rt.timeline():
+                return None
+            return doc, slices
+
+        doc, slices = _poll(60.0, settled, "the timeline")
+        [train_slice] = [e for e in slices if e["name"] == "train"]
+        # the owner records a task's end without its worker (as the JAX
+        # package does), so a complete slice sits on the owner's lane;
+        # the worker's own RUNNING event for that task names its lane
+        lanes = {(e.get("node_id"), e.get("worker_id"))
+                 for e in state.list_tasks(name="train", state="RUNNING")
+                 if e["task_id"] == train_slice["args"]["task_id"]}
+        assert lanes == {(gpu_node_id, out["profile"]["worker_id"])}, lanes
+        out["timeline"] = {"events": len(doc["traceEvents"]),
+                           "task_slices": len(slices),
+                           "train_slice_ms": train_slice["dur"] / 1e3,
+                           "train_lane": sorted(lanes)[0],
+                           "truncated": doc["truncated"]}
+        finished = [e["name"] for e in state.list_tasks(state="FINISHED")]
+        runs = {n: finished.count(n) for n in key}
+        assert runs == {"make_batch": 1, "train": 1, "report": 1}, runs
+        out["workflow"] = {"first_run_s": first_run_s, "resume_s": resume_s,
+                           "executions": runs,
+                           "steps": {n: meta2["steps"][k]["status"]
+                                     for n, k in key.items()}}
+        out["task_summary"] = state.summarize_tasks()
+
+        # -- 3. scale-down after the idle timeout
+        proc = provider._nodes[provider.non_terminated_nodes()[0]]["proc"]
+        _poll(OPS_IDLE_S + 60.0, lambda: not provider.non_terminated_nodes(),
+              "the GPU node's scale-down")
+        out["scale_down_s"] = time.time() - t_resumed
+        _poll(30.0, lambda: proc.poll() is not None, "the node's exit")
+
+        def head_alone():
+            st = _http_json(base + "/api/cluster_status", ms,
+                            "cluster_status")
+            return st if st["nodes_alive"] == 1 else None
+
+        status = _poll(30.0, head_alone, "the head alone")
+        total = state.cluster_status()["total_resources"]
+        assert "GPU" not in total, total
+        out["after_scale_down"] = {"nodes_alive": status["nodes_alive"],
+                                   "total_resources": total,
+                                   "daemon_exit": proc.returncode}
+
+        # -- 4. jobs
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        entry = (f"{sys.executable} -m ray_tpu_torch.scripts.train_gpt2 "
+                 f"{job_args}")
+        repo = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.time()
+        jid = job.submit_job(entry, working_dir=repo,
+                             metadata={"phase": "ops_plane"})
+        text = "".join(with_deadline(
+            600.0, lambda: list(job.follow_job_logs(jid, poll_s=0.2)),
+            "follow_job_logs"))
+        ji = job.get_job_info(jid)
+        assert ji["status"] == "SUCCEEDED", (ji, text[-2000:])
+        rows = [json.loads(ln) for ln in text.splitlines()
+                if ln.startswith("{")]
+        got = {r.get("phase"): r for r in rows}
+        run = got["train_gpt2"]
+        assert abs(run["warmup_losses"][0] - ln_v) < 0.5, run
+        out["job"] = {
+            "entrypoint": entry, "status": ji["status"],
+            "submit_to_running_s": ji["start_time"] - ji["submit_time"],
+            "running_to_succeeded_s": ji["end_time"] - ji["start_time"],
+            "submit_to_succeeded_s": ji["end_time"] - ji["submit_time"],
+            "follow_s": time.time() - t0,
+            "seen": got["train_gpt2_device"],
+            "warmup_losses": run["warmup_losses"],
+            "losses": run["losses"], "step_ms": run["step_ms"],
+            "tokens_per_s": run["tokens_per_s"]}
+        if device.type == "cuda":
+            assert got["train_gpt2_device"]["device_count"] == 1, got
+
+        mib0 = card_mib() if device.type == "cuda" else None
+        jid2 = job.submit_job(
+            f"{sys.executable} -u -m ray_tpu_torch.scripts.train_gpt2 "
+            f"{job_args.replace('--steps 2', '--steps 100000')}",
+            working_dir=repo)
+        _poll(300.0, lambda: "train_gpt2_device" in job.get_job_logs(jid2),
+              "the long job's first line")
+        mib_running = card_mib() if device.type == "cuda" else None
+        t0 = time.perf_counter()
+        assert job.stop_job(jid2)
+        status2 = job.wait_job(jid2, timeout=stop_bound_s)
+        stop_s = time.perf_counter() - t0
+        assert status2 == "STOPPED", status2
+
+        def back():
+            now = card_mib()
+            return now if now - mib0 <= OPS_MEM_SLACK_MIB else None
+
+        mib_after = (_poll(30.0, back, "the card's memory back")
+                     if device.type == "cuda" else None)
+        out["stopped_job"] = {
+            "status": status2, "stop_s": stop_s,
+            "stop_bound_s": stop_bound_s, "mib_before": mib0,
+            "mib_running": mib_running, "mib_after": mib_after,
+            "mib_returned": (mib_running - mib_after)
+            if mib_after is not None else None,
+            "slack_mib": OPS_MEM_SLACK_MIB}
+        jobs = {j.get("job_id"): j.get("status")
+                for j in _http_json(base + "/api/jobs", ms, "jobs")}
+        assert jobs.get(jid) == "SUCCEEDED" and jobs.get(jid2) == "STOPPED", \
+            jobs
+        out["jobs_listed"] = {jid: jobs[jid], jid2: jobs[jid2]}
+    finally:
+        stop.set()
+        if loop is not None:
+            loop.join(timeout=10)
+        if provider is not None:
+            for pid in provider.non_terminated_nodes():
+                provider.terminate_node(pid)
+        if head is not None:
+            try:
+                rt.kill(head)
+            except Exception:  # the runtime is shut down next anyway
+                pass
+        rt.shutdown()
+        shutil.rmtree(store, ignore_errors=True)
+    out["endpoint_ms"] = {k: {"n": len(v), "median": statistics.median(v),
+                              "max": max(v)} for k, v in ms.items()}
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5251,6 +5743,11 @@ def main() -> int:
     # expert parallelism over a process group, a 1F1B pipeline of
     # Llama-3-8B blocks over the port's channels
     graph_phases(device, smi)
+    # the operations plane: a GPU node scaled up on demand runs a durable
+    # GPT-2 workflow, then submitted jobs, read through the dashboard
+    ops = ops_plane(device, smi)
+    emit(ops)
+    torch.cuda.empty_cache()
 
     case = flash_case(32 * 12, 1024, 64, torch.bfloat16, True, device)
     flash_t, sdpa_bwd = time_flash(case, H=12)
@@ -5314,6 +5811,9 @@ def main() -> int:
                 **{n: split["launches"][n] + split_llama["launches"][n]
                    for n in ("flash_bwd_dq", "flash_bwd_dkv")},
                 **xent_run["launches"]}
+    # the workflow's `train` step launches K1 / K2 in its own process
+    for name in ("flash_fwd", "flash_bwd_fused"):
+        launches[name] += ops["train"]["launches"][name]
 
     errs = {"paged_kv_append": 0.0, "paged_decode_attention": attn_err,
             "paged_append_decode_attention": fused_errs["mid_decode"]["bf16"],

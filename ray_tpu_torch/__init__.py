@@ -2,7 +2,8 @@
 
 The package mirrors `ray_tpu`'s layout module by module: the runtime
 (`core/`, `shm/`, `metrics/`, `util/`: tasks, actors, objects), the
-serve plane (`serve/`), and the compute half (`models/`, `ops/`,
+serve plane (`serve/`), the operations plane (`job/`, `workflow/`,
+`dashboard/`, `autoscaler/`, `util/state/`), and the compute half (`models/`, `ops/`,
 `parallel/`, `serve/llm_engine.py`, `examples/`).  It keeps the JAX
 package's function names, `(cfg, params, ...)` signatures and param
 layouts (stacked `[L, ...]` blocks, `[in, out]` weights), so each port
@@ -50,6 +51,14 @@ if TYPE_CHECKING:
     import torch
 
 __version__ = "0.1.0"
+
+
+def timeline(filename=None, trace_id=None):
+    """Chrome-tracing dump of recent task events merged with the
+    cluster-collected trace spans (reference: `ray.timeline()`)."""
+    from ray_tpu_torch.util.state import timeline as _tl
+
+    return _tl(filename, trace_id=trace_id)
 
 
 def slo_status():
@@ -111,5 +120,6 @@ __all__ = [
     "resolve_device",
     "shutdown",
     "slo_status",
+    "timeline",
     "wait",
 ]

@@ -7,11 +7,13 @@ bench's `bench_gpt2`.
 `GPT2Config(attention="flash", logits_dtype=bf16)` (bf16 compute, f32
 master weights, full remat) with random weights and random tokens from
 a seed, `default_optimizer(total_steps=1000)`, driven through
-`make_train_step`.  Prints one JSON line: per-step wall ms (each step
-ends in a device sync), tokens/s over the timed steps, MFU (6 * N FLOPs
-per token over the H100's dense bf16 peak of 989 TFLOP/s, as the bench
-counts it), the losses, and peak device memory.  `--profile` runs one
-more step under `torch.profiler` (CPU + CUDA) and adds host ms, device
+`make_train_step`.  Prints two JSON lines: once the model is on the
+card, the card this process sees (`CUDA_VISIBLE_DEVICES`, the device
+count and name); at the end, per-step wall ms (each step ends in a
+device sync), tokens/s over the timed steps, MFU (6 * N FLOPs per token
+over the H100's dense bf16 peak of 989 TFLOP/s, as the bench counts
+it), the losses, and peak device memory.  `--profile` runs one more
+step under `torch.profiler` (CPU + CUDA) and adds host ms, device
 busy ms (the sum of kernel durations), the device's idle share and the
 top kernels by device time; the Chrome trace goes to `--trace`
 (default `profiles/train_trace.json`).  Needs one CUDA card.
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import time
 from collections import defaultdict
@@ -120,19 +123,17 @@ def profile_step(state: Dict, trace: str, run=None) -> Dict:
     }
 
 
-def bench_gpt2(device=None, batch: int = 32, seq: int = 1024,
-               steps: int = 5, warmup: int = 2, seed: int = 0) -> Dict:
-    """Warm-up steps, then `steps` timed steps; the summary with the
-    warm-up losses and the timed window's peak memory."""
-    state = build(device, batch, seq, seed)
+def bench_gpt2(state: Dict, steps: int = 5, warmup: int = 2) -> Dict:
+    """On `build`'s state: warm-up steps, then `steps` timed steps; the
+    summary with the warm-up losses and the timed window's peak
+    memory."""
     warm = run_steps(state, warmup)
     torch.cuda.reset_peak_memory_stats(state["device"])
     timed = run_steps(state, steps)
     return {**summarize(state, timed),
             "warmup_losses": [s["loss"] for s in warm],
             "peak_mem_gb": torch.cuda.max_memory_allocated(
-                state["device"]) / 1e9,
-            "state": state}
+                state["device"]) / 1e9}
 
 
 def main() -> None:
@@ -147,9 +148,16 @@ def main() -> None:
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    res = bench_gpt2(None, args.batch, args.seq, args.steps, args.warmup,
-                     args.seed)
-    state = res.pop("state")
+    state = build(None, args.batch, args.seq, args.seed)
+    # what this process was given, before its first step: the card it
+    # sees (a job's process inherits its supervisor worker's env)
+    print(json.dumps({
+        "phase": "train_gpt2_device",
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "device_count": torch.cuda.device_count(),
+        "device": torch.cuda.get_device_name(state["device"]),
+    }), flush=True)
+    res = bench_gpt2(state, args.steps, args.warmup)
     if args.profile:
         res["profile"] = profile_step(state, args.trace)
     smi = subprocess.run(

@@ -106,6 +106,13 @@ COPIES = (
     "rllib/env/envs.py", "rllib/env/env_runner.py",
     "rllib/env/env_runner_group.py", "rllib/env/multi_agent.py",
     "cluster_utils.py",
+    "job/__init__.py", "job/api.py", "workflow/__init__.py",
+    "util/state/__init__.py",
+    "dashboard/__init__.py", "dashboard/timeline.py", "dashboard/head.py",
+    "dashboard/app.html",
+    "autoscaler/__init__.py", "autoscaler/node_provider.py",
+    "autoscaler/command_runner.py", "autoscaler/autoscaler.py",
+    "autoscaler/v2.py",
 )
 
 # module -> the test that holds what it changes
@@ -252,6 +259,14 @@ ADAPTED = {
     # and a kernel probe (test_testing_outside_the_probes_is_a_copy below)
     "testing.py": "test_torch_testing.py::"
                   "test_cuda_kernel_support_answers_for_each_family",
+    # the operations plane: the workflow store's own variable and
+    # directory, the kernel-rate panel's wording, GKE's GPU pod shape
+    # (test_ops_plane_outside_its_adaptations_is_a_copy below)
+    "workflow/api.py": "test_torch_workflow.py::"
+                       "test_storage_root_is_not_the_jax_packages",
+    "dashboard/grafana.py": "test_torch_dashboard.py::"
+                            "test_grafana_speaks_of_the_card",
+    "autoscaler/gke.py": "test_torch_autoscaler.py::test_gpu_pod_shape",
 }
 
 
@@ -272,9 +287,10 @@ def test_every_runtime_module_is_a_copy_or_adapted():
     listed = set(COPIES) | set(ADAPTED)
     for sub in ("core", "metrics", "shm", "util", "serve", "parallel",
                 "train", "dag", "data", "tune", "rllib", "rllib/core",
-                "rllib/algorithms", "rllib/env"):
+                "rllib/algorithms", "rllib/env", "job", "workflow",
+                "util/state", "dashboard", "autoscaler"):
         for f in (port / sub).iterdir():
-            if f.suffix in (".py", ".cc"):
+            if f.suffix in (".py", ".cc", ".html"):
                 assert f"{sub}/{f.name}" in listed, f"{sub}/{f.name}"
     for f in port.glob("*.py"):
         assert f.name in listed, f.name
@@ -525,3 +541,118 @@ def test_examples_outside_the_device_are_copies(rel, sections):
         p = port[port.index(start):port.index(end, port.index(start))
                  if end else None]
         assert p == o, (rel, start)
+
+
+
+_WF_DOC = '''
+
+The store root is `RTT_WORKFLOW_STORAGE`, else `workflows/` under the
+port's session base (`RTT_TMPDIR`, else `ray_tpu_torch` in the temp
+dir), so the JAX package's store is never shared.  Step outputs are
+pickled with their devices: a step that returns host values (CPU
+tensors, numpy) can be read back by a process without a card.
+"""'''
+
+
+def _lines(*lines: str) -> str:
+    return "\n".join(lines) + "\n"
+
+
+# each adapted module of the operations plane as (port text, the
+# rewritten original's text) pairs; undone, the module is the original
+_OPS_ADAPTATIONS = {
+    "workflow/api.py": (
+        (_WF_DOC, '\n"""'),
+        ("import tempfile\n", ""),
+        (_lines(
+            "        # the port's own variable and directory, under its session",
+            "        # base: the JAX package's `RAY_TPU_WORKFLOW_STORAGE` and",
+            "        # `/tmp/ray_tpu/workflows` are never read or written here",
+            "        _storage_dir = os.environ.get(",
+            '            "RTT_WORKFLOW_STORAGE",',
+            "            os.path.join(",
+            '                os.environ.get("RTT_TMPDIR", os.path.join(',
+            '                    tempfile.gettempdir(), "ray_tpu_torch")),',
+            '                "workflows",',
+            "            ),",
+            "        )"),
+         _lines(
+             "        _storage_dir = os.environ.get(",
+             '            "RAY_TPU_WORKFLOW_STORAGE", '
+             '"/tmp/ray_tpu_torch/workflows"',
+             "        )")),
+    ),
+    "dashboard/grafana.py": (
+        ("a zero kernel rate on the card means",
+         "a zero kernel rate on TPU means"),
+    ),
+    "autoscaler/gke.py": (
+        (_lines(
+            "API) and node identity is the pod name.  GKE GPU specifics "
+            "follow the",
+            "documented pod shape: `nvidia.com/gpu` resource limits from a "
+            "node",
+            'type\'s `"GPU"` resource, plus the '
+            "`cloud.google.com/gke-accelerator`",
+            "node selector (for example `nvidia-h100-80gb`); a multi-host "
+            "gang maps",
+            "to `hosts` pods sharing a `tpu-slice` label so STRICT_PACK "
+            "placement",
+            "sees one domain."),
+         _lines(
+             "API) and node identity is the pod name.  GKE TPU specifics "
+             "follow the",
+             "documented pod shape: `google.com/tpu` resource limits plus "
+             "the",
+             "`cloud.google.com/gke-tpu-accelerator` / `gke-tpu-topology` "
+             "node",
+             "selectors; a multi-host slice maps to `hosts` pods sharing a",
+             "`tpu-slice` label so STRICT_PACK placement sees one ICI "
+             "domain.")),
+        (_lines('        gpu_accelerator: Optional[str] = None,  '
+                '# e.g. "nvidia-h100-80gb"'),
+         _lines('        tpu_accelerator: Optional[str] = None,  '
+                '# e.g. "tpu-v5-lite-podslice"',
+                '        tpu_topology: Optional[str] = None,     '
+                '# e.g. "2x4"')),
+        (_lines("        self.gpu_accelerator = gpu_accelerator"),
+         _lines("        self.tpu_accelerator = tpu_accelerator",
+                "        self.tpu_topology = tpu_topology")),
+        (_lines('        gpus = resources.get("GPU")',
+                "        if gpus:",
+                '            limits["nvidia.com/gpu"] = str(int(gpus))'),
+         _lines('        tpus = resources.get("TPU")',
+                "        if tpus:",
+                '            limits["google.com/tpu"] = str(int(tpus))')),
+        (_lines("        if gpus and self.gpu_accelerator:",
+                '            selector["cloud.google.com/gke-accelerator"] = (',
+                "                self.gpu_accelerator",
+                "            )"),
+         _lines("        if tpus and self.tpu_accelerator:",
+                '            selector["cloud.google.com/gke-tpu-accelerator"]'
+                " = (",
+                "                self.tpu_accelerator",
+                "            )",
+                "        if tpus and self.tpu_topology:",
+                '            selector["cloud.google.com/gke-tpu-topology"] = '
+                "self.tpu_topology")),
+        (_lines('        if "nvidia.com/gpu" in limits:',
+                '            out["GPU"] = float(limits["nvidia.com/gpu"])'),
+         _lines('        if "google.com/tpu" in limits:',
+                '            out["TPU"] = float(limits["google.com/tpu"])')),
+    ),
+}
+
+
+@pytest.mark.parametrize("rel", list(_OPS_ADAPTATIONS))
+def test_ops_plane_outside_its_adaptations_is_a_copy(rel):
+    """The adapted modules of the operations plane change only what
+    `_OPS_ADAPTATIONS` lists (the workflow store's root, the
+    kernel-rate panel's wording, GKE's GPU pod shape): each listed port
+    text occurs once, and with each put back as the original's, the
+    module is the original after the rewrite."""
+    port = (REPO / "ray_tpu_torch" / rel).read_text()
+    for new, old in _OPS_ADAPTATIONS[rel]:
+        assert port.count(new) == 1, (rel, new)
+        port = port.replace(new, old)
+    assert port == rewrite((REPO / "ray_tpu" / rel).read_text(), rel)

@@ -61,6 +61,12 @@ RUNTIME_MODULES = (
     "rllib/algorithms/multi_agent_ppo.py", "rllib/algorithms/dreamer.py",
     "examples/ppo_pixels.py", "examples/mnist.py", "testing.py",
     "cluster_utils.py",
+    "job/__init__.py", "job/api.py", "workflow/__init__.py",
+    "workflow/api.py", "util/state/__init__.py", "dashboard/__init__.py",
+    "dashboard/timeline.py", "dashboard/grafana.py", "dashboard/head.py",
+    "autoscaler/__init__.py", "autoscaler/node_provider.py",
+    "autoscaler/command_runner.py", "autoscaler/autoscaler.py",
+    "autoscaler/v2.py", "autoscaler/gke.py",
 )
 
 
@@ -260,7 +266,9 @@ def test_runtime_modules_do_not_import_torch():
     graphs (an exec loop, a pipeline stage), data (read, map and
     shuffle tasks, the split coordinator) and tune (a trial actor);
     none of that imports torch (resolve_device and the feed onto the
-    card import it when called)."""
+    card import it when called).  Nor does the operations plane (a job
+    supervisor, the workflow executor, the dashboard actor, the state
+    API, the autoscaler)."""
     code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {str(REPO)!r})
@@ -283,6 +291,14 @@ def test_runtime_modules_do_not_import_torch():
         import ray_tpu_torch.tune.controller
         import ray_tpu_torch.testing
         import ray_tpu_torch.cluster_utils
+        import ray_tpu_torch.job
+        import ray_tpu_torch.workflow
+        import ray_tpu_torch.util.state
+        import ray_tpu_torch.dashboard
+        import ray_tpu_torch.dashboard.grafana
+        import ray_tpu_torch.dashboard.timeline
+        import ray_tpu_torch.autoscaler
+        import ray_tpu_torch.autoscaler.command_runner
         bad = sorted(m for m in sys.modules if m.split(".")[0] == "torch")
         assert not bad, bad
         print("OK")
@@ -399,6 +415,119 @@ def test_data_and_tune_run_with_jax_and_ray_tpu_blocked(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                           env=env, capture_output=True, text=True,
                           timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")
+    assert not sorted(p.name for p in marks.iterdir())
+
+
+def test_ops_plane_runs_with_jax_and_ray_tpu_blocked(tmp_path):
+    """A driver, its node daemons and every worker run with `jax` and
+    `ray_tpu` replaced by modules that refuse to import: a job runs to
+    SUCCEEDED, a workflow fails, resumes and returns, the dashboard
+    serves its SPA and a timeline equal to `timeline()`'s, and
+    `AutoscalerV2` over the local provider scales a `{"GPU": 1}` node
+    up for a `num_gpus=1` task, with nothing trying to import the
+    blocked packages."""
+    block = tmp_path / "block"
+    block.mkdir()
+    marks = tmp_path / "marks"
+    marks.mkdir()
+    for name in FORBIDDEN:
+        (block / f"{name}.py").write_text(textwrap.dedent(f"""
+            import os
+            open(os.path.join({str(marks)!r}, "{name}." + str(os.getpid())),
+                 "w").close()
+            raise ImportError("{name} is blocked for this run")
+        """))
+    code = textwrap.dedent(f"""
+        import json, os, sys, time, urllib.request
+        import ray_tpu_torch as rt
+        from ray_tpu_torch import job, workflow
+        from ray_tpu_torch.autoscaler import (
+            AutoscalerV2, AutoscalerV2Config, LocalNodeProvider,
+            NodeTypeConfigV2)
+        from ray_tpu_torch.dashboard import start_dashboard
+        from ray_tpu_torch.util import state
+
+        info = rt.init(num_workers=2, num_cpus=4, num_gpus=0)
+        provider = None
+        try:
+            jid = job.submit_job(sys.executable + " -c 'print(6 * 7)'")
+            assert job.wait_job(jid, timeout=60) == "SUCCEEDED"
+            assert "42" in job.get_job_logs(jid)
+
+            workflow.init_storage({str(tmp_path / "wf")!r})
+            flag = {str(tmp_path / "flag")!r}
+            open(flag, "w").close()
+
+            @rt.remote
+            def double(x):
+                return 2 * x
+
+            @rt.remote
+            def report(y, flag):
+                if os.path.exists(flag):
+                    raise RuntimeError("injected")
+                return y + 1
+
+            try:
+                workflow.run(report.bind(double.bind(20), flag),
+                             workflow_id="iso")
+                raise AssertionError("expected the injected failure")
+            except Exception as e:
+                assert "injected" in str(e), e
+            os.remove(flag)
+            assert workflow.resume("iso") == 41
+
+            head, (host, port) = start_dashboard()
+            base = f"http://{{host}}:{{port}}"
+            page = urllib.request.urlopen(base + "/", timeout=15).read()
+            assert b"drawTimeline" in page
+            for _ in range(100):
+                doc = json.loads(urllib.request.urlopen(
+                    base + "/api/timeline", timeout=15).read())
+                done = {{e["name"] for e in doc["traceEvents"]
+                        if e["ph"] == "X"}}
+                if ({{"double", "report"}} <= done
+                        and doc["traceEvents"] == rt.timeline()):
+                    break
+                time.sleep(0.2)
+            else:
+                raise AssertionError("the timeline never settled")
+            assert state.summarize_tasks().get("FINISHED", 0) >= 2
+
+            provider = LocalNodeProvider(info["controller_addr"])
+            a = AutoscalerV2(provider, AutoscalerV2Config(
+                node_types={{"gpu_worker": NodeTypeConfigV2(
+                    num_cpus=2, resources={{"GPU": 1}}, num_workers=1,
+                    max_slices=1)}}, max_hosts=1, idle_timeout_s=60))
+
+            @rt.remote(num_gpus=1)
+            def on_gpu_node():
+                return 7
+
+            ref = on_gpu_node.remote()
+            deadline = time.time() + 90
+            while time.time() < deadline:
+                a.update()
+                done, _ = rt.wait([ref], timeout=0.5)
+                if done:
+                    break
+            assert rt.get(ref, timeout=30) == 7
+            assert len(provider.non_terminated_nodes()) == 1
+        finally:
+            if provider is not None:
+                for pid in provider.non_terminated_nodes():
+                    provider.terminate_node(pid)
+            rt.shutdown()
+        print("OK")
+    """)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("RT_", "RTT_"))}
+    env["PYTHONPATH"] = f"{block}{os.pathsep}{REPO}"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK")
     assert not sorted(p.name for p in marks.iterdir())
