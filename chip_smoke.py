@@ -275,6 +275,29 @@ exits non-zero:
     tokens/s, the workflow's first run and resume s, the job's submit ->
     RUNNING -> SUCCEEDED s, the stop's s and MiB, each endpoint's ms,
     the timeline's event count.
+13l. cli_plane: a head that counts the card boots, and the driver
+    reads the cluster only through `python -m
+    ray_tpu_torch.scripts.cli --address <ready.json>` in subprocesses:
+    `status` (`GPU` 1), `list nodes`, `list workers`, `events`,
+    `grafana-dashboard`; `job submit --wait` of `scripts/train_gpt2.py`
+    (GPT-2 124M, 8 x 1,024, 1 warm-up + 3 steps), `job status`
+    SUCCEEDED, `job logs` (step-0 loss within 0.5 of ln 50,257 and
+    falling; 96 K1 / 48 K2 counted in the job's process, no plain
+    dispatch), `job list`; a long job stopped with `job stop`: STOPPED
+    within 30 s, the card's memory back within 512 MiB.  Then
+    `util.multiprocessing.Pool(processes=2, ray_remote_args={"num_gpus":
+    0.5})` over 8 seeded items, each `flash_attention` forward and
+    backward at B 4, H 12, T 1,024, D 64, bf16, causal (one K1 and one
+    K2 in a pool worker), through `map` (chunksize 2), `imap_unordered`
+    and one `apply_async` with a callback: O / dQ / dK / dV within
+    `FLASH_TOL["bf16"]` of the plain versions, two worker pids, one
+    device each, the O digests equal across both workers and item 0
+    recomputed here.  `memory --json` while the driver holds `rt.put`
+    of a 64 MiB bf16 CUDA tensor (a driver-owned object of its bytes);
+    `timeline --output` holding the pool's 13 tasks.  Recorded: each
+    command's ms, the job's s and steps' ms, the stop's s and MiB, the
+    pool's map s and item ms, the timeline's events.  The kernels
+    line's K1 / K2 launches add the job's and the pool workers' counts.
 14. K1-K4 timed at the training shape (bf16, causal), and K3 and K4 at
     the second split shape (BH 32, T 4,096, D 128), beside their bounds,
     plain versions and `scaled_dot_product_attention`, with each
@@ -5479,6 +5502,345 @@ def ops_plane(device, smi: str, *, cfg_kw=None, batch=OPS_BATCH,
     return out
 
 
+# the GPU pool's items: GPT-2's attention (B, H, T, D) at bf16, causal
+CLI_POOL_SHAPE = (4, 12, 1024, 64)
+CLI_POOL_ITEMS = 8
+# the object the driver holds while `memory --json` reads the store:
+# bf16 [8, 1,024, 4,096], 64 MiB
+CLI_PUT_SHAPE = (8, 1024, 4096)
+CLI_JOB_ARGS = "--batch 8 --steps 3 --warmup 1"
+
+
+def cli(address: str, *args, timings: dict) -> str:
+    """One command of the port's CLI in a fresh interpreter, as an
+    operator runs it from a shell; its standard output, with its wall ms
+    under `timings[<the command's words>]`.  A non-zero exit fails the
+    phase."""
+    key = " ".join(a for a in args[:2] if not a.startswith("-"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli",
+         *(("--address", address) if address else ()), *args],
+        capture_output=True, text=True, timeout=600)
+    timings.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {args}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def pool_flash_item(device: str, tol: dict):
+    """The pool's work item, made here so that it pickles by value:
+    `item((seed, (B, H, T, D)))` runs `flash_attention` forward and
+    backward on seeded bf16 q, k, v, dO [B, T, H, D] on `device` (K1 then
+    K2 in the calling process), and returns O's, dQ's, dK's and dV's
+    (max abs, elementwise ratio, relative norm) against the plain
+    versions (`flash_fwd_reference`, then `flash_bwd_fused_reference` on
+    its O and LSE) compared in f32 under `tol`, the K1-K4 launches and
+    plain dispatches of that call read in this process, the process's
+    pid, `CUDA_VISIBLE_DEVICES`, device count and `util.accelerators`
+    readings, the call's ms and a sha256 of O's bytes."""
+
+    def item(arg):
+        import hashlib
+        import os as os_
+        import time as time_
+
+        import torch as torch_
+
+        from ray_tpu_torch.ops import attention as fa_
+        from ray_tpu_torch.util import accelerators as acc_
+
+        seed, (B, H, T, D) = arg
+        dev = torch_.device(device)
+        cuda = dev.type == "cuda"
+        names = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+                 "flash_bwd_dkv")
+        gen = torch_.Generator(device=dev)
+        gen.manual_seed(seed)
+        q, k, v, do = (torch_.randn((B, T, H, D), generator=gen,
+                                    device=dev).to(torch_.bfloat16)
+                       for _ in range(4))
+        before = {n: getattr(fa_, n).launches for n in names}
+        plain0 = fa_.flash_attention.plain_dispatches
+        qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        t0 = time_.perf_counter()
+        o = fa_.flash_attention(qg, kg, vg, causal=True)
+        dq, dk, dv = torch_.autograd.grad(o, (qg, kg, vg), do)
+        if cuda:
+            torch_.cuda.synchronize(dev)
+        ms = (time_.perf_counter() - t0) * 1e3
+        launches = {n: getattr(fa_, n).launches - before[n] for n in names}
+        plain = fa_.flash_attention.plain_dispatches - plain0
+
+        def fold(t):
+            return t.permute(0, 2, 1, 3).reshape(B * H, T, D)
+
+        scale = D ** -0.5
+        o_ref, lse = fa_.flash_fwd_reference(fold(q), fold(k), fold(v),
+                                             True, scale)
+        ref = dict(zip(("dq", "dk", "dv"), fa_.flash_bwd_fused_reference(
+            fold(q), fold(k), fold(v), fold(do), lse, o_ref, True, scale)))
+        errs = {}
+        for name, got, want in (("o", o, o_ref), ("dq", dq, ref["dq"]),
+                                ("dk", dk, ref["dk"]),
+                                ("dv", dv, ref["dv"])):
+            g, w = fold(got).detach().float(), want.detach().float()
+            if not bool(torch_.isfinite(g).all()):
+                raise AssertionError(f"{name}: non-finite")
+            d = (g - w).abs()
+            errs[name] = (
+                float(d.max()),
+                float((d / (tol["atol"] + tol["rtol"] * w.abs())).max()),
+                float(torch_.linalg.vector_norm(g - w)
+                      / torch_.linalg.vector_norm(w)))
+        raw = o.detach().contiguous().view(torch_.int16).cpu().numpy()
+        return {"seed": seed, "pid": os_.getpid(), "errs": errs,
+                "launches": launches, "plain_dispatches": plain, "ms": ms,
+                "cuda_visible_devices": os_.environ.get(
+                    "CUDA_VISIBLE_DEVICES"),
+                "device_count": torch_.cuda.device_count() if cuda else 0,
+                "visible_chip_ids":
+                    acc_.get_current_process_visible_chip_ids(),
+                "chips_on_node": acc_.get_num_tpu_chips_on_node(),
+                "digest": hashlib.sha256(raw.tobytes()).hexdigest()}
+
+    return item
+
+
+def cli_plane(device, smi: str) -> dict:
+    """The operator's surface on the card: a head that counts the card
+    boots here, and from then on the driver asks the cluster everything
+    through `python -m ray_tpu_torch.scripts.cli --address <ready.json>`
+    in subprocesses (the pool is the user's API, run from the driver).
+
+    1. `status` (a node alive, `GPU` 1), `list nodes`, `list workers`,
+       `events`, `grafana-dashboard --out <tmp>` (files written).
+    2. `job submit --wait` of `scripts/train_gpt2.py` (GPT-2 124M at
+       full width and depth, 8 x 1,024, 1 warm-up + 3 steps: K1 / K2 in
+       the job's process, its counts printed by the script), then `job
+       status` SUCCEEDED, `job logs` (step-0 loss within 0.5 of ln V,
+       falling; 24 K1 and 12 K2 a step, no plain dispatch), `job list`.
+       A second, long job is stopped with `job stop` after its first
+       line: STOPPED within 30 s, the card's memory back within
+       `OPS_MEM_SLACK_MIB`.
+    3. `util.multiprocessing.Pool(processes=2, ray_remote_args={"num_gpus":
+       0.5})` over `CLI_POOL_ITEMS` seeded `pool_flash_item`s: `map` (chunksize
+       2), `imap_unordered` (the same digests as a set), one
+       `apply_async` with a callback.  Held: two worker pids, each
+       worker pinned to the card (its `CUDA_VISIBLE_DEVICES` one id,
+       read back by `util.accelerators`) and seeing one device, one K1
+       and one K2 an item, no plain dispatch, O / dQ / dK / dV
+       within `FLASH_TOL["bf16"]`, and item 0 recomputed here giving the
+       worker's O digest.
+    4. `memory --json` while the driver holds `rt.put` of a bf16 tensor
+       of `CLI_PUT_SHAPE` on `device`: a driver-owned object of its bytes.
+    5. `timeline --output <tmp>`: it parses and holds the pool's tasks.
+    """
+    tol = FLASH_TOL["bf16"]
+    ms: dict = {}
+    out = {"phase": "cli_plane", "nvidia_smi": smi, "model": "gpt2_124m",
+           "job_args": CLI_JOB_ARGS, "pool_shape": list(CLI_POOL_SHAPE),
+           "pool_items": CLI_POOL_ITEMS, "tolerance": tol}
+    entry = (f"{sys.executable} -u -m ray_tpu_torch.scripts.train_gpt2 "
+             f"{CLI_JOB_ARGS}")
+    tmp = tempfile.mkdtemp(prefix="rtt_cli_")
+    t_phase = time.perf_counter()
+    rt.init(num_workers=2, num_cpus=4)
+    try:
+        from ray_tpu_torch.api import _session
+
+        address = os.path.join(_session["session_dir"], "ready.json")
+
+        # -- 1. the cluster, read from the shell
+        status = json.loads(cli(address, "status", timings=ms))
+        assert status["nodes_alive"] >= 1, status
+        assert status["total_resources"].get("GPU") == 1.0, status
+        nodes = json.loads(cli(address, "list", "nodes", timings=ms))
+        assert any(n["alive"] for n in nodes), nodes
+        workers = json.loads(cli(address, "list", "workers", timings=ms))
+        assert {w["kind"] for w in workers} >= {"driver", "worker"}, workers
+        events = json.loads(cli(address, "events", timings=ms))
+        assert any(e["event_type"] == "NODE_ADDED" for e in events), events
+        dash = cli(None, "grafana-dashboard", "--out",
+                   os.path.join(tmp, "grafana"), timings=ms).split()
+        assert dash and all(os.path.getsize(p) > 0 for p in dash), dash
+        out["cluster"] = {"nodes_alive": status["nodes_alive"],
+                          "total_resources": status["total_resources"],
+                          "workers": len(workers), "events": len(events),
+                          "grafana_files": len(dash)}
+
+        # -- 2. GPT-2 as a job, submitted, read and listed from the shell
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        jid, verdict = cli(address, "job", "submit", "--wait", entry,
+                           timings=ms).split()
+        assert verdict == "SUCCEEDED", verdict
+        assert cli(address, "job", "status", jid,
+                   timings=ms).strip() == "SUCCEEDED"
+        text = cli(address, "job", "logs", jid, timings=ms)
+        got = {r.get("phase"): r for r in (
+            json.loads(ln) for ln in text.splitlines()
+            if ln.startswith("{"))}
+        run = got["train_gpt2"]
+        steps = len(run["warmup_losses"]) + len(run["losses"])
+        want = {"flash_fwd": steps * run["n_layer"] * 2,
+                "flash_bwd_fused": steps * run["n_layer"],
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        ln_v = math.log(gpt2.GPT2Config().vocab_size)
+        listed = {j["job_id"]: j for j in json.loads(
+            cli(address, "job", "list", timings=ms))}
+        assert jid in listed, listed
+        ji = listed[jid]
+        out["job"] = {
+            "entrypoint": entry, "status": ji["status"],
+            "submit_to_succeeded_s": ji["end_time"] - ji["submit_time"],
+            "wait_s": time.time() - t0,
+            "seen": got["train_gpt2_device"],
+            "warmup_losses": run["warmup_losses"], "losses": run["losses"],
+            "step_ms": run["step_ms"], "tokens_per_s": run["tokens_per_s"],
+            "peak_mem_gb": run["peak_mem_gb"],
+            "launches": run["launches"], "launches_want": want,
+            "plain_dispatches": run["plain_dispatches"]}
+        assert ji["status"] == "SUCCEEDED", ji
+        assert abs(run["warmup_losses"][0] - ln_v) < 0.5, run
+        assert run["losses"][-1] < run["warmup_losses"][0], run
+        assert run["launches"] == want, (run["launches"], want)
+        assert run["plain_dispatches"] == 0, run
+        assert got["train_gpt2_device"]["device_count"] == 1, got
+
+        mib0 = card_mib()
+        long_entry = entry.replace(CLI_JOB_ARGS, CLI_JOB_ARGS.replace(
+            "--steps 3", "--steps 100000"))
+        jid2 = cli(address, "job", "submit", long_entry,
+                   timings=ms).strip()
+        _poll(300.0, lambda: "train_gpt2_device" in cli(
+            address, "job", "logs", jid2, timings=ms), "the long job's "
+            "first line", every=0.5)
+        mib_running = card_mib()
+        t0 = time.perf_counter()
+        cli(address, "job", "stop", jid2, timings=ms)
+        _poll(30.0, lambda: cli(
+            address, "job", "status", jid2, timings=ms).strip()
+            == "STOPPED", "the stopped job's STOPPED", every=0.1)
+        stop_s = time.perf_counter() - t0
+
+        def back():  # a reading of 0.0 MiB is an answer, not a miss
+            mib = card_mib()
+            return {"mib": mib} if mib - mib0 <= OPS_MEM_SLACK_MIB else None
+
+        mib_after = _poll(30.0, back, f"the card's memory back within "
+                          f"{OPS_MEM_SLACK_MIB} MiB of {mib0} (running: "
+                          f"{mib_running})")["mib"]
+        out["stopped_job"] = {
+            "status": "STOPPED", "stop_s": stop_s,
+            "stop_bound_s": 30.0, "mib_before": mib0,
+            "mib_running": mib_running, "mib_after": mib_after,
+            "mib_returned": mib_running - mib_after,
+            "slack_mib": OPS_MEM_SLACK_MIB}
+
+        # -- 3. a GPU pool: flash attention in the pool's processes
+        item = pool_flash_item(str(device), tol)
+        args = [(1000 + i, CLI_POOL_SHAPE) for i in range(CLI_POOL_ITEMS)]
+        from ray_tpu_torch.util.multiprocessing import Pool
+
+        called = []
+        t0 = time.perf_counter()
+        with Pool(processes=2, ray_remote_args={"num_gpus": 0.5}) as pool:
+            start_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mapped = pool.map(item, args, chunksize=2)
+            map_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            unordered = list(pool.imap_unordered(item, args))
+            imap_s = time.perf_counter() - t0
+            pool.apply_async(item, (args[0],),
+                             callback=called.append).get(timeout=300)
+        rows = mapped + unordered + called
+        mine = item(args[0])  # item 0 on this process's card
+        pids = sorted({r["pid"] for r in rows})
+        per_item = {"flash_fwd": 1, "flash_bwd_fused": 1,
+                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        launches = {n: sum(r["launches"][n] for r in rows)
+                    for n in per_item}
+        worst = {n: tuple(max(r["errs"][n][i] for r in rows)
+                          for i in range(3)) for n in ("o", "dq", "dk", "dv")}
+        out["pool"] = {
+            "workers": len(pids), "pids": pids, "start_s": start_s,
+            "map_s": map_s, "map_ms_an_item": map_s * 1e3 / CLI_POOL_ITEMS,
+            "imap_unordered_s": imap_s,
+            "item_ms": [r["ms"] for r in mapped],
+            "item_ms_unordered": [r["ms"] for r in unordered],
+            "launches": launches, "calls": len(rows),
+            "plain_dispatches": sum(r["plain_dispatches"] for r in rows),
+            "max_abs_elementwise_relnorm": worst,
+            "seen": sorted({(r["pid"], r["cuda_visible_devices"],
+                             r["device_count"],
+                             str(r["visible_chip_ids"]),
+                             r["chips_on_node"]) for r in rows}),
+            "digest_item0": mapped[0]["digest"],
+            "digest_recomputed_here": mine["digest"]}
+        assert [r["seed"] for r in mapped] == [a[0] for a in args]
+        assert len(pids) == 2, pids
+        for r in rows:
+            # half a card pins that card: one id in the worker's
+            # environment, read back by util.accelerators, one device
+            env = r["cuda_visible_devices"]
+            assert env is not None and "," not in env, r
+            assert r["visible_chip_ids"] == [env], r
+            assert r["device_count"] == 1, r
+            assert r["launches"] == per_item, r["launches"]
+            assert r["plain_dispatches"] == 0, r
+            for n, e in r["errs"].items():
+                assert e[1] <= 1.0 and e[2] <= tol["rel"], (n, e, tol)
+        assert ({r["digest"] for r in unordered}
+                == {r["digest"] for r in mapped}), "imap_unordered"
+        assert called and called[0]["digest"] == mapped[0]["digest"]
+        assert mine["digest"] == mapped[0]["digest"], (
+            "item 0's O differs between a pool worker and this process")
+
+        # -- 4. what pins the store, while the driver holds 64 MiB
+        held = torch.zeros(CLI_PUT_SHAPE, dtype=torch.bfloat16,
+                           device=device)
+        nbytes = held.numel() * held.element_size()
+        ref = rt.put(held)
+        tables = json.loads(cli(address, "memory", "--json", timings=ms))
+        rows_ = [r for node in tables for proc in node["processes"]
+                 if proc.get("mode") == "driver" for r in proc["refs"]
+                 if r["object_id"] == ref.hex()]
+        assert rows_ and rows_[0]["kind"] == "owned", rows_
+        assert (rows_[0]["size"] or 0) >= nbytes, (rows_, nbytes)
+        out["memory"] = {"object_bytes": rows_[0]["size"],
+                         "tensor_bytes": nbytes,
+                         "where": rows_[0]["where"],
+                         "nodes": len(tables)}
+        del ref, held
+
+        # -- 5. the timeline, with the pool's tasks
+        path = os.path.join(tmp, "timeline.json")
+
+        def pool_slices():
+            said = cli(address, "timeline", "--output", path, timings=ms)
+            with open(path) as f:
+                doc = json.load(f)
+            n = sum(1 for e in doc if e.get("ph") == "X"
+                    and "run_chunk" in e.get("name", ""))
+            return (said, doc, n) if n >= 4 + CLI_POOL_ITEMS + 1 else None
+
+        said, doc, n = _poll(60.0, pool_slices, "the pool's tasks in the "
+                             "timeline", every=0.5)
+        assert said.startswith(f"wrote {len(doc)} events to "), said
+        out["timeline"] = {"events": len(doc), "pool_task_slices": n}
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["command_ms"] = {k: {"n": len(v), "median": statistics.median(v),
+                             "max": max(v)} for k, v in ms.items()}
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5748,6 +6110,12 @@ def main() -> int:
     ops = ops_plane(device, smi)
     emit(ops)
     torch.cuda.empty_cache()
+    # the operator's surface: the cluster read through the CLI, GPT-2 as a
+    # job submitted, read, listed and stopped from the shell, and flash
+    # attention fanned out over a GPU pool's processes
+    cli_run = cli_plane(device, smi)
+    emit(cli_run)
+    torch.cuda.empty_cache()
 
     case = flash_case(32 * 12, 1024, 64, torch.bfloat16, True, device)
     flash_t, sdpa_bwd = time_flash(case, H=12)
@@ -5811,9 +6179,12 @@ def main() -> int:
                 **{n: split["launches"][n] + split_llama["launches"][n]
                    for n in ("flash_bwd_dq", "flash_bwd_dkv")},
                 **xent_run["launches"]}
-    # the workflow's `train` step launches K1 / K2 in its own process
+    # the workflow's `train` step, the CLI's job and the pool's workers
+    # launch K1 / K2 in their own processes, which return their counts
     for name in ("flash_fwd", "flash_bwd_fused"):
-        launches[name] += ops["train"]["launches"][name]
+        launches[name] += (ops["train"]["launches"][name]
+                           + cli_run["job"]["launches"][name]
+                           + cli_run["pool"]["launches"][name])
 
     errs = {"paged_kv_append": 0.0, "paged_decode_attention": attn_err,
             "paged_append_decode_attention": fused_errs["mid_decode"]["bf16"],

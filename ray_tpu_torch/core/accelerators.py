@@ -17,7 +17,11 @@ a GPU host and have no counterpart here.
 - the daemon assigns GPUs at *lease grant* time and pins them to the
   worker process for its lifetime through `CUDA_VISIBLE_DEVICES`, so
   two `num_gpus=1` actors on one 2-GPU host each see exactly one,
-  different card (as index 0 of their own process).
+  different card (as index 0 of their own process).  A fractional grant
+  (`num_gpus=0.5`) is pinned the same way to one card, shared only with
+  other fractions: the JAX package's TPU fraction pins no chip, but a
+  process that sees every card runs on `cuda:0`, whatever card its
+  share was counted on.
 """
 
 from __future__ import annotations
@@ -92,8 +96,8 @@ def detect_num_chips() -> int:
 
 
 def validate_chip_request(quantity: float) -> Optional[str]:
-    """Whole-GPU requests must be integers; fractional shares (no
-    isolation) below one GPU are allowed, as in Ray."""
+    """Whole-GPU requests must be integers; fractional shares below one
+    GPU are allowed, as in Ray."""
     if quantity < 1:
         return None
     if quantity != int(quantity):
@@ -119,21 +123,42 @@ def chip_isolation_env(chip_ids: List[int],
 
 class ChipPool:
     """Daemon-side allocator mapping whole-GPU leases to disjoint GPU
-    index sets.  GPUs are pinned per worker process: once a worker has
+    index sets, and fractional leases (0 < n < 1) to a share of one card
+    that no whole-GPU lease holds, packed onto the card already most
+    shared.  GPUs are pinned per worker process: once a worker has
     initialized CUDA against a subset, a different subset later would
     be silently ignored by the framework — so reuse prefers workers
-    whose pinned set already matches.
+    whose pinned set and share already match.
     """
+
+    _EPS = 1e-9
 
     def __init__(self, num_chips: int):
         self.num_chips = num_chips
         self._free = set(range(num_chips))
         self._by_worker: Dict[str, Tuple[int, ...]] = {}
+        self._share: Dict[str, float] = {}  # worker -> its fraction
+        self._used: Dict[int, float] = {}  # shared card -> its fractions
 
-    def assign(self, worker_id: str, n: int) -> Optional[Tuple[int, ...]]:
+    def assign(self, worker_id: str, n: float) -> Optional[Tuple[int, ...]]:
         held = self._by_worker.get(worker_id)
         if held is not None:
-            return held if len(held) == n else None
+            return held if self.shape(worker_id) == n else None
+        if 0 < n < 1:
+            shared = [c for c, u in self._used.items()
+                      if u + n <= 1 + self._EPS]
+            if shared:
+                card = max(shared, key=lambda c: (self._used[c], -c))
+            elif self._free:
+                card = min(self._free)
+                self._free.discard(card)
+            else:
+                return None
+            self._used[card] = self._used.get(card, 0.0) + n
+            self._share[worker_id] = n
+            self._by_worker[worker_id] = (card,)
+            return (card,)
+        n = int(n)
         if n > len(self._free):
             return None
         chips = tuple(sorted(self._free)[:n])
@@ -144,11 +169,30 @@ class ChipPool:
     def pinned(self, worker_id: str) -> Optional[Tuple[int, ...]]:
         return self._by_worker.get(worker_id)
 
+    def shape(self, worker_id: str) -> Optional[float]:
+        """The lease a pinned worker holds: its share of one card, else
+        its card count; None when it is not pinned."""
+        held = self._by_worker.get(worker_id)
+        if held is None:
+            return None
+        return self._share.get(worker_id, len(held))
+
+    def fits(self, n: float) -> bool:
+        """Whether a worker not yet pinned could be given `n` now."""
+        if 0 < n < 1:
+            return bool(self._free) or any(
+                u + n <= 1 + self._EPS for u in self._used.values())
+        return n <= len(self._free)
+
     def release_worker(self, worker_id: str) -> None:
         chips = self._by_worker.pop(worker_id, None)
-        if chips:
+        share = self._share.pop(worker_id, None)
+        if share is not None:
+            left = self._used[chips[0]] - share
+            if left > self._EPS:
+                self._used[chips[0]] = left
+            else:
+                del self._used[chips[0]]
+                self._free.add(chips[0])
+        elif chips:
             self._free.update(chips)
-
-    @property
-    def free_count(self) -> int:
-        return len(self._free)

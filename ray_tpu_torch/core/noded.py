@@ -1378,11 +1378,15 @@ class NodeDaemon:
     # scheduling — leases granted here, tasks pushed caller->worker)
     # ------------------------------------------------------------------
     # -- GPU isolation (see core/accelerators.py) ----------------------
-    def _gpus_needed(self, demand: Dict[str, float]) -> int:
+    def _gpus_needed(self, demand: Dict[str, float]) -> float:
+        """The GPU lease a demand pins: a whole count, or a fraction of
+        one card (0 < n < 1); 0 pins nothing."""
         t = float(demand.get("GPU", 0.0))
+        if 0 < t < 1:
+            return t
         return int(t) if t >= 1 and t.is_integer() else 0
 
-    def _assign_chips(self, w: WorkerState, n: int) -> bool:
+    def _assign_chips(self, w: WorkerState, n: float) -> bool:
         """Pin `n` chips to worker `w` (no-op match if already pinned to
         exactly n) and push the isolation env over its conn.  Safe for
         the daemon-dispatch path: the env rides the same ordered stream
@@ -1406,7 +1410,7 @@ class NodeDaemon:
             return False
         return True
 
-    async def _assign_chips_acked(self, w: WorkerState, n: int) -> bool:
+    async def _assign_chips_acked(self, w: WorkerState, n: float) -> bool:
         """Like `_assign_chips` but waits for the worker to acknowledge
         the env before returning, so a lease reply cannot race the
         caller's first direct task push past the isolation setup."""
@@ -1427,7 +1431,7 @@ class NodeDaemon:
         return True
 
     def _pick_idle_worker(
-        self, gpu_n: int, require_no_lease: bool = False,
+        self, gpu_n: float, require_no_lease: bool = False,
         env_hash: Optional[str] = None, require_exact_env: bool = False,
     ) -> Optional[WorkerState]:
         """Idle-worker choice, chip- and env-pinning aware: an n-chip
@@ -1461,7 +1465,8 @@ class NodeDaemon:
             )
             if held is None and env_ready:
                 unpinned = unpinned or w
-            elif gpu_n and held is not None and len(held) == gpu_n:
+            elif (gpu_n and held is not None
+                  and self._chip_pool.shape(w.worker_id) == gpu_n):
                 pinned_match = pinned_match or w
             else:
                 # chip-pinned worker for a CPU demand, or a clean
@@ -1471,7 +1476,7 @@ class NodeDaemon:
             return pinned_match or unpinned or any_idle
         return unpinned or any_idle
 
-    def _reclaim_idle_pinned(self, gpu_n: int,
+    def _reclaim_idle_pinned(self, gpu_n: float,
                              env_hash: Optional[str] = None) -> None:
         """Pinning fragmentation: the demand can't be served because
         idle workers are pinned to the wrong chip shape or dedicated to
@@ -1479,7 +1484,7 @@ class NodeDaemon:
         releases chips, frees a pool slot, and respawns clean)."""
         chips_short = (
             gpu_n and self._chip_pool is not None
-            and self._chip_pool.free_count < gpu_n
+            and not self._chip_pool.fits(gpu_n)
         )
         for w in self.workers.values():
             if not (w.kind == "worker" and w.idle):
@@ -1488,7 +1493,8 @@ class NodeDaemon:
                 self._chip_pool.pinned(w.worker_id)
                 if self._chip_pool is not None else None
             )
-            chip_mismatch = chips_short and held and len(held) != gpu_n
+            chip_mismatch = (chips_short and held
+                             and self._chip_pool.shape(w.worker_id) != gpu_n)
             env_mismatch = (
                 w.env_hash is not None and w.env_hash != env_hash
             )

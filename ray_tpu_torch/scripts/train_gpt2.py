@@ -12,7 +12,8 @@ card, the card this process sees (`CUDA_VISIBLE_DEVICES`, the device
 count and name); at the end, per-step wall ms (each step ends in a
 device sync), tokens/s over the timed steps, MFU (6 * N FLOPs per token
 over the H100's dense bf16 peak of 989 TFLOP/s, as the bench counts
-it), the losses, and peak device memory.  `--profile` runs one more
+it), the losses, peak device memory, and the K1-K4 launches and plain
+dispatches of the warm-up and timed steps (read in this process).  `--profile` runs one more
 step under `torch.profiler` (CPU + CUDA) and adds host ms, device
 busy ms (the sum of kernel durations), the device's idle share and the
 top kernels by device time; the Chrome trace goes to `--trace`
@@ -34,6 +35,7 @@ import torch
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import gpt2
+from ray_tpu_torch.ops import attention
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense
 
@@ -157,7 +159,14 @@ def main() -> None:
         "device_count": torch.cuda.device_count(),
         "device": torch.cuda.get_device_name(state["device"]),
     }), flush=True)
+    names = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
+    for name in names:
+        getattr(attention, name).launches = 0
+    attention.flash_attention.plain_dispatches = 0
     res = bench_gpt2(state, args.steps, args.warmup)
+    res["launches"] = {name: getattr(attention, name).launches
+                       for name in names}
+    res["plain_dispatches"] = attention.flash_attention.plain_dispatches
     if args.profile:
         res["profile"] = profile_step(state, args.trace)
     smi = subprocess.run(

@@ -29,6 +29,9 @@ _RULES = (
 # the store-name prefix the sweep reaps (the node daemon, adapted,
 # creates its stores under the same prefix)
 _SHM_RULE = (re.compile(r'prefix: str = "rt_"'), 'prefix: str = "rtt_"')
+# the sanitizer harness's build dir and segment prefix: the port's and
+# the JAX package's harnesses may run at once and must not share either
+_SANITIZER_RULE = (re.compile(r"\brts_sanitizer"), "rtts_sanitizer")
 # the train workers' and the tune trials' accelerator resource is the GPU
 _GPU_RULE = (re.compile(r'res\.pop\("TPU", 0\.0\)'), 'res.pop("GPU", 0.0)')
 # the session base follows TMPDIR: two checkouts run with temp dirs of
@@ -57,6 +60,8 @@ def rewrite(text: str, rel: str = "") -> str:
         text = pat.sub(sub, text)
     if rel == "shm/__init__.py":
         text = _SHM_RULE[0].sub(_SHM_RULE[1], text)
+    if rel in ("shm/shmstore_stress.cc", "shm/run_sanitizers.sh"):
+        text = _SANITIZER_RULE[0].sub(_SANITIZER_RULE[1], text)
     if rel in ("train/worker_group.py", "tune/controller.py"):
         text = _GPU_RULE[0].sub(_GPU_RULE[1], text)
     text, n = _TMP_RULE[0].subn(_TMP_RULE[1], text)
@@ -113,6 +118,11 @@ COPIES = (
     "autoscaler/__init__.py", "autoscaler/node_provider.py",
     "autoscaler/command_runner.py", "autoscaler/autoscaler.py",
     "autoscaler/v2.py",
+    "scripts/cli.py",
+    "util/multiprocessing/__init__.py", "util/multiprocessing/pool.py",
+    "util/joblib/__init__.py", "util/joblib/ray_backend.py",
+    "shm/run_sanitizers.sh",
+    "lint/concurrency.py", "lint/jscheck.py",
 )
 
 # module -> the test that holds what it changes
@@ -267,6 +277,28 @@ ADAPTED = {
     "dashboard/grafana.py": "test_torch_dashboard.py::"
                             "test_grafana_speaks_of_the_card",
     "autoscaler/gke.py": "test_torch_autoscaler.py::test_gpu_pod_shape",
+    # the cluster launcher on Compute Engine's instance API: GPU VMs,
+    # one bulkInsert a gang, a machine type in place of a slice type
+    "autoscaler/gcp.py": "test_torch_launcher.py::"
+                         "test_gang_is_a_single_bulk_insert",
+    "autoscaler/commands.py": "test_torch_launcher.py::"
+                              "test_up_down_roundtrip",
+    # the pod helpers answer None (a GPU host is in no slice); the chip
+    # helpers read the cards
+    "util/accelerators.py": "test_torch_multiprocessing.py::"
+                            "test_util_accelerators_read_the_cards",
+    # the shm stress harness names its segment after its process
+    "shm/shmstore_stress.cc": "test_torch_sanitizers.py::"
+                              "test_harness_builds_the_ports_store",
+    # rtlint over the port's tree: its own baseline and default paths,
+    # RT007 guarding CUDA graph captures
+    # (test_lint_outside_its_adaptations_is_a_copy below)
+    "lint/__init__.py": "test_torch_lint.py::"
+                        "test_port_tree_is_clean_against_its_baseline",
+    "lint/__main__.py": "test_torch_lint.py::test_cli_runs_clean",
+    "lint/framework.py": "test_torch_lint.py::"
+                         "test_port_tree_is_clean_against_its_baseline",
+    "lint/checks.py": "test_torch_lint.py::test_rt007_capture_positive",
 }
 
 
@@ -288,9 +320,10 @@ def test_every_runtime_module_is_a_copy_or_adapted():
     for sub in ("core", "metrics", "shm", "util", "serve", "parallel",
                 "train", "dag", "data", "tune", "rllib", "rllib/core",
                 "rllib/algorithms", "rllib/env", "job", "workflow",
-                "util/state", "dashboard", "autoscaler"):
+                "util/state", "dashboard", "autoscaler",
+                "util/multiprocessing", "util/joblib", "lint"):
         for f in (port / sub).iterdir():
-            if f.suffix in (".py", ".cc", ".html"):
+            if f.suffix in (".py", ".cc", ".html", ".sh"):
                 assert f"{sub}/{f.name}" in listed, f"{sub}/{f.name}"
     for f in port.glob("*.py"):
         assert f.name in listed, f.name
@@ -656,3 +689,95 @@ def test_ops_plane_outside_its_adaptations_is_a_copy(rel):
         assert port.count(new) == 1, (rel, new)
         port = port.replace(new, old)
     assert port == rewrite((REPO / "ray_tpu" / rel).read_text(), rel)
+
+
+# each adapted module of the port's rtlint as (port text, the rewritten
+# original's text) pairs; undone, the module is the original
+_LINT_ADAPTATIONS = {
+    "lint/__init__.py": (
+        (_lines(
+            "Findings on the port's checked-in "
+            "`ray_tpu_torch/lint/lint_baseline.json`",
+            "(the JAX package's root `lint_baseline.json` is that tree's "
+            "own) are",
+            "grandfathered by (path, rule) count: CI fails only on NEW "
+            "violations,",
+            "and a grandfathered count can only shrink.")[:-1],
+         _lines(
+             "Findings on the checked-in `lint_baseline.json` are "
+             "grandfathered by",
+             "(path, rule) count: CI fails only on NEW violations, and a "
+             "grandfathered",
+             "count can only shrink.")[:-1]),
+        (_lines(
+            "Rule catalog lives in `docs/lint.md` (RT007 guards CUDA graph",
+            "captures here: `checks.HostEffectInCapture` says how); the "
+            "checks",
+            "themselves are in `ray_tpu_torch/lint/checks.py`."),
+         _lines(
+             "Rule catalog lives in `docs/lint.md`; the checks themselves "
+             "are in",
+             "`ray_tpu_torch/lint/checks.py`.")),
+    ),
+    "lint/__main__.py": (
+        (_lines(
+            "2 usage error.  `--write-baseline` regenerates the port's",
+            "`ray_tpu_torch/lint/lint_baseline.json` from the current "
+            "findings",
+            "(review the diff: it should only shrink)."),
+         _lines(
+             "2 usage error.  `--write-baseline` regenerates "
+             "`lint_baseline.json`",
+             "from the current findings (review the diff: it should only "
+             "shrink).")),
+        ("import argparse\nimport glob\n", "import argparse\n"),
+        (_lines(
+            '        help="files/directories to lint (default: ray_tpu_torch '
+            'and "',
+            '        "tests/test_torch_*.py)",'),
+         _lines('        help="files/directories to lint (default: '
+                'ray_tpu_torch tests)",')),
+        (_lines(
+            '        *sorted(glob.glob(os.path.join(_REPO_ROOT, "tests",',
+            '                                       "test_torch_*.py"))),'),
+         _lines('        os.path.join(_REPO_ROOT, "tests"),')),
+    ),
+    "lint/framework.py": (
+        (_lines(
+            "def default_baseline_path() -> str:",
+            '    """The port\'s own baseline, beside this package: the JAX '
+            "package's",
+            '    `lint_baseline.json` at the repo root grandfathers its tree '
+            'only."""',
+            "    return os.path.join(os.path.dirname(os.path.abspath("
+            "__file__)),",
+            '                        "lint_baseline.json")'),
+         _lines("def default_baseline_path() -> str:",
+                '    return os.path.join(_REPO_ROOT, "lint_baseline.json")')),
+    ),
+}
+
+
+@pytest.mark.parametrize("rel", list(_LINT_ADAPTATIONS))
+def test_lint_outside_its_adaptations_is_a_copy(rel):
+    """The port's rtlint changes only its baseline's place and its
+    default paths (the port's tree and its tests): each listed port
+    text occurs once, and with each put back as the original's, the
+    module is the original after the rewrite."""
+    port = (REPO / "ray_tpu_torch" / rel).read_text()
+    for new, old in _LINT_ADAPTATIONS[rel]:
+        assert port.count(new) == 1, (rel, new)
+        port = port.replace(new, old)
+    assert port == rewrite((REPO / "ray_tpu" / rel).read_text(), rel)
+
+
+def test_lint_checks_outside_rt007_are_the_originals():
+    """`lint/checks.py` ports RT007 alone (CUDA graph captures in place
+    of `jax.jit`): the module up to that rule's class and from the next
+    rule on is the original's after the rewrite."""
+    orig = rewrite((REPO / "ray_tpu" / "lint" / "checks.py").read_text())
+    port = (REPO / "ray_tpu_torch" / "lint" / "checks.py").read_text()
+    nxt = "# " + "-" * 70 + "\n@register\nclass UnseededRandomInTests"
+    assert (port[:port.index("class HostEffectInCapture(Check):")]
+            == orig[:orig.index("class HostEffectInJit(Check):")])
+    assert port[port.index(nxt):] == orig[orig.index(nxt):]

@@ -263,6 +263,48 @@ def test_gpu_detection_and_isolation_env(monkeypatch):
     assert pool.assign("w3", 1) == (0,)
 
 
+def test_fractional_gpu_grants_share_one_pinned_card():
+    """A fraction of a GPU pins one card, shared only with other
+    fractions and packed onto the card already most shared; a whole-GPU
+    lease never takes a card a fraction holds, and a card comes back
+    once its last fraction is released."""
+    pool = accelerators.ChipPool(2)
+    assert pool.assign("a", 0.5) == (0,) and pool.assign("b", 0.25) == (0,)
+    assert pool.assign("c", 0.5) == (1,)  # card 0 has 0.25 left
+    assert pool.assign("d", 0.25) == (0,)  # the card most shared first
+    assert pool.shape("a") == 0.5 and pool.shape("d") == 0.25
+    assert not pool.fits(1) and pool.fits(0.5) and not pool.fits(0.75)
+    assert pool.assign("e", 1) is None
+    assert pool.assign("a", 1) is None  # pinned to another shape
+    pool.release_worker("c")
+    assert pool.fits(1) and pool.assign("e", 1) == (1,)
+    assert pool.shape("e") == 1 and not pool.fits(0.5)
+    for w in ("a", "b", "d"):
+        pool.release_worker(w)
+    assert pool.assign("f", 1) == (0,)
+    assert pool.pinned("a") is None and pool.shape("a") is None
+
+
+@rt.remote(num_gpus=0.5)
+class _HalfGpuHolder:
+    def visible(self):
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+def test_fractional_gpu_actors_are_pinned_to_one_card(cluster):
+    """Two `num_gpus=0.5` actors on the 2-GPU node are pinned to the same
+    card through CUDA_VISIBLE_DEVICES, and a whole-GPU actor beside them
+    is pinned to the other."""
+    halves = [_HalfGpuHolder.remote(), _HalfGpuHolder.remote()]
+    seen = rt.get([h.visible.remote() for h in halves], timeout=120)
+    assert seen[0] == seen[1] and seen[0] in ("0", "1"), seen
+    whole = _GpuHolder.remote()
+    got = rt.get(whole.visible.remote(), timeout=120)
+    assert got in ("0", "1") and got != seen[0], (seen, got)
+    for a in (*halves, whole):
+        rt.kill(a)
+
+
 def test_accel_env_warns_after_cuda_init(monkeypatch, caplog):
     """The lease-time env push warns when torch has already initialised
     CUDA in the worker (the new visibility cannot take effect), and

@@ -1,7 +1,7 @@
 """The port's dashboard (`ray_tpu_torch.dashboard`) on the CPU: the JAX
 package's `tests/test_dashboard.py` over real HTTP against the port's
 dashboard actor, the SPA's JS syntax gate on the port's `app.html`
-(the JAX package's `lint.jscheck`, until `lint/` is ported), and
+(the port's own `lint.jscheck`), and
 `tests/test_events.py::test_grafana_dashboard_generation` on the port.
 
 One module-scoped cluster of the port's runtime and one dashboard
@@ -325,7 +325,7 @@ def _app_html():
 
 
 def test_spa_js_passes_syntax_gate():
-    from ray_tpu.lint.jscheck import check_js, extract_scripts
+    from ray_tpu_torch.lint.jscheck import check_js, extract_scripts
 
     scripts = extract_scripts(_app_html())
     assert scripts, "app.html lost its inline <script> block"
@@ -339,7 +339,7 @@ def test_spa_js_passes_syntax_gate():
 
 def test_js_gate_catches_typo_classes():
     """The gate fails on the breakage it exists for."""
-    from ray_tpu.lint.jscheck import check_js, extract_scripts
+    from ray_tpu_torch.lint.jscheck import check_js, extract_scripts
 
     _start, src = extract_scripts(_app_html())[0]
     for mutation, expect in [

@@ -67,6 +67,12 @@ RUNTIME_MODULES = (
     "autoscaler/__init__.py", "autoscaler/node_provider.py",
     "autoscaler/command_runner.py", "autoscaler/autoscaler.py",
     "autoscaler/v2.py", "autoscaler/gke.py",
+    "scripts/cli.py", "autoscaler/gcp.py", "autoscaler/commands.py",
+    "util/accelerators.py", "util/multiprocessing/__init__.py",
+    "util/multiprocessing/pool.py", "util/joblib/__init__.py",
+    "util/joblib/ray_backend.py", "lint/__init__.py", "lint/__main__.py",
+    "lint/framework.py", "lint/checks.py", "lint/concurrency.py",
+    "lint/jscheck.py",
 )
 
 
@@ -268,7 +274,8 @@ def test_runtime_modules_do_not_import_torch():
     none of that imports torch (resolve_device and the feed onto the
     card import it when called).  Nor does the operations plane (a job
     supervisor, the workflow executor, the dashboard actor, the state
-    API, the autoscaler)."""
+    API, the autoscaler), nor the command line, the cluster launcher,
+    the user utilities a pool worker or a joblib batch runs, or rtlint."""
     code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {str(REPO)!r})
@@ -299,6 +306,16 @@ def test_runtime_modules_do_not_import_torch():
         import ray_tpu_torch.dashboard.timeline
         import ray_tpu_torch.autoscaler
         import ray_tpu_torch.autoscaler.command_runner
+        import ray_tpu_torch.scripts.cli
+        import ray_tpu_torch.autoscaler.gcp
+        import ray_tpu_torch.autoscaler.commands
+        import ray_tpu_torch.util.accelerators
+        import ray_tpu_torch.util.multiprocessing
+        import ray_tpu_torch.util.joblib
+        import ray_tpu_torch.lint
+        import ray_tpu_torch.lint.checks
+        import ray_tpu_torch.lint.concurrency
+        import ray_tpu_torch.lint.jscheck
         bad = sorted(m for m in sys.modules if m.split(".")[0] == "torch")
         assert not bad, bad
         print("OK")
@@ -530,6 +547,78 @@ def test_ops_plane_runs_with_jax_and_ray_tpu_blocked(tmp_path):
                           timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK")
+    assert not sorted(p.name for p in marks.iterdir())
+
+
+def test_cli_launcher_and_lint_run_with_jax_and_ray_tpu_blocked(tmp_path):
+    """With `jax` and `ray_tpu` replaced by modules that refuse to
+    import, the command line answers `--help`, dry-runs `up` on a GPU
+    cluster YAML, lints a file, and reads a live port cluster's
+    `status` and `memory`, and a GPU pool's workers run a map; nothing
+    tries to import the blocked packages, in any process."""
+    import yaml
+
+    block = tmp_path / "block"
+    block.mkdir()
+    marks = tmp_path / "marks"
+    marks.mkdir()
+    for name in FORBIDDEN:
+        (block / f"{name}.py").write_text(textwrap.dedent(f"""
+            import os
+            open(os.path.join({str(marks)!r}, "{name}." + str(os.getpid())),
+                 "w").close()
+            raise ImportError("{name} is blocked for this run")
+        """))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("RT_", "RTT_"))}
+    env["PYTHONPATH"] = f"{block}{os.pathsep}{REPO}"
+
+    def run(*args, timeout=120):
+        proc = subprocess.run([sys.executable, *args], cwd=tmp_path, env=env,
+                              capture_output=True, text=True, timeout=timeout)
+        assert proc.returncode == 0, (args, proc.stdout + proc.stderr)
+        return proc.stdout
+
+    cli = ("-m", "ray_tpu_torch.scripts.cli")
+    assert "usage:" in run(*cli, "--help")
+    cfg = tmp_path / "gpu.yaml"
+    cfg.write_text(yaml.safe_dump({
+        "cluster_name": "iso", "min_workers": 1,
+        "provider": {"type": "gcp_gpu", "project": "p",
+                     "zone": "us-central1-a", "machine_type": "a3-highgpu-8g"},
+        "head": {"controller_host": "10.0.0.2"}}))
+    out = run(*cli, "up", str(cfg), "--dry-run")
+    assert out.count("DRY-RUN POST https://compute.googleapis.com/") == 2
+    (tmp_path / "mod.py").write_text("x = 1\n")
+    assert "0 finding(s)" in run("-m", "ray_tpu_torch.lint", "--no-baseline",
+                                 str(tmp_path / "mod.py"))
+    code = textwrap.dedent(f"""
+        import json, os, subprocess, sys
+        import ray_tpu_torch as rt
+        import ray_tpu_torch.api as api
+        from ray_tpu_torch.util.multiprocessing import Pool
+
+        rt.init(num_workers=2, num_cpus=4, num_gpus=1)
+        try:
+            ready = os.path.join(api._session["session_dir"], "ready.json")
+            big = rt.put(b"x" * (1 << 20))
+            for cmd in (["status"], ["memory", "--json"]):
+                out = subprocess.run(
+                    [sys.executable, "-m", "ray_tpu_torch.scripts.cli",
+                     "--address", ready, *cmd], capture_output=True,
+                    text=True, timeout=120, check=True).stdout
+                assert json.loads(out), cmd
+
+            def sq(x):
+                return x * x
+
+            with Pool(2, ray_remote_args={{"num_gpus": 0.5}}) as p:
+                assert p.map(sq, range(6)) == [i * i for i in range(6)]
+        finally:
+            rt.shutdown()
+        print("OK")
+    """)
+    assert run("-c", code, timeout=240).startswith("OK")
     assert not sorted(p.name for p in marks.iterdir())
 
 

@@ -274,9 +274,9 @@ def test_config_names_the_gpu_and_as_trainable_wraps_for_tune():
 
 def test_fractional_gpu_workers_share_the_card(cluster, tmp_path):
     """`resources_per_worker={"GPU": 0.5}` places both workers of a
-    2-worker group on the one GPU of the cluster at once, and neither is
-    pinned apart: both see the same CUDA_VISIBLE_DEVICES (the daemon's
-    own), while a whole-GPU worker is pinned to card "0"."""
+    2-worker group on the one GPU of the cluster at once, both pinned to
+    that card (CUDA_VISIBLE_DEVICES "0"), and a whole-GPU worker after
+    them is pinned to card "0" too."""
     def loop(config):
         ctx = train.get_context()
         with open(os.path.join(config["dir"],
@@ -296,8 +296,7 @@ def test_fractional_gpu_workers_share_the_card(cluster, tmp_path):
     assert result.error is None
     seen = [json.load(open(tmp_path / f"r{r}.json")) for r in (0, 1)]
     assert seen[0]["pid"] != seen[1]["pid"]
-    assert seen[0]["cvd"] == seen[1]["cvd"] == os.environ.get(
-        "CUDA_VISIBLE_DEVICES")
+    assert seen[0]["cvd"] == seen[1]["cvd"] == "0"
     whole = CudaTrainer(
         loop, cuda_config=CPU, train_loop_config={"dir": str(tmp_path)},
         scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
