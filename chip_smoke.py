@@ -44,6 +44,19 @@ exits non-zero:
    KV, and int8 KV quantized from it): the chunk replayed from its CUDA
    graph bit-equal to the eager chunk (token rows, tokens, positions,
    whole pools), twice; both timed, with the capture's ms and bytes.
+6b. perf_plane (decode_full_width): the perf harness's decode rows at
+   the main path's width, before its model is freed: two engines over
+   its params, one after the other (slots 8, chunk 8, block 16, max_len
+   512, prefix cache off, the kernel route then the gather route), each
+   driven by `perf._engine_run` through the main path's 8 prompts with
+   32 new tokens, a warm-up run (every width's capture) and then the
+   measured run: `decode_b8_kernel` and `decode_b8_gather` shaped as
+   `perf.measure_decode_kernel` shapes its rows.  Held: the reference
+   test's decode gates (kernel ticks and no fallback ticks on the kernel
+   row, the reverse on the gather row, equal ticks), the measured run's
+   fused launches = 32 x 8 x its dispatches on the kernel row and none
+   on the gather row, no K5 or K6 of their own, no capture inside a
+   measured run.
 7. tiny parity: a tiny f32 engine on the card gives `generate`'s greedy
    tokens exactly.
 8. serve plane: the driver's Llama-3-8B is freed, the port's runtime
@@ -298,6 +311,25 @@ exits non-zero:
     command's ms, the job's s and steps' ms, the stop's s and MiB, the
     pool's map s and item ms, the timeline's events.  The kernels
     line's K1 / K2 launches add the job's and the pool workers' counts.
+13m. perf_plane: the port's perf harness (`ray_tpu_torch.scripts.perf`)
+    through `perf.main` in this process, the launch counts set to 0
+    before each run and read after it, one line a run (its rows as the
+    harness returned them, wall s, launches): `--engine-trace` (24
+    requests), `--config decode_kernel` (batches 16, 32, 64),
+    `--overload` and `--config obs_overhead` (1,000-task storms, 2
+    rounds), all on `--device cuda` with the tiny model; the runtime
+    matrix (13 rows, 1 round of 0.3 s) with the storm, the core split
+    and busbw; `--config dag_calls` (500 calls); `--config rllib_ppo` at
+    the reference test's small shape, the learner a gang of two shards
+    on the card.  Then `python -m ray_tpu_torch.scripts.perf
+    --engine-trace --engine-requests 12 --json <file>` in a subprocess
+    with no `--device`: the card is its default.  Held: the reference
+    test's gates of each run; no row holds `"error"`; the decode rows'
+    fused launches = L x chunk x (their engines' kernel dispatches + one
+    warm-up chunk each kernel-route engine runs when it is built), none
+    of K5 or K6 of their own in any run; the JSON file equals the
+    subprocess's last line.  The kernels line's fused K5 + K6 launches
+    add this phase's.
 14. K1-K4 timed at the training shape (bf16, causal), and K3 and K4 at
     the second split shape (BH 32, T 4,096, D 128), beside their bounds,
     plain versions and `scaled_dot_product_attention`, with each
@@ -370,7 +402,7 @@ from ray_tpu_torch.ops import fused_cross_entropy, pallas_cross_entropy
 from ray_tpu_torch.ops import xent_pallas as xp
 from ray_tpu_torch.parallel import collectives, moe, pipeline_dag
 from ray_tpu_torch.parallel.ring_attention import plain_attention
-from ray_tpu_torch.scripts import train_gpt2, train_llama_lora
+from ray_tpu_torch.scripts import perf, train_gpt2, train_llama_lora
 from ray_tpu_torch.serve.llm_engine import ChunkGraph, LlamaEngine
 
 HBM_BYTES_PER_S = 3.35e12
@@ -5841,6 +5873,304 @@ def cli_plane(device, smi: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# perf_plane: the port's perf harness on the card
+# ----------------------------------------------------------------------
+# the harness's engine rows: `LlamaConfig.tiny`'s layers, engines of
+# chunk 4
+PERF_TINY_LAYERS = llama.LlamaConfig.tiny().n_layers
+PERF_TINY_CHUNK = 4
+
+
+def perf_launches() -> dict:
+    return {name: getattr(pa, name).launches for name in PAGED}
+
+
+def perf_run(argv: list) -> dict:
+    """`perf.main(argv)` in this process, the launch counts set to 0 just
+    before and read just after: its rows, wall seconds and launches.  A
+    row that holds `"error"` (the envelope records a failing row so) fails
+    the run."""
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = perf.main(argv)
+    out = {"rows": rows, "wall_s": time.perf_counter() - t0,
+           "launches": perf_launches()}
+    bad = [k for k, v in rows.items() if isinstance(v, dict) and "error" in v]
+    if bad:
+        raise AssertionError(f"perf {argv}: rows {bad} hold an error")
+    return out
+
+
+def no_own_k5_k6(launches: dict, what: str) -> None:
+    if launches["paged_kv_append"] or launches["paged_decode_attention"]:
+        raise AssertionError(f"{what} launched K5 / K6 on their own: "
+                             f"{launches}")
+
+
+def engine_trace_gates(rows: dict) -> None:
+    """`tests/test_perf_harness.py`'s engine-trace gates."""
+    smoke = rows["serve_llm_cb_smoke"]
+    ok = (smoke["tokens_per_sec"] > 0 and smoke["ticks"] > 0
+          and rows["sized"]["gather_blocks"]
+          == rows["overprovisioned"]["gather_blocks"] > 0
+          and rows["overprovisioned"]["kv_budget_tokens"]
+          > 5 * rows["sized"]["kv_budget_tokens"]
+          and rows["prefix_on"]["prefix_hit_tokens"] > 0
+          and rows["prefix_on"]["prefill_tokens"]
+          < rows["prefix_off"]["prefill_tokens"]
+          and rows["prefix_off"]["prefix_hit_tokens"] == 0)
+    if not ok:
+        raise AssertionError(f"engine-trace gates failed: {rows}")
+
+
+def decode_row_gates(rows: dict, batches) -> None:
+    """`tests/test_perf_harness.py`'s decode gates, `kernel` for the
+    reference's `pallas`, at each batch."""
+    for b in batches:
+        ker, gat = rows[f"decode_b{b}_kernel"], rows[f"decode_b{b}_gather"]
+        ok = (ker["decode_kernel"] == "kernel" and ker["kernel_ticks"] > 0
+              and ker["fallback_ticks"] == 0
+              and gat["decode_kernel"] == "gather"
+              and gat["kernel_ticks"] == 0 and gat["fallback_ticks"] > 0
+              and ker["tokens_per_sec"] > 0 and gat["tokens_per_sec"] > 0
+              and ker["ticks"] == gat["ticks"] > 0)
+        if not ok:
+            raise AssertionError(f"decode gates failed at B {b}: {ker}, "
+                                 f"{gat}")
+
+
+def decode_kernel_gates(run: dict, batches, *, layers=PERF_TINY_LAYERS,
+                        chunk=PERF_TINY_CHUNK) -> int:
+    """The decode gates, the int8 pool at half the bf16 payload (its
+    scale sidecar priced on int8 only), and the run's fused launches: L
+    x chunk for every kernel-route dispatch (`kernel_ticks` is each
+    kernel engine's whole count, warm-up included; replays counted) and
+    for the one warm-up chunk each kernel-route engine runs when it is
+    built (a kernel row's and the two occupancy engines'); the gather
+    rows launch none.  Returns the fused launches wanted."""
+    rows = run["rows"]
+    decode_row_gates(rows, batches)
+    occ = rows["kv_pool_occupancy"]
+    if not (occ["int8_payload_ratio"] == 0.5
+            and occ["kv_scale_bytes_int8"] > 0 == occ["kv_scale_bytes_fp"]):
+        raise AssertionError(f"occupancy gates failed: {occ}")
+    dispatches = sum(rows[f"decode_b{b}_kernel"]["kernel_ticks"]
+                     for b in batches)
+    want = layers * chunk * (dispatches + len(batches) + 2)
+    got = run["launches"]
+    no_own_k5_k6(got, "the decode rows")
+    if got["paged_append_decode_attention"] != want:
+        raise AssertionError(
+            f"decode rows launched {got['paged_append_decode_attention']} "
+            f"fused ops, want {want} = {layers} x {chunk} x ({dispatches} "
+            f"dispatches + {len(batches) + 2} engines' warm-up chunks)")
+    return want
+
+
+def overload_gates(rows: dict) -> None:
+    """`tests/test_perf_harness.py`'s overload gates."""
+    storm, ttft = rows["overload_storm"], rows["overload_ttft"]
+    ok = (storm["offered"] == storm["admitted"] + storm["rejected"]
+          + storm["shed"]
+          and storm["rejected"] > 0 and storm["shed"] > 0
+          and storm["shed"] == storm["shed_expired"]
+          + storm["shed_predicted"]
+          and storm["prefill_calls"] == storm["admitted"]
+          and storm["queue_peak"] <= storm["queue_cap"]
+          and storm["blocks_free_delta"] == 0
+          and storm["admitted_tok_s"] > 0
+          and 0 < ttft["ttft_p50_ms"] <= ttft["ttft_p99_ms"]
+          and ttft["concurrency"] == 8.0)
+    if not ok:
+        raise AssertionError(f"overload gates failed: {rows}")
+
+
+def perf_decode_full_width(cfg, params, prompts, device, *, slots=8,
+                           chunk=8, block_size=16, max_len=512,
+                           n_new=32) -> dict:
+    """The harness's decode rows at the main path's width: two engines
+    over the main path's params, one after the other, the kernel route
+    then the gather route, each through `perf._engine_run` (a warm-up run
+    of the same prompts, which captures every width's graph, then the
+    measured run, the launch counts set to 0 between them)."""
+    rows, launches = {}, {}
+    for mode in ("kernel", "gather"):
+        name = f"decode_b{len(prompts)}_{mode}"
+        eng = LlamaEngine(cfg, params, slots=slots, chunk=chunk,
+                          block_size=block_size, max_len=max_len,
+                          prefix_cache=False, decode_kernel=mode,
+                          device=device)
+        try:
+            perf._engine_run(eng, prompts, n_new)
+            widths = set(eng._chunk_cache)
+            reset_counts()
+            row = perf._engine_run(eng, prompts, n_new)
+            launches[name] = perf_launches()
+            s = eng.stats()
+            row["decode_kernel"] = s["decode_kernel"]
+            row["kernel_ticks"] = s["decode_kernel_dispatch_total"]
+            row["fallback_ticks"] = s["decode_fallback_dispatch_total"]
+            row["widths_captured_in_run"] = sorted(
+                set(eng._chunk_cache) - widths)
+            row["chunk_graphs"] = chunk_graphs(eng)
+        finally:
+            eng.shutdown()
+        rows[name] = row
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    decode_row_gates(rows, (len(prompts),))
+    ker = rows[f"decode_b{len(prompts)}_kernel"]
+    want = cfg.n_layers * chunk * ker["ticks"]
+    for name, got in launches.items():
+        no_own_k5_k6(got, name)
+        fused = want if name.endswith("_kernel") else 0
+        if got["paged_append_decode_attention"] != fused:
+            raise AssertionError(
+                f"{name}: {got['paged_append_decode_attention']} fused "
+                f"launches in the measured run, want {fused} "
+                f"({cfg.n_layers} x {chunk} x {ker['ticks']} dispatches "
+                f"on the kernel row, none on the gather row)")
+    captured = {n: r["widths_captured_in_run"] for n, r in rows.items()
+                if r["widths_captured_in_run"]}
+    if captured:
+        raise AssertionError(f"a measured run captured a graph: {captured}")
+    on_graphs(ker["chunk_graphs"], "decode_b8_kernel")
+    for r in rows.values():
+        if r["prefill_tokens"] != sum(len(p) for p in prompts):
+            raise AssertionError(f"a row prefilled {r['prefill_tokens']} "
+                                 "tokens, not its prompts'")
+    return {"phase": "perf_plane", "run": "decode_full_width",
+            "model": "llama3_8b", "n_layers": cfg.n_layers, "dim": cfg.dim,
+            "slots": slots, "chunk": chunk, "block_size": block_size,
+            "requests": len(prompts), "max_new_tokens": n_new,
+            "rows": rows, "launches": launches,
+            "kernel_x_gather_tokens_per_sec":
+                ker["tokens_per_sec"]
+                / rows[f"decode_b{len(prompts)}_gather"]["tokens_per_sec"]}
+
+
+def perf_cli_default(timeout: float = 300.0) -> dict:
+    """`python -m ray_tpu_torch.scripts.perf --engine-trace
+    --engine-requests 12 --json <file>` in a subprocess with no
+    `--device`: the rows come from the card, the file equals the printed
+    last line, and the rows pass the engine-trace gates."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "perf.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ray_tpu_torch.scripts.perf",
+             "--engine-trace", "--engine-requests", "12", "--json", out],
+            cwd=repo, capture_output=True, text=True, timeout=timeout)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"perf CLI exited {proc.returncode}: "
+                                 f"{proc.stderr[-4000:]}")
+        printed = json.loads(proc.stdout.strip().splitlines()[-1])
+        with open(out) as f:
+            saved = json.load(f)
+    if saved != printed:
+        raise AssertionError("the --json file differs from the last line")
+    engine_trace_gates(saved)
+    return {"rows": saved, "wall_s": wall, "json_equals_last_line": True}
+
+
+def perf_plane(device, smi: str) -> dict:
+    """The perf harness's runs on the card and the runtime (13m); emits a
+    line a run and returns the phase's fused launches and wall s."""
+    t_phase = time.perf_counter()
+    dev = ["--device", device.type]
+    fused = 0
+
+    def line(name, argv, run, **extra):
+        emit({"phase": "perf_plane", "run": name, "argv": argv, **run,
+              **extra})
+
+    argv = ["--engine-trace", *dev]
+    run = perf_run(argv)
+    engine_trace_gates(run["rows"])
+    no_own_k5_k6(run["launches"], "the engine-trace rows")
+    if run["launches"]["paged_append_decode_attention"] <= 0:
+        raise AssertionError("the engine-trace rows launched no fused op")
+    fused += run["launches"]["paged_append_decode_attention"]
+    line("engine_trace", argv, run)
+
+    batches = (16, 32, 64)
+    argv = ["--config", "decode_kernel",
+            "--decode-batches", ",".join(map(str, batches)), *dev]
+    run = perf_run(argv)
+    want = decode_kernel_gates(run, batches)
+    fused += run["launches"]["paged_append_decode_attention"]
+    line("decode_kernel", argv, run, fused_launches_want=want)
+
+    argv = ["--overload", *dev]
+    run = perf_run(argv)
+    overload_gates(run["rows"])
+    no_own_k5_k6(run["launches"], "the overload rows")
+    fused += run["launches"]["paged_append_decode_attention"]
+    line("overload", argv, run)
+
+    argv = ["--config", "obs_overhead", "--obs-storm-n", "1000",
+            "--obs-rounds", "2", *dev]
+    run = perf_run(argv)
+    rows = run["rows"]
+    for k in ("obs_overhead", "serve_obs_overhead"):
+        if not (rows[k]["instrumented"] == 1.0
+                and -50.0 < rows[k]["overhead_pct"] < 50.0):
+            raise AssertionError(f"obs_overhead gates failed: {rows[k]}")
+    no_own_k5_k6(run["launches"], "the serve obs rows")
+    fused += run["launches"]["paged_append_decode_attention"]
+    line("obs_overhead", argv, run)
+    torch.cuda.empty_cache()
+
+    argv = ["--rounds", "1", "--round-sec", "0.3", "--storm",
+            "--core-split", "--busbw"]
+    run = perf_run(argv)
+    rows = run["rows"]
+    ops = {k: v["ops_per_s"] for k, v in rows.items() if "ops_per_s" in v}
+    split = rows["core_split"]
+    # the 13 rows of `build_matrix` and busbw
+    if not (len(ops) == 14 and "allreduce_busbw_gbps" in ops
+            and all(v > 0 for v in ops.values())
+            and split["bottleneck"] in ("driver", "noded", "worker_pool")
+            and split["noded_us_per_task"] > 0
+            and split["worker_us_per_task"] > 0
+            and rows["task_storm"]["tasks_per_s"] > 0):
+        raise AssertionError(f"runtime matrix gates failed: {rows}")
+    line("runtime_matrix", argv, run)
+
+    argv = ["--config", "dag_calls", "--dag-calls-n", "500"]
+    run = perf_run(argv)
+    row = run["rows"]["dag_calls"]
+    if not 0 < row["dag_us_per_call"] < row["actor_us_per_call"]:
+        raise AssertionError(f"dag_calls gates failed: {row}")
+    line("dag_calls", argv, run)
+
+    argv = ["--config", "rllib_ppo", "--rllib-runners", "2",
+            "--rllib-envs-per-runner", "4", "--rllib-rollout-len", "16",
+            "--rllib-iters", "2", *dev]
+    run = perf_run(argv)
+    row = run["rows"]["rllib_ppo"]
+    if not (row["accounting_exact"] == 1.0
+            and row["env_steps"] == row["ledger_env_steps"] > 0
+            and row["gang_devices"] == 2.0
+            and row["env_steps_per_s"] > 0 and row["updates_per_s"] > 0):
+        raise AssertionError(f"rllib_ppo gates failed: {row}")
+    line("rllib_ppo", argv, run)
+    torch.cuda.empty_cache()
+
+    cli_run = perf_cli_default()
+    emit({"phase": "perf_plane", "run": "cli_default_device",
+          "argv": ["--engine-trace", "--engine-requests", "12", "--json"],
+          **cli_run})
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "perf_plane", "run": "summary", "wall_s": wall,
+          "fused_launches": fused, "nvidia_smi": smi})
+    return {"fused_launches": fused, "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6023,6 +6353,10 @@ def main() -> int:
                             "pos": state["pos"].tolist()}})
     # the chunk as the engine replays it, against its eager chunk
     emit({**graph_vs_eager(cfg, params, state, device), "nvidia_smi": smi})
+    # the perf harness's decode rows at the main path's width, on its model
+    full_width = perf_decode_full_width(cfg, params, served["prompts"],
+                                        device)
+    emit({**full_width, "nvidia_smi": smi})
     # the replica loads its own Llama-3-8B: free the driver's copy first
     del params, state, app_case, attn_case, mid
     gc.collect()
@@ -6116,6 +6450,10 @@ def main() -> int:
     cli_run = cli_plane(device, smi)
     emit(cli_run)
     torch.cuda.empty_cache()
+    # the port's perf harness: the engine, overload and decode rows on the
+    # card, the runtime rows, and its command line's default device
+    perf_runs = perf_plane(device, smi)
+    torch.cuda.empty_cache()
 
     case = flash_case(32 * 12, 1024, 64, torch.bfloat16, True, device)
     flash_t, sdpa_bwd = time_flash(case, H=12)
@@ -6185,6 +6523,12 @@ def main() -> int:
         launches[name] += (ops["train"]["launches"][name]
                            + cli_run["job"]["launches"][name]
                            + cli_run["pool"]["launches"][name])
+    # perf_plane's fused append + attention launches: its tiny engines' and
+    # the measured full-width kernel row's
+    launches["paged_append_decode_attention"] += (
+        perf_runs["fused_launches"]
+        + full_width["launches"]["decode_b8_kernel"][
+            "paged_append_decode_attention"])
 
     errs = {"paged_kv_append": 0.0, "paged_decode_attention": attn_err,
             "paged_append_decode_attention": fused_errs["mid_decode"]["bf16"],

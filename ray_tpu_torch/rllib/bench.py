@@ -6,7 +6,7 @@ object-plane references into the learner, with async sample/train
 overlap.  It deliberately stresses the n:n small-envelope actor-call
 path on top of the sharded owner plane.  The JAX package runs its
 learner gang over XLA's forced host devices; here the learner sits on
-`device` (the card by default), and on one card the gang is 1.
+`device` (the card by default); its default gang is 1.
 """
 
 from __future__ import annotations

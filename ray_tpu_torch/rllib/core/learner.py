@@ -35,8 +35,9 @@ loss with a whole-batch statistic (MARWIL's advantage normaliser, the
 root mean square over the minibatch) carries a `batch_stats(module,
 params, batch)` attribute: the gang computes it once over the whole
 minibatch, without autograd, and hands it to every shard as batch
-entries, as the reference's one program sees the whole batch.  On one
-card the gang is 1.
+entries, as the reference's one program sees the whole batch.  A gang
+wider than the cards visible deals its shards to them round-robin: on
+one card a gang of 2 is two shards taken one after the other there.
 
 DDP learners (`num_learners >= 1`) are the reference's CPU fleet: its
 `_RemoteLearner` forces `JAX_PLATFORMS=cpu`, so the port's run with
@@ -61,9 +62,11 @@ logger = logging.getLogger(__name__)
 
 
 def make_data_mesh(num_devices: int, device=None) -> List[Any]:
-    """The learner gang's devices: the first `num_devices` devices of
-    `device`'s kind (default: the card).  On the CPU, `num_devices`
-    entries of `cpu` stand in for XLA's forced host devices."""
+    """The learner gang's devices: `num_devices` shards over the cards
+    visible, dealt round-robin, so a gang wider than the cards puts
+    several shards on a card (on one card, every shard) and stays that
+    wide (default: the card).  On the CPU, `num_devices` entries of
+    `cpu` stand in for XLA's forced host devices."""
     import torch
 
     from ray_tpu_torch import resolve_device
@@ -72,12 +75,7 @@ def make_data_mesh(num_devices: int, device=None) -> List[Any]:
     if kind == "cpu":
         return [torch.device("cpu")] * num_devices
     visible = torch.cuda.device_count()
-    if num_devices > visible:
-        raise ValueError(
-            f"gang of {num_devices} learner devices requested but only "
-            f"{visible} visible"
-        )
-    return [torch.device(kind, i) for i in range(num_devices)]
+    return [torch.device(kind, i % visible) for i in range(num_devices)]
 
 
 @contextlib.contextmanager

@@ -299,6 +299,11 @@ ADAPTED = {
     "lint/framework.py": "test_torch_lint.py::"
                          "test_port_tree_is_clean_against_its_baseline",
     "lint/checks.py": "test_torch_lint.py::test_rt007_capture_positive",
+    # the perf harness: no JAX, an explicit device, the decode route's
+    # name, the elastic row on CudaTrainer
+    # (test_perf_outside_its_adaptations_is_a_copy below)
+    "scripts/perf.py": "test_torch_perf_harness.py::"
+                       "test_engine_and_decode_rows_match_jax",
 }
 
 
@@ -781,3 +786,194 @@ def test_lint_checks_outside_rt007_are_the_originals():
     assert (port[:port.index("class HostEffectInCapture(Check):")]
             == orig[:orig.index("class HostEffectInJit(Check):")])
     assert port[port.index(nxt):] == orig[orig.index(nxt):]
+
+
+# the perf harness's adaptations as (port text, the rewritten original's
+# text, times it occurs); undone, the module is the original.  Its env
+# knobs (`RTT_OBJECT_INTEGRITY`, `RTT_DISK_CHAOS`, `RTT_METRICS_ENABLED`)
+# are the rewrite's own
+_PERF_ADAPTATIONS = {
+    # no JAX: the port's seeded init on the device, no PRNG key
+    "no_jax": (
+        ("    params = llama.init_params(cfg, seed, device=device)\n",
+         "    params = llama.init_params(cfg, jax.random.PRNGKey(seed))\n",
+         4),
+        ('    """\n    from ray_tpu_torch.models import llama\n',
+         '    """\n    import jax\n\n    from ray_tpu_torch.models import llama\n',
+         2),
+        ('    """\n    from ray_tpu_torch import exceptions as exc\n',
+         '    """\n    import jax\n\n    from ray_tpu_torch import exceptions '
+         'as exc\n', 1),
+        (_lines("    import statistics as _stats",
+                "",
+                "    from ray_tpu_torch.metrics import metric_defs as _md",
+                "    from ray_tpu_torch.models import llama"),
+         _lines("    import statistics as _stats",
+                "",
+                "    import jax",
+                "",
+                "    from ray_tpu_torch.metrics import metric_defs as _md",
+                "    from ray_tpu_torch.models import llama"), 1),
+    ),
+    # an explicit device: the engine rows and rllib_ppo's learner on
+    # `--device`, None meaning the card
+    "device": (
+        ("# serve LLM engine: paged-KV tick trace + CB smoke (tiny model)",
+         "# serve LLM engine: paged-KV tick trace + CB smoke (CPU tiny "
+         "model)", 1),
+        (_lines("                         seed: int = 0, device=None",
+                "                         ) -> Dict[str, Dict[str, float]]:",
+                '    """Paged-KV acceptance rows on the tiny model (the '
+                "per-chip",
+                "    claims, measured without the serve stack in the way), "
+                "its engines",
+                "    on `device` (None: the card):"),
+         _lines("                         seed: int = 0) -> Dict[str, "
+                "Dict[str, float]]:",
+                '    """Paged-KV acceptance rows on the CPU tiny model (the '
+                "per-chip",
+                "    claims, measured without the serve stack in the way):"),
+         1),
+        ("prefix_cache=False, device=device, **kw)",
+         "prefix_cache=False, **kw)", 1),
+        ("max_len=48, prefix_cache=pc, device=device)",
+         "max_len=48, prefix_cache=pc)", 1),
+        ("                      max_len=48, device=device)\n",
+         "                      max_len=48)\n", 2),
+        (_lines("                          seed: int = 0, device=None",
+                "                          ) -> Dict[str, Dict[str, "
+                "float]]:"),
+         _lines("                          seed: int = 0) -> Dict[str, "
+                "Dict[str, float]]:"), 1),
+        (_lines("    The engines run on `device` (None: the card).  On the "
+                "CPU the",
+                "    kernel route dispatches the kernels' plain PyTorch "
+                "versions, so CPU",
+                "    tok/s compares two eager routes — the rows are "
+                "structural evidence",
+                "    (kernel route dispatched, gather plane dead), not a "
+                "speed claim.",
+                "    On the card the kernel route launches the fused K5 + "
+                "K6 op from",
+                "    the chunk's CUDA graph, and the same rows are the perf "
+                "claim."),
+         _lines("    Off-TPU the kernel runs in Pallas interpret mode, so "
+                "CPU tok/s",
+                "    compares an interpreter against compiled XLA — the rows "
+                "are",
+                "    structural evidence (kernel dispatched, gather plane "
+                "dead), not a",
+                "    speed claim.  On TPU the same rows are the perf "
+                "claim."), 1),
+        (_lines("                              prefix_cache=False, "
+                "decode_kernel=mode,",
+                "                              device=device)"),
+         _lines("                              prefix_cache=False, "
+                "decode_kernel=mode)"), 1),
+        ("prefix_cache=False, kv_dtype=kvd, device=device)",
+         "prefix_cache=False, kv_dtype=kvd)", 1),
+        (_lines("def measure_overload(*, overflow: int = 12, seed: int = 0, "
+                "device=None",
+                "                     ) -> Dict[str, Dict[str, float]]:",
+                '    """Overload-plane acceptance rows on the tiny engine, '
+                "on `device`",
+                "    (None: the card) (admission control + deadline "
+                "shedding, no serve",
+                "    stack in the way):"),
+         _lines("def measure_overload(*, overflow: int = 12, seed: int = 0",
+                "                     ) -> Dict[str, Dict[str, float]]:",
+                '    """Overload-plane acceptance rows on the CPU tiny engine '
+                "(admission",
+                "    control + deadline shedding, no serve stack in the "
+                "way):"), 1),
+        ("max_queued=queue_cap, device=device)", "max_queued=queue_cap)", 1),
+        (_lines("                               rounds: int = 6, seed: int "
+                "= 0,",
+                "                               device=None,"),
+         _lines("                               rounds: int = 6, seed: int "
+                "= 0,"), 1),
+        (_lines("    batching hot path (tiny model on `device`, None: the "
+                "card;",
+                "    in-process engine, no cluster)."),
+         _lines("    batching hot path (CPU tiny model, in-process engine, "
+                "no cluster)."), 1),
+        (_lines('                        "prefix reuse, CB smoke (tiny model '
+                'on --device; "',
+                '                        "no cluster)")'),
+         _lines('                        "prefix reuse, CB smoke (CPU tiny '
+                'model; no "',
+                '                        "cluster)")'), 1),
+        (_lines('    p.add_argument("--device", default=None,',
+                '                   help="where the engine rows '
+                '(--engine-trace, "',
+                '                        "--overload, decode_kernel, '
+                "obs_overhead's serve \"",
+                '                        "half) and rllib_ppo\'s learner '
+                "run: 'cuda' \"",
+                '                        "(default: the card, raising '
+                "without one) or \"",
+                '                        "\'cpu\'; the runtime rows use no '
+                'device")'), "", 1),
+        (_lines("            compare_sync=False,",
+                "            device=args.device,"),
+         _lines("            compare_sync=False,"), 1),
+        (_lines("        results = measure_decode_kernel(batches=batches,",
+                "                                        device=args.device)"),
+         _lines("        results = measure_decode_kernel(batches=batches)"),
+         1),
+        (_lines("            requests=args.obs_serve_requests, "
+                "rounds=args.obs_rounds,",
+                "            device=args.device,"),
+         _lines("            requests=args.obs_serve_requests, "
+                "rounds=args.obs_rounds,"), 1),
+        ("# no cluster: the engine is driven in-process on --device",
+         "# no cluster: the engine is driven in-process on the CPU backend",
+         1),
+        ("requests=args.engine_requests, device=args.device",
+         "requests=args.engine_requests", 1),
+        ("overflow=args.overload_overflow, device=args.device",
+         "overflow=args.overload_overflow", 1),
+    ),
+    # the decode route is the port engine's "kernel", not "pallas"
+    "route_name": (
+        ("`decode_b{B}_{kernel,gather}`", "`decode_b{B}_{pallas,gather}`", 1),
+        ('for mode in ("kernel", "gather"):',
+         'for mode in ("pallas", "gather"):', 1),
+        (_lines('                        "rllib_ppo: EnvRunner fleet -> '
+                'learner gang "',
+                '                        "on --device with async overlap, '
+                'env-steps/s + "'),
+         _lines('                        "rllib_ppo: EnvRunner fleet -> pjit '
+                'learner "',
+                '                        "gang with async overlap, '
+                'env-steps/s + "'), 1),
+    ),
+    # elastic recovery on the port's trainer; its loop imports no torch
+    "elastic": (
+        ("    (no torch) so the measured MTTR",
+         "    (no jax) so the measured MTTR", 1),
+        ("CudaConfig, CudaTrainer, FailureConfig, RunConfig, ScalingConfig,",
+         "FailureConfig, JaxConfig, JaxTrainer, RunConfig, ScalingConfig,",
+         1),
+        ("    trainer = CudaTrainer(", "    trainer = JaxTrainer(", 1),
+        ('cuda_config=CudaConfig(distributed_mode="none"),',
+         'jax_config=JaxConfig(distributed_mode="none"),', 1),
+    ),
+}
+
+
+def test_perf_outside_its_adaptations_is_a_copy():
+    """`scripts/perf.py` changes only what `_PERF_ADAPTATIONS` lists: no
+    JAX (the port's seeded `init_params`), an explicit device for the
+    engine rows and the learner (`--device`, None meaning the card),
+    the decode route's name (`kernel` for `pallas`) and the elastic row
+    on `CudaTrainer`.  Each listed port text occurs as often as listed,
+    and with each put back as the original's, the module is the
+    original after the rewrite (which also renames its env knobs)."""
+    port = (REPO / "ray_tpu_torch" / "scripts" / "perf.py").read_text()
+    for what, pairs in _PERF_ADAPTATIONS.items():
+        for new, old, times in pairs:
+            assert port.count(new) == times, (what, new)
+            port = port.replace(new, old)
+    orig = (REPO / "ray_tpu" / "scripts" / "perf.py").read_text()
+    assert port == rewrite(orig, "scripts/perf.py")

@@ -72,7 +72,7 @@ RUNTIME_MODULES = (
     "util/multiprocessing/pool.py", "util/joblib/__init__.py",
     "util/joblib/ray_backend.py", "lint/__init__.py", "lint/__main__.py",
     "lint/framework.py", "lint/checks.py", "lint/concurrency.py",
-    "lint/jscheck.py",
+    "lint/jscheck.py", "scripts/perf.py",
 )
 
 
@@ -275,7 +275,8 @@ def test_runtime_modules_do_not_import_torch():
     card import it when called).  Nor does the operations plane (a job
     supervisor, the workflow executor, the dashboard actor, the state
     API, the autoscaler), nor the command line, the cluster launcher,
-    the user utilities a pool worker or a joblib batch runs, or rtlint."""
+    the user utilities a pool worker or a joblib batch runs, rtlint,
+    or the perf harness (its engine rows import torch when they run)."""
     code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {str(REPO)!r})
@@ -316,6 +317,7 @@ def test_runtime_modules_do_not_import_torch():
         import ray_tpu_torch.lint.checks
         import ray_tpu_torch.lint.concurrency
         import ray_tpu_torch.lint.jscheck
+        import ray_tpu_torch.scripts.perf
         bad = sorted(m for m in sys.modules if m.split(".")[0] == "torch")
         assert not bad, bad
         print("OK")
@@ -619,6 +621,44 @@ def test_cli_launcher_and_lint_run_with_jax_and_ray_tpu_blocked(tmp_path):
         print("OK")
     """)
     assert run("-c", code, timeout=240).startswith("OK")
+    assert not sorted(p.name for p in marks.iterdir())
+
+
+def test_perf_harness_runs_with_jax_and_ray_tpu_blocked(tmp_path):
+    """With `jax` and `ray_tpu` replaced by modules that refuse to
+    import, the perf harness answers `--help`, measures a runtime row
+    (a port cluster's daemon and workers) and the decode rows on the
+    CPU; nothing tries to import the blocked packages, in any process."""
+    block = tmp_path / "block"
+    block.mkdir()
+    marks = tmp_path / "marks"
+    marks.mkdir()
+    for name in FORBIDDEN:
+        (block / f"{name}.py").write_text(textwrap.dedent(f"""
+            import os
+            open(os.path.join({str(marks)!r}, "{name}." + str(os.getpid())),
+                 "w").close()
+            raise ImportError("{name} is blocked for this run")
+        """))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("RT_", "RTT_"))}
+    env["PYTHONPATH"] = f"{block}{os.pathsep}{REPO}"
+
+    def run(*args):
+        proc = subprocess.run(
+            [sys.executable, "-m", "ray_tpu_torch.scripts.perf", *args],
+            cwd=tmp_path, env=env, capture_output=True, text=True,
+            timeout=180)
+        assert proc.returncode == 0, (args, proc.stdout + proc.stderr)
+        return proc.stdout
+
+    assert "--device" in run("--help")
+    rows = run("--filter", "client tasks sync", "--rounds", "1",
+               "--round-sec", "0.2", "--num-workers", "2")
+    assert '"single client tasks sync"' in rows.splitlines()[-1]
+    rows = run("--config", "decode_kernel", "--decode-batches", "2",
+               "--device", "cpu")
+    assert '"decode_b2_kernel"' in rows.splitlines()[-1]
     assert not sorted(p.name for p in marks.iterdir())
 
 
