@@ -112,8 +112,9 @@ exits non-zero:
     128, T 1,024, D 128) beside SDPA and their bounds.
 13b. train plane: `CudaTrainer(dp_train_loop).fit()` in collective mode
     with two workers sharing the card (`GPU` 0.5, `CPU` 1 each), each
-    running the LoRA step of 13 on its 4 x 1,024 half of the global
-    batch, the adapters' gradients (2,883,585 f32 values: the ring path
+    running the LoRA step of 13, at 4 of its 22 layers, on its 4 x
+    1,024 half of the global batch, the adapters' gradients (524,289
+    f32 values: the ring path
     of the object plane) mean-allreduced through
     `cuda_utils.sync_gradients` before every AdamW update, rank 0
     checkpointing every step: 4 steps, then a second `fit` resumed from
@@ -121,7 +122,7 @@ exits non-zero:
     bit-equal after every step; the first synced gradient against one
     process's gradient on the whole batch (computed here after the
     trainer shut down; relative norm 3e-2); step-0 loss within 0.5 of
-    ln 32,000 and falling; 44 K1 and 22 K2 launches a step in each
+    ln 32,000 and falling; 8 K1 and 4 K2 launches a step in each
     worker (each worker's counts set to 0 before a step and read after
     it), no plain dispatch; the resumed workers start at the
     checkpoint's step with its adapters.  Recorded: the global step ms
@@ -147,12 +148,12 @@ exits non-zero:
     `CudaTrainer(ingest_train_loop, datasets={"train": ds})` with two
     collective-mode workers sharing the card (`GPU` 0.5, `CPU` 1 each),
     each taking 4 rows a step through `iter_cuda_batches` at the LoRA
-    bench's full size for 4 steps.  Held: every batch on the card, int32
+    bench's width at 4 of its 22 layers for 4 steps.  Held: every batch on the card, int32
     [4, 1,025], its digest recomputed there; every (row_id, digest) pair
     against the driver's own corpus and no row_id twice; both ranks'
     adapters bit-equal after every step; the step-0 synced gradient
     within relative norm 3e-2 of one process's on the same 8 rows; the
-    step-0 loss within 0.5 of ln V + s^2 / 2; 44 K1 and 22 K2 a step a
+    step-0 loss within 0.5 of ln V + s^2 / 2; 8 K1 and 4 K2 a step a
     worker, no plain dispatch.  Recorded: step ms, tokens/s, the ingest
     wait (ms inside `next()`, steady median / max and its share of the
     step), `first_batch_s` (the shuffle's barrier), the dataset's MB and
@@ -372,6 +373,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -403,7 +405,7 @@ from ray_tpu_torch.ops import xent_pallas as xp
 from ray_tpu_torch.parallel import collectives, moe, pipeline_dag
 from ray_tpu_torch.parallel.ring_attention import plain_attention
 from ray_tpu_torch.scripts import perf, train_gpt2, train_llama_lora
-from ray_tpu_torch.serve.llm_engine import ChunkGraph, LlamaEngine
+from ray_tpu_torch.serve.llm_engine import EngineGraph, LlamaEngine, _next_pow2
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -491,8 +493,89 @@ XENT_TOL = {"f32": {"rtol": 1e-4, "atol": 1e-5, "rel": 1e-5},
 XENT_MAIN_TOL = {"loss": 1e-5, "dx": 2e-3, "dw": 5e-3}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the script's elapsed s."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
+        note_processes(obj["phase"])
     print(json.dumps(obj), flush=True)
+
+
+# ----------------------------------------------------------------------
+# the processes the run starts
+# ----------------------------------------------------------------------
+# every process the script starts, and every process those start,
+# inherits this variable (a daemon in a session of its own too), so
+# /proc finds them all whoever their parent is now
+RUN_TAG = "CHIP_SMOKE_RUN"
+# pid -> [its command line, the first and the last phase line that saw
+# it alive]
+_SEEN: dict = {}
+
+
+def started_processes() -> dict:
+    """pid -> command line of every live process that carries this run's
+    tag, this one apart.  Zombies carry no environment and are left to
+    their parents."""
+    tag = f"{RUN_TAG}={os.environ.get(RUN_TAG, '')}".encode()
+    if tag.endswith(b"="):
+        return {}
+    found = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit() or int(name) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{name}/environ", "rb") as f:
+                if tag not in f.read().split(b"\0"):
+                    continue
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:  # gone, or not ours to read
+            continue
+        found[int(name)] = cmd.strip()[:300]
+    return found
+
+
+def note_processes(phase: str) -> None:
+    """Remember the first and the last phase line that saw each live
+    started process."""
+    for pid, cmd in started_processes().items():
+        _SEEN.setdefault(pid, [cmd, phase, phase])[2] = phase
+
+
+def stop_processes(grace_s: float = 15.0) -> dict:
+    """Stop every process the run started that is still alive: wait
+    `grace_s` for it to end on its own (a shut-down cluster's daemons
+    exit within seconds), then SIGTERM, then SIGKILL.  Returns what was
+    found and stopped; raises if one outlives SIGKILL."""
+    left = started_processes()
+    deadline = time.monotonic() + grace_s
+    while left and time.monotonic() < deadline:
+        time.sleep(0.25)
+        left = started_processes()
+    report = {"left_after_grace": {
+        str(p): {"cmd": c, "seen": _SEEN.get(p, [c, None, None])[1:]}
+        for p, c in left.items()}, "terminated": [], "killed": []}
+    for sig, key, wait_s in ((signal.SIGTERM, "terminated", 5.0),
+                             (signal.SIGKILL, "killed", 5.0)):
+        if not left:
+            break
+        for pid in left:
+            try:
+                os.kill(pid, sig)
+                report[key].append(pid)
+            except OSError:
+                pass
+        deadline = time.monotonic() + wait_s
+        while left and time.monotonic() < deadline:
+            time.sleep(0.1)
+            left = started_processes()
+    if left:
+        raise AssertionError(f"processes outlived SIGKILL: {left}")
+    return report
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -991,7 +1074,7 @@ def chunk_graphs(engine: LlamaEngine) -> dict:
     return {
         "chunk_cache_size": st["chunk_cache_size"],
         "chunk_cache_evictions": st["chunk_cache_evictions"],
-        "widths": {str(W): {"graph": isinstance(s, ChunkGraph)
+        "widths": {str(W): {"graph": isinstance(s, EngineGraph)
                             and s.captured,
                             "capture_ms": getattr(s, "capture_ms", None),
                             "capture_phases_ms":
@@ -1003,6 +1086,40 @@ def chunk_graphs(engine: LlamaEngine) -> dict:
                             "replays": getattr(s, "replays", 0)}
                    for W, s in engine._chunk_cache.items()},
     }
+
+
+def prefill_families(engine: LlamaEngine) -> dict:
+    """The engine's prefill program families (full prefill by bucket,
+    suffix prefill by (suffix bucket, prefix blocks), block write by
+    (rows in, blocks)): per key, whether it is a captured CUDA graph,
+    the capture's ms and reserved bytes, and its replays; with the
+    engine's prefill calls and the families' total capture cost."""
+    def entries(cache):
+        return {str(k): {"graph": isinstance(g, EngineGraph) and g.captured,
+                         "capture_ms": getattr(g, "capture_ms", None),
+                         "graph_bytes": getattr(g, "graph_bytes", None),
+                         "replays": getattr(g, "replays", 0)}
+                for k, g in cache.items()}
+
+    st = engine.stats()
+    return {"prefill": entries(engine._prefill_cache),
+            "suffix": entries(engine._suffix_cache),
+            "write": entries(engine._write_cache),
+            "prefill_calls": st["prefill_calls"],
+            "capture_ms": st["prefill_capture_ms"],
+            "graph_bytes": st["prefill_graph_bytes"],
+            "replays": st["prefill_replays"]}
+
+
+def on_prefill_graphs(fams: dict, what: str) -> None:
+    """Every prefill-family entry of the run is a captured graph: the
+    card's kernel route never prefills eagerly past an entry's first
+    call."""
+    entries = [e for k in ("prefill", "suffix", "write")
+               for e in fams[k].values()]
+    if not entries or not all(e["graph"] for e in entries):
+        raise AssertionError(f"{what} did not run on captured prefill "
+                             f"graphs: {fams}")
 
 
 def tick_phases(stats: dict, after: int, upto: int) -> dict:
@@ -1136,6 +1253,7 @@ def run_main_path(cfg, params, device, *, slots=8, chunk=8, block_size=16,
     try:
         run = serve(engine, prompts, max_new_tokens)
         graphs = chunk_graphs(engine)
+        prefills = prefill_families(engine)
     finally:
         engine.shutdown()
     st = run["stats"]
@@ -1144,6 +1262,10 @@ def run_main_path(cfg, params, device, *, slots=8, chunk=8, block_size=16,
         raise AssertionError(f"decode_kernel resolved to "
                              f"{st['decode_kernel']!r}")
     on_graphs(graphs, "the main path")
+    on_prefill_graphs(prefills, "the main path")
+    if prefills["prefill_calls"] != len(prompts):
+        raise AssertionError(f"{prefills['prefill_calls']} prefill calls "
+                             f"for {len(prompts)} prompts")
     if run["dispatches"] <= 0 or st["decode_fallback_dispatch_total"] != 0:
         raise AssertionError("the run did not take the kernel route only")
     # one fused launch a layer a decode step, and no K5 or K6 of its own
@@ -1176,6 +1298,8 @@ def run_main_path(cfg, params, device, *, slots=8, chunk=8, block_size=16,
             "launches": run["launches"],
             "chunk_graphs": graphs,
             "throwaway_engine_chunk_graphs": first_graphs,
+            "prefill_graphs": prefills,
+            "prefill_calls": st["prefill_calls"],
             "tick_phases": tick_phases(st, 0, st["ticks"]),
             "prefix_hit_tokens": st["prefix_hit_tokens"],
             "wall_s": run["wall_s"],
@@ -1186,13 +1310,359 @@ def run_main_path(cfg, params, device, *, slots=8, chunk=8, block_size=16,
     }
 
 
-def tiny_parity(device) -> dict:
-    """A tiny f32 engine (kernel route) on the card against greedy
-    `generate`: tokens equal, prefix cache on, more requests than
-    slots."""
+# ----------------------------------------------------------------------
+# the prefill program families, and the int8 configurations
+# ----------------------------------------------------------------------
+def _outside_scratch(snap: dict) -> dict:
+    """An engine snapshot without scratch block 0 of the pools and
+    scales (every program may write padding there)."""
+    return {k: (v[:, 1:] if k in ("_k_pool", "_v_pool", "_k_scale",
+                                  "_v_scale") else v)
+            for k, v in snap.items()}
+
+
+def prefill_graphs(cfg, params, prompts, device, *, slots=8, chunk=8,
+                   block_size=16, max_len=512, reps=3) -> dict:
+    """The prefill families' CUDA graphs at Llama-3-8B, in bf16 and int8
+    KV: a full prefill per bucket the main path uses (16 / 64 / 128 /
+    256) and its radix-hit suffix prefill (prompt 4 over prompt 2's
+    64-token prefix), each with its block write, run by the engine's own
+    `_admit_programs`.  Each admission's first call (eager, then the
+    captures) and two replays, from one restored state, are held
+    bit-equal to the programs run eagerly: the staged logits row T - 1,
+    tokens, positions, the pools and int8 scales outside the scratch
+    block.  Then a chunk's token rows of the six admitted slots,
+    dispatched from its graph and read only after a prefill replay, are
+    held equal to the rows of a replay read at once.  Eager and replay
+    times are host wall to a device sync, medians of `reps`, in
+    turns."""
+    t_start = time.perf_counter()
+    bs = block_size
+    out = {}
+    for kv_dtype in ("model", "int8"):
+        eng = LlamaEngine(cfg, params, slots=slots, chunk=chunk,
+                          block_size=bs, max_len=max_len, kv_dtype=kv_dtype,
+                          device=device)
+        try:
+            # (prompt, shared blocks, own blocks, slot): each slot's own
+            # blocks cover its prompt and one chunk, as `_admit`
+            # allocates them; prompt 4 over the prefix blocks prompt 2's
+            # prefill wrote
+            nxt, cases = 1, {}
+            for slot, i in enumerate((0, 1, 3, 7, 2, 4)):
+                shared = cases["full_72"][2][:4] if i == 4 else []
+                n = _cdiv(len(prompts[i]) + chunk, bs) - len(shared)
+                name = "suffix" if i == 4 else "full"
+                cases[f"{name}_{len(prompts[i])}"] = (
+                    prompts[i], shared, list(range(nxt, nxt + n)), slot)
+                nxt += n
+            entries = {}
+            for name, case in cases.items():
+                snap = _engine_snapshot(eng)
+                eng._admit_programs(*case, route="eager")
+                want_row = eng._stage_logits.clone()
+                want = _outside_scratch(_engine_snapshot(eng))
+                for call in range(3):  # eager + capture, then 2 replays
+                    _engine_restore(eng, snap)
+                    pf, wf = eng._admit_programs(*case)
+                    got = _outside_scratch(_engine_snapshot(eng))
+                    row_equal = torch.equal(eng._stage_logits, want_row)
+                    bad = [k for k in want if not torch.equal(got[k], want[k])]
+                    if not row_equal or bad:
+                        raise AssertionError(
+                            f"{name} ({kv_dtype} KV) call {call}: logits "
+                            f"row {row_equal}, state {bad}")
+                times = {"eager": [], "entry": []}
+                for _ in range(reps):
+                    for route in ("eager", "entry", "entry", "eager"):
+                        _engine_restore(eng, snap)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        eng._admit_programs(*case, route=route)
+                        torch.cuda.synchronize()
+                        times[route].append((time.perf_counter() - t0) * 1e3)
+                entries[name] = {
+                    "key": str(next(k for c in (eng._prefill_cache,
+                                                eng._suffix_cache)
+                                    for k, g in c.items() if g is pf)),
+                    "write_key": str(next(k for k, g in
+                                          eng._write_cache.items()
+                                          if g is wf)),
+                    "bit_equal": True,
+                    "eager_ms": statistics.median(times["eager"]),
+                    "replay_ms": statistics.median(times["entry"]),
+                    **{f"{what}{k}": getattr(g, k, None)
+                       for what, g in (("", pf), ("write_", wf))
+                       for k in ("capture_ms", "graph_bytes", "replays")},
+                }
+            # every case written once more, then a chunk over the six slots
+            for case in cases.values():
+                eng._admit_programs(*case)
+            tables = [c[1] + c[2] for c in cases.values()]
+            W = _next_pow2(max(len(t) for t in tables))
+            tables = torch.as_tensor([t + [0] * (W - len(t)) for t in tables]
+                                     + [[0] * W] * (slots - len(tables)),
+                                     dtype=torch.int32, device=device)
+            step = eng._chunk_step_for(W)
+            snap = _engine_snapshot(eng)
+            step(tables)  # eager, then the capture
+            _engine_restore(eng, snap)
+            want_rows = step(tables).clone()
+            _engine_restore(eng, snap)
+            rows = step(tables)  # the static rows, not read yet
+            eng._admit_programs(*cases["full_200"])
+            torch.cuda.synchronize()
+            # the idle slots' rows are garbage by design: their tables all
+            # name scratch block 0, where their appends race
+            live = len(cases)
+            survived = torch.equal(rows[:, :live], want_rows[:, :live])
+            if not survived:
+                raise AssertionError(f"a prefill replay overwrote a chunk's "
+                                     f"token rows ({kv_dtype} KV)")
+            out[kv_dtype] = {
+                "entries": entries, "chunk_rows_survive_prefill": survived,
+                "own_graph_pools": eng._graph_pool
+                != eng._prefill_graph_pool,
+                "stage_bytes": sum(t.nbytes for t in (
+                    eng._stage_k, eng._stage_v, eng._stage_logits)),
+                **{k: eng.stats()[k] for k in (
+                    "prefill_cache_size", "suffix_cache_size",
+                    "write_cache_size", "prefill_capture_ms",
+                    "prefill_graph_bytes")},
+            }
+        finally:
+            eng.shutdown()
+        del eng
+        torch.cuda.empty_cache()
+    return {"phase": "prefill_graphs", "slots": slots, "chunk": chunk,
+            "block_size": bs, "max_len": max_len, **out,
+            "wall_s": time.perf_counter() - t_start}
+
+
+def _quantiles(vals) -> dict:
+    vals = sorted(vals)
+    return {f"ttft_p{int(q * 100)}_s": (vals[min(len(vals) - 1,
+                                                  int(len(vals) * q))]
+                                        if vals else None)
+            for q in (0.5, 0.9)}
+
+
+def _cut(params: dict, depth: int, dtype=None) -> dict:
+    """The first `depth` blocks of `params` (views), every floating leaf
+    cast to `dtype` where one is given."""
+    def cast(t):
+        if dtype is None or not t.is_floating_point():
+            return t
+        return t.to(dtype)
+
+    out = {k: cast(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = {k: cast(v[:depth]) for k, v in params["blocks"].items()}
+    return out
+
+
+def _err_over_max(got, want) -> float:
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+# the int8-weight path's bf16 error may reach twice the bf16 model's:
+# each projection's output is rounded to bf16 twice (x @ q, then its
+# product with the bf16-rounded per-channel scale) where the bf16
+# model rounds it once
+INT8_BF16_ERR_RATIO = 2.0
+
+
+def int8_logit_profile(cfg, params, qparams, tokens,
+                       depths=(1, 2, 4, 8, 16, 32)) -> list:
+    """The int8-weight model (`quantize_weights_int8`, bf16 compute)
+    over `tokens` against what it should compute: the same model in f32,
+    its weights the dequantized q x scale; both cut to each depth, the
+    model as served (32) included.  Gate: that error (the max over the
+    f32 max |logit|) within `INT8_BF16_ERR_RATIO` times the bf16
+    model's own error against its weights in f32, measured on the same
+    tokens at the same depth.  Recorded beside it: the int8 model
+    against the bf16 model and its argmax agreement, and the
+    quantization alone (the dequantized weights against the original,
+    both in f32)."""
+    rows = []
+    with torch.no_grad():
+        for d in depths:
+            cd = dataclasses.replace(cfg, n_layers=d)
+            c32 = dataclasses.replace(cd, dtype=torch.float32)
+            lf = llama.forward(cd, _cut(params, d), tokens)
+            lq = llama.forward(cd, _cut(qparams, d), tokens)
+            p32 = _cut(params, d, torch.float32)
+            l32 = llama.forward(c32, p32, tokens)
+            # the weights dequantized in place, a layer at a time
+            for name in llama.QUANT_TARGETS:
+                q = qparams["blocks"][name]
+                sc = qparams["blocks"][name + "_scale"]
+                for i in range(d):
+                    p32["blocks"][name][i].copy_(q[i].float()
+                                                 * sc[i][None, :])
+            p32["lm_head"].copy_(qparams["lm_head"].float()
+                                 * qparams["lm_head_scale"][None, :])
+            l32q = llama.forward(c32, p32, tokens)
+            del p32
+            bf16 = _err_over_max(lf, l32)
+            err = _err_over_max(lq, l32q)
+            rows.append({
+                "depth": d, "int8_vs_dequant_f32_err_over_max": err,
+                "bf16_vs_f32_err_over_max": bf16, "ratio": err / bf16,
+                "limit": INT8_BF16_ERR_RATIO * bf16,
+                "int8_vs_bf16_err_over_max": _err_over_max(lq, lf),
+                "argmax_agree": float((lq.argmax(-1) == lf.argmax(-1))
+                                      .float().mean()),
+                "quant_only_f32_err_over_max": _err_over_max(l32q, l32)})
+            del lf, lq, l32, l32q
+            torch.cuda.empty_cache()
+            if not err <= INT8_BF16_ERR_RATIO * bf16:
+                raise AssertionError(
+                    f"int8-weight logits at depth {d}: error {err} against "
+                    f"the dequantized model in f32, over "
+                    f"{INT8_BF16_ERR_RATIO} x the bf16 model's {bf16}: "
+                    f"{rows}")
+    return rows
+
+
+def int8_reference_bound(device) -> dict:
+    """The reference's bound on its own model
+    (`tests/test_paged_attention.py:305-320`: `LlamaConfig.tiny(vocab_size
+    =128)`, bf16, two rows of 10 tokens): the int8-weight logits within
+    5% of the bf16 logits' max |logit|, on the card.  The reference also
+    asserts equal argmax rows, a near tie its own runs flip: recorded
+    here, not gated."""
+    cfg = llama.LlamaConfig.tiny(vocab_size=128)
+    params = llama.init_params(cfg, 0, device=device, dtype=cfg.dtype)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 10), generator=gen,
+                           device=device)
+    with torch.no_grad():
+        lf = llama.forward(cfg, params, tokens)
+        lq = llama.forward(cfg, llama.quantize_weights_int8(params), tokens)
+    err = _err_over_max(lq, lf)
+    if not err <= 0.05:
+        raise AssertionError(f"int8 weight logit error {err} of the max "
+                             f"|logit| on the reference's tiny model")
+    return {"err_over_max": err, "tolerance": 0.05,
+            "argmax_agree": float((lq.argmax(-1) == lf.argmax(-1))
+                                  .float().mean())}
+
+
+def int8_serve(cfg, params, prompts, device, *, slots=8, chunk=8,
+               block_size=16, max_len=512, n_new=32) -> dict:
+    """The main path's 8 prompts at Llama-3-8B, `n_new` tokens each,
+    through `LLMEngineConfig` as the serve example builds an engine: in
+    int8 weights (`quantize_weights_int8`) with int8 KV, in int8 KV
+    alone, and in bf16 as the yardstick of the same call.  Each engine
+    first serves prompts of the same shapes (seed 1), which captures
+    every program, then the measured run.  Gates: the kernel route only
+    and one fused launch a layer a step, every prefill a graph replay,
+    well-formed outputs; the quantized model's logits over the longest
+    prompt against the dequantized model in f32 within twice bf16's own
+    error at every depth to 32 (`int8_logit_profile`), and within 5% of
+    the bf16 max |logit| on the reference's tiny model, where the
+    reference sets that bound (`int8_reference_bound`); a tiny f32
+    engine over int8 weights equal to `generate`."""
+    from ray_tpu_torch.serve.config import LLMEngineConfig
+
+    t_start = time.perf_counter()
+    t0 = time.perf_counter()
+    qparams = llama.quantize_weights_int8(params)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    profile = int8_logit_profile(
+        cfg, params, qparams, torch.as_tensor([prompts[-1]], device=device))
+    warm = main_path_prompts(cfg.vocab_size, seed=1)
+    runs = {}
+    for name, weights, kv, p in (
+            ("int8_weights_int8_kv", "int8", "int8", qparams),
+            ("int8_kv", "model", "int8", params),
+            ("bf16", "model", "model", params)):
+        ecfg = LLMEngineConfig(slots=slots, chunk=chunk, max_len=max_len,
+                               block_size=block_size, kv_dtype=kv,
+                               weight_dtype=weights).validate()
+        eng = LlamaEngine(cfg, p, device=device, **ecfg.engine_kwargs())
+        try:
+            first = serve(eng, warm, n_new)
+            since = time.monotonic()
+            base = eng.stats()
+            run = serve(eng, prompts, n_new)
+            ttft = [v for ts, v in eng._ttft_samples if ts >= since]
+            fams = prefill_families(eng)
+        finally:
+            eng.shutdown()
+        st = run["stats"]
+        need = cfg.n_layers * chunk * run["dispatches"]
+        want = {"paged_kv_append": 0, "paged_decode_attention": 0,
+                "paged_append_decode_attention": need}
+        calls = st["prefill_calls"] - base["prefill_calls"]
+        replays = st["prefill_replays"] - base["prefill_replays"]
+        if (st["decode_kernel"] != "kernel" or run["dispatches"] <= 0
+                or st["decode_fallback_dispatch_total"] != 0):
+            raise AssertionError(f"{name} did not take the kernel route only")
+        if run["launches"] != want:
+            raise AssertionError(f"{name} launches {run['launches']}, want "
+                                 f"{want} (L x chunk x dispatches)")
+        on_prefill_graphs(fams, name)
+        if calls != len(prompts) or replays != 2 * calls:
+            raise AssertionError(f"{name}: {calls} prefills, {replays} "
+                                 f"prefill-family replays")
+        for o in run["outs"]:
+            if len(o) != n_new or not all(0 <= t < cfg.vocab_size
+                                          for t in o):
+                raise AssertionError(f"{name}: malformed output {o}")
+        runs[name] = {
+            "weight_dtype": weights, "kv_dtype": st["kv_dtype"],
+            "decode_kernel_dispatch_total": run["dispatches"],
+            "decode_fallback_dispatch_total":
+                st["decode_fallback_dispatch_total"],
+            "launches": run["launches"],
+            "prefill_calls": calls, "prefill_replays": replays,
+            "first_run_wall_s": first["wall_s"],
+            "wall_s": run["wall_s"],
+            "tokens_per_s": len(prompts) * n_new / run["wall_s"],
+            **_quantiles(ttft),
+            "kv_pool_bytes": st["kv_pool_bytes"],
+            "kv_scale_bytes": st["kv_scale_bytes"],
+            "prefill_capture_ms": fams["capture_ms"],
+            "outs_equal_bf16": None,
+            "outs": run["outs"],
+        }
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("int8_weights_int8_kv", "int8_kv"):
+        runs[name]["outs_equal_bf16"] = (runs[name]["outs"]
+                                          == runs["bf16"]["outs"])
+    for r in runs.values():
+        del r["outs"]
+    tiny = tiny_parity(device, weights="int8")
+    return {"phase": "int8_serve", "model": "llama3_8b",
+            "requests": len(prompts), "max_new_tokens": n_new,
+            "quantize_s": quantize_s,
+            "logit_err_over_max": profile[-1]["int8_vs_bf16_err_over_max"],
+            "int8_vs_dequant_f32_err_over_max":
+                profile[-1]["int8_vs_dequant_f32_err_over_max"],
+            "argmax_agree": profile[-1]["argmax_agree"],
+            "logit_profile": profile,
+            "reference_bound": int8_reference_bound(device),
+            **runs, "tiny_int8_weights_equal_generate":
+                tiny["tokens_equal_generate"],
+            "wall_s": time.perf_counter() - t_start}
+
+
+def tiny_parity(device, weights: str = "model") -> dict:
+    """A tiny f32 engine (kernel route, prefill graphs) on the card
+    against greedy `generate` over the same params: tokens equal, prefix
+    cache on, more requests than slots.  `weights="int8"` serves
+    `quantize_weights_int8`'s params (the reference's engine parity,
+    `tests/test_paged_attention.py:325-331`)."""
     cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=128),
                               dtype=torch.float32)
     params = llama.init_params(cfg, 0, device=device)
+    if weights == "int8":
+        params = llama.quantize_weights_int8(params)
     rng = np.random.default_rng(42)
     shared = [int(t) for t in rng.integers(0, 128, size=16)]
     prompts = [[int(t) for t in rng.integers(0, 128, size=int(n))]
@@ -1209,9 +1679,10 @@ def tiny_parity(device) -> dict:
     want = [llama.generate(cfg, params, [p], 9, device=device)[0].tolist()
             for p in prompts]
     if outs != want:
-        raise AssertionError(f"tiny f32 engine != generate: {outs} vs {want}")
-    return {"phase": "tiny_parity", "requests": len(prompts),
-            "tokens_equal_generate": True}
+        raise AssertionError(f"tiny f32 engine ({weights} weights) != "
+                             f"generate: {outs} vs {want}")
+    return {"phase": "tiny_parity", "weights": weights,
+            "requests": len(prompts), "tokens_equal_generate": True}
 
 
 # ----------------------------------------------------------------------
@@ -1897,6 +2368,15 @@ def _records(out_dir: str) -> dict:
     return out
 
 
+# the train plane and the data feed run the LoRA bench's width at 4 of
+# its 22 layers: what they hold (the sync, checkpoint and resume, the
+# feed) does not depend on depth, and the script keeps its time limit
+PLANE_LAYERS = 4
+PLANE_REDUCED = ("depth 22 -> 4 layers: keeps the script in its time "
+                 "limit; the trainer's and the feed's mechanisms do not "
+                 "depend on depth")
+
+
 def train_plane(device, *, batch=8, seq=1024, steps=4, resume_steps=1,
                 cfg=None) -> dict:
     """`CudaTrainer(...).fit()` with two collective-mode workers sharing
@@ -1910,6 +2390,7 @@ def train_plane(device, *, batch=8, seq=1024, steps=4, resume_steps=1,
     from ray_tpu_torch.train import (CheckpointConfig, CudaConfig,
                                      CudaTrainer, RunConfig, ScalingConfig)
 
+    cfg = cfg or train_llama_lora.lora_config(n_layers=PLANE_LAYERS)
     work = tempfile.mkdtemp(prefix="rtt_train_plane_")
     dirs = {k: os.path.join(work, k) for k in ("fit1", "fit2", "nccl",
                                                "store")}
@@ -1989,7 +2470,7 @@ def train_plane(device, *, batch=8, seq=1024, steps=4, resume_steps=1,
             "fit_s": (fit1_s, fit2_s, fit3_s), "t0": (t0, t1, t2),
             "batch": batch, "seq": seq, "steps": steps,
             "resume_steps": resume_steps, "work": work,
-            "cfg": cfg or train_llama_lora.lora_config()}
+            "cfg": cfg}
 
 
 def train_plane_lines(tp: dict, smi: str) -> tuple:
@@ -2053,8 +2534,9 @@ def train_plane_lines(tp: dict, smi: str) -> tuple:
         "trainer": "CudaTrainer", "distributed_mode": "collective",
         "workers": 2, "resources_per_worker": {"GPU": 0.5, "CPU": 1},
         "model": "llama_1b4", "source": "bench.py bench_llama_lora (its "
-        "chip config)", "n_layers": cfg.n_layers, "dim": cfg.dim,
-        "attention": cfg.attention, "lora_rank": 8, "global_batch": batch,
+        "chip config)", "reduced": PLANE_REDUCED, "n_layers": cfg.n_layers,
+        "dim": cfg.dim, "attention": cfg.attention, "lora_rank": 8,
+        "global_batch": batch,
         "seq": seq, "local_batch": batch // 2, "steps": steps,
         "resume_steps": tp["resume_steps"], "global_losses": losses,
         "step0_loss": losses[0], "ln_vocab": math.log(cfg.vocab_size),
@@ -3009,7 +3491,7 @@ def data_ingest(device, smi: str, corpus: dict, *, batch=4, steps=4,
     from ray_tpu_torch.train import (CudaConfig, CudaTrainer, RunConfig,
                                      ScalingConfig)
 
-    cfg = cfg or train_llama_lora.lora_config()
+    cfg = cfg or train_llama_lora.lora_config(n_layers=PLANE_LAYERS)
     work = tempfile.mkdtemp(prefix="rtt_data_ingest_")
     out_dir = os.path.join(work, "out")
     os.makedirs(out_dir)
@@ -3102,8 +3584,8 @@ def data_ingest(device, smi: str, corpus: dict, *, batch=4, steps=4,
         "distributed_mode": "collective", "workers": 2,
         "resources_per_worker": {"GPU": 0.5, "CPU": 1},
         "model": "llama_1b4", "source": "bench.py bench_llama_lora (its "
-        "chip config)", "n_layers": cfg.n_layers, "dim": cfg.dim,
-        "attention": cfg.attention, "lora_rank": 8,
+        "chip config)", "reduced": PLANE_REDUCED, "n_layers": cfg.n_layers,
+        "dim": cfg.dim, "attention": cfg.attention, "lora_rank": 8,
         "corpus_rows": int(corpus["tokens"].shape[0]),
         "corpus_files": corpus["files"], "seq": seq,
         "dataset_mb": (corpus["bytes"] + 8 * corpus["tokens"].shape[0]) / 1e6,
@@ -6182,6 +6664,20 @@ def main() -> int:
         # its readings are written: skip the interpreter's teardown, where
         # gloo's threads can abort the process
         os._exit(0)
+    os.environ[RUN_TAG] = f"{os.getpid()}-{time.time_ns()}"
+    try:
+        return run_all()
+    finally:
+        # a failed phase's cluster too: nothing the run started outlives it
+        if started_processes():
+            print(json.dumps({"phase": "processes_at_exit",
+                              **stop_processes(grace_s=5.0)}),
+                  file=sys.stderr, flush=True)
+
+
+def run_all() -> int:
+    """Every phase in order; the kernels line, the card's line and the
+    contract's last line."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
@@ -6357,6 +6853,12 @@ def main() -> int:
     full_width = perf_decode_full_width(cfg, params, served["prompts"],
                                         device)
     emit({**full_width, "nvidia_smi": smi})
+    # the prefill families' graphs against their eager programs, then the
+    # int8 configurations served end to end
+    emit({**prefill_graphs(cfg, params, served["prompts"], device),
+          "nvidia_smi": smi})
+    int8_run = int8_serve(cfg, params, served["prompts"], device)
+    emit({**int8_run, "nvidia_smi": smi})
     # the replica loads its own Llama-3-8B: free the driver's copy first
     del params, state, app_case, attn_case, mid
     gc.collect()
@@ -6524,15 +7026,29 @@ def main() -> int:
                            + cli_run["job"]["launches"][name]
                            + cli_run["pool"]["launches"][name])
     # perf_plane's fused append + attention launches: its tiny engines' and
-    # the measured full-width kernel row's
+    # the measured full-width kernel row's; and the int8 phase's measured
+    # runs'
     launches["paged_append_decode_attention"] += (
         perf_runs["fused_launches"]
         + full_width["launches"]["decode_b8_kernel"][
-            "paged_append_decode_attention"])
+            "paged_append_decode_attention"]
+        + sum(int8_run[n]["launches"]["paged_append_decode_attention"]
+              for n in ("int8_weights_int8_kv", "int8_kv", "bf16")))
 
     errs = {"paged_kv_append": 0.0, "paged_decode_attention": attn_err,
             "paged_append_decode_attention": fused_errs["mid_decode"]["bf16"],
             **flash_errs, **xent_errs}
+    # every process the phases started has ended: the clusters' daemons
+    # and workers, jobs, pools and rank processes
+    stopped = stop_processes()
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,process_name",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    emit({"phase": "processes", **stopped,
+          "card_processes": apps.stdout.strip().splitlines(),
+          "started": [[pid, cmd[:100], first, last] for pid, (cmd, first, last)
+                      in sorted(_SEEN.items())]})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
@@ -6558,4 +7074,17 @@ def run_parallel_phases(device, smi: str) -> None:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+        rc = 1
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # every process the run started is stopped and every line is written:
+    # end here, so that no thread a phase left (an executor's, the
+    # profiler's, a collective's) holds the process open in the
+    # interpreter's teardown
+    os._exit(rc)

@@ -583,7 +583,7 @@ class HostEffectInCapture(Check):
     jit": `jax.jit`/`shard_map` trace Python once and replay XLA), which
     has no callee here.  The capture regions are the body of a
     `with torch.cuda.graph(...)` block and the function the engine's
-    `ChunkGraph(run, ...)` records (`serve/llm_engine.py`: its first
+    `EngineGraph(run, ...)` records (`serve/llm_engine.py`: its first
     argument, named directly or as a `self.` method).  The reference rule's second half, a donated buffer
     read after `jax.jit(..., donate_argnums=...)`, has no counterpart:
     eager PyTorch donates no buffers."""
@@ -593,7 +593,7 @@ class HostEffectInCapture(Check):
     description = (
         "host side effect (print, np.random, wall-clock) inside a CUDA "
         "graph capture region (a `torch.cuda.graph` block or the "
-        "function a ChunkGraph records)"
+        "function an EngineGraph records)"
     )
 
     _HOST_CALLS = {
@@ -637,7 +637,7 @@ class HostEffectInCapture(Check):
     @staticmethod
     def _is_recorder(func: ast.AST, mod: ModuleInfo) -> bool:
         cn = mod.canonical(func)
-        return cn == "ChunkGraph" or cn.endswith(".ChunkGraph")
+        return cn == "EngineGraph" or cn.endswith(".EngineGraph")
 
     @staticmethod
     def _callee_name(arg: ast.AST) -> str:

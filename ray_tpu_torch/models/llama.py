@@ -296,11 +296,11 @@ def _rotate(x, cos, sin):
 
 def _rope(x, theta: float, t0=0):
     """Rotary embedding over the last dim; x [B, T, H, hd]; positions
-    t0 .. t0 + T - 1 (t0 an int or a 0-d tensor)."""
+    t0 .. t0 + T - 1 (t0 an int or a 0-d tensor on x's device, which
+    stays there: a CUDA graph can capture it)."""
     _, T, _, hd = x.shape
     freqs = _freqs(theta, hd // 2, x.device)
-    pos = (torch.as_tensor(t0, dtype=torch.float32, device=x.device)
-           + torch.arange(T, dtype=torch.float32, device=x.device))
+    pos = torch.arange(T, dtype=torch.float32, device=x.device) + t0
     ang = pos[:, None] * freqs[None, :]  # [T, half]
     cos = ang.cos()[None, :, None, :].to(x.dtype)
     sin = ang.sin()[None, :, None, :].to(x.dtype)
@@ -497,7 +497,10 @@ def forward_with_prefix(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
     `tokens` [B, S] is the prompt SUFFIX at absolute positions
     `prefix_len` .. `prefix_len + S - 1`; `prefix_kv` = (k, v), each
     [L, B, Pmax, KV, hd], the gathered (possibly padded) prefix KV —
-    columns at or beyond `prefix_len` are masked out.  Returns
+    columns at or beyond `prefix_len` are masked out.  `prefix_len` is
+    an int or a 0-d tensor on the tokens' device: the engine passes a
+    tensor, so one CUDA graph of a padded width serves every length
+    under it.  Returns
     (suffix logits [B, S, vocab] f32, (k_suf, v_suf) each
     [L, B, S, KV, hd]).  Numerics mirror `forward`'s dense path (same
     einsum forms, -1e30 mask, softmax in the compute dtype), so a

@@ -24,14 +24,30 @@ hd]` allocated once.
   KV (`llama.forward_with_prefix`).  Completed requests donate their
   full prompt blocks; unpinned nodes are LRU-evicted when the pool
   runs low.
-- CHUNKED stepping with ONE host read per chunk: one chunk stepper per
-  gather width W, kept in an LRU of `chunk_cache_cap` entries
-  (`_chunk_step_for`; the reference's compiled `jax.jit` + `lax.scan`
-  programs).  On the card's kernel route a stepper is a `ChunkGraph`:
-  the whole chunk (`chunk` decode steps, the argmax, the position
-  clamp, the stacked token rows) captured as ONE CUDA graph after its
-  first, eager, run, then replayed.  On the CPU and on the gather route
-  it is the eager loop of asynchronous launches.  The chunk's token
+- A SMALL FAMILY OF PROGRAMS, each keyed by a static shape, as the
+  reference's compiled `jax.jit` programs are keyed:
+  - the decode chunk, one per gather width W, kept in an LRU of
+    `chunk_cache_cap` entries (`_chunk_step_for`);
+  - the full prefill, one per pow-2 prompt bucket capped at
+    `max_len - 1` (`_prefill_for`): the prompt is right-padded to its
+    bucket and the first token is read from logits row T - 1;
+  - the radix-hit suffix prefill, one per (suffix bucket, prefix blocks
+    padded to a pow-2 with the scratch block) (`_suffix_prefill_for`);
+  - the block write, one per (rows in, blocks written)
+    (`_write_blocks_for`), which clips or pads the prefill's KV to whole
+    blocks, writes only the blocks that hold real tokens (int8: with
+    their scales) and sets the slot's token and position.
+  A prefill leaves its KV and its logits row T - 1 in staging buffers
+  the engine owns (`_stage_k`, `_stage_v`: `max_len - 1` rows;
+  `_stage_logits`), where the block write reads them: an entry keeps
+  no output of its own, so the families' device memory does not grow
+  with their number of keys (`_admit_programs` runs one admission).
+  On the card's kernel route each entry is an `EngineGraph`: the
+  program captured as ONE CUDA graph after its first, eager, run, then
+  replayed (the chunk: `chunk` decode steps, the argmax, the position
+  clamp, the stacked token rows).  The chunks share one graph memory
+  pool and the three prefill families another.  On the CPU and on the
+  gather route every entry is the eager function.  The chunk's token
   rows are copied into pinned host memory without blocking, and an
   event recorded behind the copy is waited on at the NEXT tick's
   harvest, so the read of chunk N overlaps chunk N+1's compute.  Host
@@ -50,6 +66,7 @@ with the shed reason, as the JAX engine stamps it.
 
 from __future__ import annotations
 
+import functools
 import gc
 import logging
 import os
@@ -61,21 +78,24 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.exceptions import BackPressureError, DeadlineExceededError
 from ray_tpu_torch.models import llama
+from ray_tpu_torch.ops import attention as _fa
 from ray_tpu_torch.ops import paged_attention as _pa
 from ray_tpu_torch.serve import request_ledger as _rl
-from ray_tpu_torch.serve.kv_cache import BlockPool, RadixCache
+from ray_tpu_torch.serve.kv_cache import SCRATCH_BLOCK, BlockPool, RadixCache
 
 logger = logging.getLogger(__name__)
 
-# the kernel wrappers whose `launches` a captured chunk keeps true: a
+# the kernel wrappers whose `launches` a captured program keeps true: a
 # capture runs their Python without launching, a replay launches
-# without running it
+# without running it (the flash forward: a prefill under
+# `attention="flash"`)
 _COUNTED = (_pa.paged_append_decode_attention, _pa.paged_kv_append,
-            _pa.paged_decode_attention)
+            _pa.paged_decode_attention, _fa.flash_fwd)
 
 
 def _next_pow2(n: int) -> int:
@@ -84,6 +104,13 @@ def _next_pow2(n: int) -> int:
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _holds_pool(entries) -> bool:
+    """Whether a captured graph among `entries` still holds their memory
+    pool: a pool that every graph released cannot be captured into
+    again, so a family without one starts a new pool."""
+    return any(isinstance(e, EngineGraph) and e.captured for e in entries)
 
 
 def _rss_bytes() -> int:
@@ -95,26 +122,28 @@ def _rss_bytes() -> int:
         return 0
 
 
-class ChunkGraph:
-    """A decode chunk as one CUDA graph: the counterpart of the
-    reference's compiled `jax.jit` of a `lax.scan` over a chunk's steps.
+class EngineGraph:
+    """One of the engine's programs as one CUDA graph: the counterpart
+    of a compiled `jax.jit` entry of the reference (a decode chunk, a
+    full or suffix prefill, a block write).
 
-    `run(tables)` is the eager chunk: it reads and updates IN PLACE
-    device state that outlives the graph (pools, tokens, positions) and
-    returns the chunk's token rows.  The first call runs it eagerly (its
-    tokens are real, and it loads what a capture cannot: kernel
-    libraries, library handles), then captures it over a static copy of
-    `tables`.  Later calls copy their tables into that buffer and replay
-    the graph on the current stream; they return the same static output
-    tensor, which the next replay overwrites, so a caller reads it on
-    that stream before its next call.  `capture_ms` (split into
-    `capture_phases_ms`: "prepare", the device sync, collection and
-    cache release before capturing; "record", the chunk's Python walked
-    under capture; "instantiate", the graph built), `graph_bytes`
-    (device memory the capture reserved), `capture_host_bytes` (the
-    process's resident host memory it added) and `capture_cpu_s` (the
-    process's CPU seconds meanwhile) say what the capture cost;
-    `replays` counts the calls that replayed.
+    `run(*inputs)` is the eager program: it reads and may update IN
+    PLACE device state that outlives the graph (pools, tokens,
+    positions, a prefill's staging buffers) and returns its output (a
+    tensor, or None).  The first call runs it eagerly (its outputs are real, and it
+    loads what a capture cannot: kernel libraries, library handles),
+    then captures it over static copies of `inputs`.  Later calls copy
+    their inputs into those buffers and replay the graph on the current
+    stream; they return the same static outputs, which the next replay
+    overwrites, so a caller reads them on that stream before its next
+    call.  `capture_ms` (split into `capture_phases_ms`: "prepare", the
+    device sync, collection and cache release before capturing;
+    "record", the program's Python walked under capture;
+    "instantiate", the graph built), `graph_bytes` (device memory the
+    capture reserved), `capture_host_bytes` (the process's resident
+    host memory it added) and `capture_cpu_s` (the process's CPU
+    seconds meanwhile) say what the capture cost; `replays` counts the
+    calls that replayed.
 
     The capture runs with `capture_error_mode="thread_local"`: the
     serving runtime's other threads may touch the card meanwhile.  The
@@ -126,9 +155,9 @@ class ChunkGraph:
     in `launches`) at each replay.  K6's workspace must not grow during
     a capture: the caller sizes it first
     (`paged_attention.reserve_workspace`), and the graph keeps the
-    workspace it captured alive.  `pool` lets the graphs of one engine
+    workspace it captured alive.  `pool` lets the graphs of one family
     share a memory pool: they replay one at a time on one stream, and
-    each replay's rows are consumed before the next."""
+    each replay's outputs are consumed before the next."""
 
     def __init__(self, run, pool=None):
         self._run = run
@@ -146,23 +175,24 @@ class ChunkGraph:
     def captured(self) -> bool:
         return self._graph is not None
 
-    def __call__(self, tables: torch.Tensor) -> torch.Tensor:
+    def __call__(self, *inputs: torch.Tensor):
         if self._graph is None:
-            out = self._run(tables)
-            self._capture(tables)
+            out = self._run(*inputs)
+            self._capture(inputs)
             return out
-        self._tables.copy_(tables, non_blocking=True)
+        for buf, x in zip(self._inputs, inputs):
+            buf.copy_(x, non_blocking=True)
         self._graph.replay()
         self.replays += 1
         for fn in _COUNTED:
             fn.launches += self.launches[fn.__name__]
         return self._out
 
-    def _capture(self, tables: torch.Tensor) -> None:
-        dev = tables.device
+    def _capture(self, inputs) -> None:
+        dev = inputs[0].device
         rss, cpu = _rss_bytes(), _time.process_time()
         t0 = _time.perf_counter()
-        self._tables = tables.clone()
+        self._inputs = [x.clone() for x in inputs]
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         ws = _pa.workspace_of(dev)
@@ -177,7 +207,7 @@ class ChunkGraph:
                 # the clock times the record phase itself, which runs
                 # once, at capture; no replay needs it
                 t1 = _time.perf_counter()  # rtlint: disable=RT007
-                out = self._run(self._tables)
+                out = self._run(*self._inputs)
                 t2 = _time.perf_counter()  # rtlint: disable=RT007
         finally:
             if gc_on:
@@ -196,8 +226,8 @@ class ChunkGraph:
         after = _pa.workspace_of(dev)
         if ws is None or after[0] is not ws[0] or after[1] is not ws[1]:
             raise RuntimeError(
-                "K6's workspace grew during a chunk capture, so the graph "
-                "would hold a freed pointer: size it before capturing "
+                "K6's workspace grew during a capture, so the graph would "
+                "hold a freed pointer: size it before capturing "
                 "(paged_attention.reserve_workspace)")
         self._ws = after
         self._graph, self._out = graph, out
@@ -214,7 +244,11 @@ class LlamaEngine:
     sizes the SHARED pool (default: every slot at max_len).
     `prefix_cache=False` disables radix reuse.  `chunk_cache_cap`
     bounds the LRU of chunk steppers, one per gather width (on the
-    card's kernel route each holds a CUDA graph of the whole chunk).
+    card's kernel route each holds a CUDA graph of the whole chunk,
+    whose token rows are its own output);
+    the prefill families are not bounded, as in the reference: their
+    entries write into the engine's staging buffers and keep no output,
+    so each costs its graph and its few input scalars.
     `device` defaults to the CUDA device (raising without a card);
     `params` must live on it.
 
@@ -272,9 +306,17 @@ class LlamaEngine:
         self._chunk_cache: "OrderedDict[int, object]" = OrderedDict()
         self._chunk_cache_cap = max(1, int(chunk_cache_cap))
         self._chunk_cache_evictions = 0
+        # the prefill families (`_admit`), keyed as the reference's
+        self._prefill_cache: Dict[int, object] = {}   # prompt bucket
+        self._suffix_cache: Dict[tuple, object] = {}  # (S_bucket, P_blocks)
+        self._write_cache: Dict[tuple, object] = {}   # (T_in, nb)
         self._graphs = (self.device.type == "cuda"
                         and self._decode_kernel == "kernel")
-        self._graph_pool = None  # shared by the cached graphs
+        # one graph memory pool for the cached chunks and another for the
+        # prefill families: a chunk's token rows are harvested after the
+        # next tick's prefills have replayed
+        self._graph_pool = None
+        self._prefill_graph_pool = None
         self._alloc_device_state()
         if self._graphs:
             # K6's workspace sized once for the widest table, so no
@@ -349,7 +391,9 @@ class LlamaEngine:
         self._thread.start()
 
     def _alloc_device_state(self) -> None:
-        """Zeroed pools (+ int8 scale sidecars) and per-slot pos/tok."""
+        """Zeroed pools (+ int8 scale sidecars), per-slot pos/tok, and
+        the prefills' staging buffers: KV rows for the widest bucket
+        (`max_len - 1`) and the logits row of the first token."""
         cfg, dev = self.cfg, self.device
         shape = (cfg.n_layers, self._pool.num_blocks, self.block_size,
                  cfg.n_kv_heads, cfg.head_dim)
@@ -363,6 +407,11 @@ class LlamaEngine:
             self._v_scale = torch.zeros_like(self._k_scale)
         self._pos = torch.zeros(self.slots, dtype=torch.int32, device=dev)
         self._tok = torch.zeros(self.slots, dtype=torch.int32, device=dev)
+        stage = (cfg.n_layers, self.max_len - 1, cfg.n_kv_heads, cfg.head_dim)
+        self._stage_k = torch.zeros(stage, dtype=cfg.dtype, device=dev)
+        self._stage_v = torch.zeros_like(self._stage_k)
+        self._stage_logits = torch.zeros(cfg.vocab_size, dtype=torch.float32,
+                                         device=dev)
 
     def _warm_chunk(self) -> None:
         """One decode chunk of the idle slots (every table on scratch
@@ -531,6 +580,16 @@ class LlamaEngine:
                 self._decode_fallback_dispatches,
             "chunk_cache_size": len(self._chunk_cache),
             "chunk_cache_evictions": self._chunk_cache_evictions,
+            # the prefill families: entries, and what their captures
+            # cost (0 where every entry is eager)
+            "prefill_cache_size": len(self._prefill_cache),
+            "suffix_cache_size": len(self._suffix_cache),
+            "write_cache_size": len(self._write_cache),
+            "prefill_capture_ms": sum(
+                g.capture_ms or 0.0 for g in self._prefill_graphs()),
+            "prefill_graph_bytes": sum(
+                g.graph_bytes or 0 for g in self._prefill_graphs()),
+            "prefill_replays": sum(g.replays for g in self._prefill_graphs()),
             "ttft_ema_s": self._ttft_ema_s,
             "ttft_p50_s": self._ttft_quantile(0.5),
             "ttft_p90_s": self._ttft_quantile(0.9),
@@ -555,7 +614,7 @@ class LlamaEngine:
         if not self._thread.is_alive():
             # the graphs' device memory goes now, not whenever the
             # cyclic collector reaches this engine
-            self._chunk_cache.clear()
+            self._drop_programs()
         with self._lock:
             for req in list(self._active.values()):
                 if not req["fut"].done():
@@ -571,7 +630,7 @@ class LlamaEngine:
     def _chunk_step_for(self, W: int):
         """Chunk stepper for gather width W: called with the block
         tables [slots, W], it runs `_run_chunk` and returns its token
-        rows.  On the card's kernel route it is a `ChunkGraph` (the
+        rows.  On the card's kernel route it is an `EngineGraph` (the
         chunk captured after its first, eager, run, then replayed); on
         the CPU and on the gather route, the eager chunk itself.
 
@@ -592,17 +651,70 @@ class LlamaEngine:
                 old_w, self._chunk_cache_cap, self._chunk_cache_evictions,
             )
         if self._graphs:
-            if not any(isinstance(s, ChunkGraph) and s.captured
-                       for s in self._chunk_cache.values()):
-                # no cached graph holds the shared pool any more, and a
-                # pool that every graph released cannot be captured
-                # into again: start a new one
+            if not _holds_pool(self._chunk_cache.values()):
                 self._graph_pool = torch.cuda.graph_pool_handle()
-            fn = ChunkGraph(self._run_chunk, self._graph_pool)
+            fn = EngineGraph(self._run_chunk, self._graph_pool)
         else:
             def fn(tables):
                 return self._run_chunk(tables)
         self._chunk_cache[W] = fn
+        return fn
+
+    def _prefill_graphs(self) -> List["EngineGraph"]:
+        return [g for c in (self._prefill_cache, self._suffix_cache,
+                            self._write_cache)
+                for g in c.values() if isinstance(g, EngineGraph)]
+
+    def _prefill_entry(self, run):
+        """A new entry of a prefill family: on the card's kernel route an
+        `EngineGraph` of `run` in the families' own pool, else `run`."""
+        if not self._graphs:
+            return run
+        if not _holds_pool(self._prefill_graphs()):
+            self._prefill_graph_pool = torch.cuda.graph_pool_handle()
+        return EngineGraph(run, self._prefill_graph_pool)
+
+    def _drop_programs(self) -> None:
+        """Empty every program cache (graphs and their memory go), with
+        no eviction counted."""
+        for c in (self._chunk_cache, self._prefill_cache,
+                  self._suffix_cache, self._write_cache):
+            c.clear()
+
+    def _prefill_for(self, bucket: int):
+        """Full prefill of a prompt right-padded to `bucket` tokens:
+        called with tokens [1, bucket] and the prompt's last row (a 0-d
+        tensor), it runs `_run_prefill`.  Rows past the prompt hold the
+        pad tokens' KV, masked by the slot's position until decoding
+        overwrites them."""
+        fn = self._prefill_cache.get(bucket)
+        if fn is None:
+            fn = self._prefill_cache[bucket] = self._prefill_entry(
+                self._run_prefill)
+        return fn
+
+    def _suffix_prefill_for(self, s_bucket: int, p_blocks: int):
+        """Prefix-hit prefill: called with the suffix [1, s_bucket], the
+        prefix's block ids [p_blocks] (padded with the scratch block),
+        the prefix length and the suffix's last row (0-d tensors), it
+        runs `_run_suffix_prefill`."""
+        key = (s_bucket, p_blocks)
+        fn = self._suffix_cache.get(key)
+        if fn is None:
+            fn = self._suffix_cache[key] = self._prefill_entry(
+                self._run_suffix_prefill)
+        return fn
+
+    def _write_blocks_for(self, t_in: int, nb: int):
+        """Write the staged KV (its first `t_in` rows) into `nb` pool
+        blocks and set the slot's token and position: called with block
+        ids [nb] and [slot, pos0], it runs `_run_write_blocks`.  Serves
+        both prefill shapes, since the target is a block-id list."""
+        key = (t_in, nb)
+        fn = self._write_cache.get(key)
+        if fn is None:
+            fn = self._write_cache[key] = self._prefill_entry(
+                functools.partial(self._run_write_blocks, t_in))
         return fn
 
     def _run_chunk(self, tables: torch.Tensor) -> torch.Tensor:
@@ -682,44 +794,75 @@ class LlamaEngine:
         self._pos.copy_(pos)
         return out
 
-    def _write_blocks(self, k1: torch.Tensor, v1: torch.Tensor,
-                      ids: List[int]) -> None:
-        """Write freshly prefilled KV (k1/v1 [L, 1, t, KV, hd], t rows
-        from a block boundary) into pool blocks `ids`; the tail of the
-        last block is zero-padded (masked by pos until decode writes
-        it)."""
-        L, _, t, KV, hd = k1.shape
-        nb, bs = len(ids), self.block_size
-        idx = self._upload(ids)
-        k = k1.new_zeros((L, nb * bs, KV, hd))
-        v = v1.new_zeros((L, nb * bs, KV, hd))
-        k[:, :t] = k1[:, 0]
-        v[:, :t] = v1[:, 0]
+    def _stage(self, logits: torch.Tensor, ks: torch.Tensor,
+               vs: torch.Tensor, row: torch.Tensor) -> None:
+        """A prefill's outputs into the staging buffers: its KV
+        ([L, 1, t, KV, hd]) into the first t rows, its logits row `row`
+        (a 0-d tensor, read on the device) into `_stage_logits`."""
+        t = ks.shape[2]
+        self._stage_k[:, :t].copy_(ks[:, 0])
+        self._stage_v[:, :t].copy_(vs[:, 0])
+        self._stage_logits.copy_(logits[0].index_select(0, row.reshape(1))[0])
+
+    @torch.no_grad()
+    def _run_prefill(self, tokens: torch.Tensor, row: torch.Tensor) -> None:
+        """The prompt's forward (no remat, no autograd: serving only),
+        staged."""
+        logits, (ks, vs) = llama.forward(self.cfg, self.params, tokens,
+                                         return_kv=True)
+        self._stage(logits, ks, vs, row)
+
+    @torch.no_grad()
+    def _run_suffix_prefill(self, suffix: torch.Tensor, ids: torch.Tensor,
+                            prefix_len: torch.Tensor,
+                            row: torch.Tensor) -> None:
+        """The prefix blocks `ids` gathered dense (int8: dequantized to
+        the compute dtype), then the suffix forward over them, staged;
+        columns at or past `prefix_len` are masked."""
+        cfg = self.cfg
+        L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        shape = (L, 1, ids.shape[0] * self.block_size, KV, hd)
+        pk, pv = self._k_pool[:, ids], self._v_pool[:, ids]
+        if self._kv_int8:
+            pk = _pa.dequantize_int8(pk, self._k_scale[:, ids], cfg.dtype)
+            pv = _pa.dequantize_int8(pv, self._v_scale[:, ids], cfg.dtype)
+        logits, (ks, vs) = llama.forward_with_prefix(
+            cfg, self.params, suffix, (pk.reshape(shape), pv.reshape(shape)),
+            prefix_len)
+        self._stage(logits, ks, vs, row)
+
+    def _run_write_blocks(self, t_in: int, ids: torch.Tensor,
+                          meta: torch.Tensor) -> None:
+        """The first `t_in` staged KV rows (from a block boundary)
+        zero-padded or clipped to exactly len(ids) blocks and written
+        there (int8: quantized per row, with the scales); then
+        `_pos[slot] = pos0` and `_tok[slot]` = the staged logits row's
+        argmax, from meta [slot, pos0]."""
+        L, _, KV, hd = self._stage_k.shape
+        nb, bs = ids.shape[0], self.block_size
+        target = nb * bs
+        k, v = self._stage_k[:, :t_in], self._stage_v[:, :t_in]
+        if t_in < target:
+            pad = (0, 0, 0, 0, 0, target - t_in)
+            k, v = F.pad(k, pad), F.pad(v, pad)
+        else:
+            k, v = k[:, :target], v[:, :target]
         if self._kv_int8:
             kq, ksc = _pa.quantize_int8(k)
             vq, vsc = _pa.quantize_int8(v)
-            self._k_pool[:, idx] = kq.reshape(L, nb, bs, KV, hd)
-            self._v_pool[:, idx] = vq.reshape(L, nb, bs, KV, hd)
-            self._k_scale[:, idx] = ksc.reshape(L, nb, bs, KV)
-            self._v_scale[:, idx] = vsc.reshape(L, nb, bs, KV)
+            self._k_pool[:, ids] = kq.reshape(L, nb, bs, KV, hd)
+            self._v_pool[:, ids] = vq.reshape(L, nb, bs, KV, hd)
+            self._k_scale[:, ids] = ksc.reshape(L, nb, bs, KV)
+            self._v_scale[:, ids] = vsc.reshape(L, nb, bs, KV)
         else:
-            self._k_pool[:, idx] = k.to(self._k_pool.dtype).reshape(
+            self._k_pool[:, ids] = k.to(self._k_pool.dtype).reshape(
                 L, nb, bs, KV, hd)
-            self._v_pool[:, idx] = v.to(self._v_pool.dtype).reshape(
+            self._v_pool[:, ids] = v.to(self._v_pool.dtype).reshape(
                 L, nb, bs, KV, hd)
-
-    def _prefix_kv(self, shared: List[int]):
-        """The matched prefix blocks gathered dense: (k, v) each
-        [L, 1, len(shared) * block_size, KV, hd] in the compute dtype."""
-        cfg = self.cfg
-        L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-        shape = (L, 1, len(shared) * self.block_size, KV, hd)
-        idx = self._upload(shared)
-        pk, pv = self._k_pool[:, idx], self._v_pool[:, idx]
-        if self._kv_int8:
-            pk = _pa.dequantize_int8(pk, self._k_scale[:, idx], cfg.dtype)
-            pv = _pa.dequantize_int8(pv, self._v_scale[:, idx], cfg.dtype)
-        return pk.reshape(shape), pv.reshape(shape)
+        slot = meta[:1]
+        self._pos[slot] = meta[1:].to(torch.int32)
+        self._tok[slot] = self._stage_logits.argmax().reshape(1).to(
+            torch.int32)
 
     # -- admission -----------------------------------------------------
     def _maybe_shed(self, fut: Future, deadline: Optional[float],
@@ -750,6 +893,51 @@ class LlamaEngine:
             timeout_s=max(0.0, deadline - now),
         ))
         return True
+
+    def _admit_programs(self, prompt: List[int], shared: List[int],
+                        own: List[int], slot: int, route: str = "entry"):
+        """One admission's device work, as the reference's `_admit` runs
+        it.  With no `shared` prefix blocks: the full prefill of
+        `prompt` RIGHT-padded to its pow-2 bucket (causal, so positions
+        0..T-1 stay exact).  With them (a radix hit): the suffix prefill
+        over the prefix blocks, padded to a pow-2 count with the scratch
+        block, the suffix padded to its pow-2 bucket.  Either stages its
+        KV and the logits row of the LAST REAL prompt position.  Then
+        the block write: the suffix's KV starts exactly at block boundary
+        P // bs, and only the blocks among `own` that hold real tokens
+        are written (bucket pad past them is dropped; pad within the last
+        one is masked by the slot's position until decoding overwrites
+        it); it sets the slot's position to T and its token to the first
+        generated one, which STAYS on the device: the next chunk emits
+        it in its pre-chunk row.  `route="entry"` runs the families'
+        cached entries (CUDA graphs on the card's kernel route),
+        `"eager"` the programs themselves.  Returns the prefill and
+        write callables it ran."""
+        bs, T = self.block_size, len(prompt)
+        P = len(shared) * bs
+        S = T - P
+        eager = route == "eager"
+        if P > 0:
+            s_bucket = min(_next_pow2(S), self.max_len - 1)
+            p_bucket = _next_pow2(len(shared))
+            prefill = (self._run_suffix_prefill if eager
+                       else self._suffix_prefill_for(s_bucket, p_bucket))
+            prefill(self._upload([prompt[P:] + [0] * (s_bucket - S)]),
+                    self._upload(list(shared) + [SCRATCH_BLOCK]
+                                 * (p_bucket - len(shared))),
+                    self._upload(P), self._upload(S - 1))
+            t_in = s_bucket
+        else:
+            bucket = min(_next_pow2(T), self.max_len - 1)
+            prefill = self._run_prefill if eager else self._prefill_for(bucket)
+            prefill(self._upload([prompt + [0] * (bucket - T)]),
+                    self._upload(T - 1))
+            t_in = bucket
+        nb = _cdiv(S, bs)
+        write = (functools.partial(self._run_write_blocks, t_in) if eager
+                 else self._write_blocks_for(t_in, nb))
+        write(self._upload(list(own[:nb])), self._upload([slot, T]))
+        return prefill, write
 
     def _alloc_or_evict(self, n: int) -> Optional[List[int]]:
         own = self._pool.alloc(n)
@@ -783,30 +971,10 @@ class LlamaEngine:
             tk.admitted(_time.time())
 
         slot = self._free.pop()
-        if P > 0:
-            # PREFIX HIT: prefill only the suffix, attending over the
-            # gathered prefix blocks
-            S = T - P
-            suffix = self._upload([prompt[P:]])
-            logits, (k1, v1) = llama.forward_with_prefix(
-                self.cfg, self.params, suffix, self._prefix_kv(shared), P
-            )
-            self._hit_tokens += P
-            self._prefill_tokens += S
-        else:
-            S = T
-            logits, (k1, v1) = llama.forward(
-                self.cfg, self.params, self._upload([prompt]),
-                return_kv=True,
-            )
-            self._prefill_tokens += T
+        self._admit_programs(prompt, shared, own, slot)
+        self._hit_tokens += P
+        self._prefill_tokens += T - P
         self._prefill_calls += 1
-        # suffix KV starts exactly at block boundary P // bs; the first
-        # generated token comes from the LAST prompt position and STAYS
-        # on the device — the next chunk emits it in its pre-chunk row
-        self._write_blocks(k1, v1, own[:_cdiv(S, bs)])
-        self._pos[slot] = T
-        self._tok[slot] = logits[0, S - 1].argmax()
 
         # donate this prompt's full blocks to the radix cache (pinned
         # until completion); blocks the trie adopts stop being
@@ -1040,11 +1208,11 @@ class LlamaEngine:
         """A failed tick fails every live and popped request with the
         exception and restarts host bookkeeping and device state from
         scratch (the failed chunk may have half-written the pools).
-        The chunk steppers go too, uncounted as evictions: a captured
-        graph holds the pools that are replaced here."""
+        Every program cache goes too, uncounted as evictions: a
+        captured graph holds the pools that are replaced here."""
         self._tick_error = exc
         self._pending_toks = None
-        self._chunk_cache.clear()
+        self._drop_programs()
         with self._lock:
             for req in self._active.values():
                 if not req["fut"].done():

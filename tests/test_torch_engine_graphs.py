@@ -1,21 +1,32 @@
 """The engine's chunk steppers: one per gather width, LRU-bounded at
 `chunk_cache_cap`, each a CUDA graph of the whole decode chunk on the
-card's kernel route; and the engine's env knobs.
+card's kernel route; the prefill families' graphs; and the engine's env
+knobs.
 
 CPU tests (tiny f32 engines): the reference's LRU test
 (`tests/test_paged_attention.py::test_chunk_cache_lru_caps_and_counts_evictions`)
 on the port's engine, the knob through the config and the schema, the
 engine's `RTT_` env knobs against the JAX engine's `RT_` ones (bridged
 params), greedy tokens across evictions, and a failed tick emptying the
-cache.  The tests that compare with the JAX package import it inside a
-fixture, so the file also runs where only torch is installed.
+caches (the prefill families' too).  The tests that compare with the
+JAX package import it inside a fixture, so the file also runs where only
+torch is installed.
 
 Card tests (marker `cuda`; tiny bf16 model, small engines): a replayed
 chunk bit-equal to the eager chunk from one state (token rows, tokens,
 positions, pools; bf16 and int8 KV), a width evicted and captured
 again, a failed tick emptying the cache, K6's workspace unchanged
 across captures, and the launch counters (L x chunk a replay, none at
-capture).  On the chip:
+capture).  The prefill families (full prefill, suffix prefill, block
+write): a replay bit-equal to the programs' eager run (logits row,
+tokens, positions, pools and scales outside the scratch block; bf16 and
+int8 KV), a chunk's token rows unchanged by a prefill replay between
+the chunk's dispatch and their read, K6's workspace unchanged across
+prefill captures, and the launch counters unmoved by prefill captures
+and replays while the chunk's keep count; many keys adding next to no
+device memory past the widest bucket's entries.  The prefill cases run
+admissions through `LlamaEngine._admit_programs`, the engine's own.
+On the chip:
 
     python -m pytest tests/test_torch_engine_graphs.py -m cuda -q
 
@@ -31,7 +42,7 @@ import torch
 from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.serve.config import LLMEngineConfig
-from ray_tpu_torch.serve.llm_engine import ChunkGraph, LlamaEngine
+from ray_tpu_torch.serve.llm_engine import EngineGraph, LlamaEngine
 
 SMALL = dict(slots=4, chunk=4, block_size=8, max_len=64)
 
@@ -211,6 +222,34 @@ def test_failed_tick_empties_the_cache_without_counting(cpu_model,
         eng.shutdown()
 
 
+def test_failed_tick_empties_the_prefill_families(cpu_model, monkeypatch):
+    """A failed tick drops the prefill families with the chunk cache
+    (on the card their graphs hold the replaced pools); the next
+    request fills them again and gets the same tokens."""
+    cfg, params = cpu_model
+    eng = LlamaEngine(cfg, params, device="cpu", **SMALL)
+    try:
+        first = eng.submit([1, 2, 3], 6).result(timeout=60)
+        s = eng.stats()
+        assert (s["prefill_cache_size"], s["write_cache_size"]) == (1, 1)
+        real = eng._run_chunk
+
+        def failing(tables):
+            raise RuntimeError("injected chunk failure")
+
+        monkeypatch.setattr(eng, "_run_chunk", failing)
+        with pytest.raises(RuntimeError, match="injected"):
+            eng.submit([4, 5], 3).result(timeout=60)
+        s = eng.stats()
+        assert (s["prefill_cache_size"], s["suffix_cache_size"],
+                s["write_cache_size"]) == (0, 0, 0)
+        monkeypatch.setattr(eng, "_run_chunk", real)
+        assert eng.submit([1, 2, 3], 6).result(timeout=60) == first
+        assert eng.stats()["prefill_cache_size"] == 1
+    finally:
+        eng.shutdown()
+
+
 # ----------------------------------------------------------------------
 # the env knobs, against the JAX engine (CPU)
 # ----------------------------------------------------------------------
@@ -344,7 +383,7 @@ def test_graph_replay_bit_equals_the_eager_chunk(cuda_model, kv_dtype):
         rows = eng._run_chunk(tables).clone()
         want = _snapshot(eng)
         step = eng._chunk_step_for(4)
-        assert isinstance(step, ChunkGraph)
+        assert isinstance(step, EngineGraph)
         for _ in range(3):  # the eager + capture call, then two replays
             _restore(eng, snap)
             got_rows = step(tables).clone()
@@ -437,7 +476,8 @@ def test_captures_keep_k6_workspace_and_count_replays(cuda_model):
             assert pa.paged_decode_attention.launches == 0
             assert step.launches == {"paged_append_decode_attention":
                                      per_chunk, "paged_kv_append": 0,
-                                     "paged_decode_attention": 0}
+                                     "paged_decode_attention": 0,
+                                     "flash_fwd": 0}
             now = pa.workspace_of(dev)
             assert now[0] is ws[0] and now[1] is ws[1]
         assert eng._max_seq_blocks == 8
@@ -467,3 +507,180 @@ def test_cap_1_recaptures_across_widths_like_cap_8(cuda_model):
     assert outs[1] == outs[8]
     assert stats[1]["chunk_cache_evictions"] >= 3
     assert stats[8]["chunk_cache_evictions"] == 0
+
+
+# ----------------------------------------------------------------------
+# the prefill families on the card
+# ----------------------------------------------------------------------
+PREFILL = dict(slots=4, chunk=4, block_size=8, max_len=64)
+
+
+def _prefill_cases(eng):
+    """Admissions as `_admit_programs` takes them, (prompt, shared
+    blocks, own blocks, slot): full prefills in buckets 8 / 32 / 63 (the
+    cap), then a 13-token suffix over the 24-token prompt's three
+    blocks, padded to four with the scratch block."""
+    rng = np.random.default_rng(5)
+    prompts = [[int(t) for t in rng.integers(0, 128, size=n)]
+               for n in (7, 24, 40)]
+    cases, nxt = {}, 1
+    for slot, p in enumerate(prompts):
+        n = -(-len(p) // eng.block_size)
+        cases[f"full_{len(p)}"] = (p, [], list(range(nxt, nxt + n)), slot)
+        nxt += n
+    suffix = prompts[1] + [int(t) for t in rng.integers(0, 128, size=13)]
+    cases["suffix_13"] = (suffix, cases["full_24"][2], [nxt, nxt + 1], 3)
+    return cases
+
+
+def _outside_scratch(snap):
+    """A snapshot without scratch block 0 of the pools and scales
+    (every program may write padding there)."""
+    return {k: (v[:, 1:] if k in ("_k_pool", "_v_pool", "_k_scale",
+                                  "_v_scale") else v)
+            for k, v in snap.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+def test_prefill_replay_bit_equals_the_eager_programs(cuda_model, kv_dtype):
+    dev, cfg, params = cuda_model
+    eng = _engine(dev, cfg, params, kv_dtype=kv_dtype, **PREFILL)
+    try:
+        _mid_decode(eng, 2, seed=4)  # pools full of random rows
+        for name, case in _prefill_cases(eng).items():
+            snap = _snapshot(eng)
+            eng._admit_programs(*case, route="eager")
+            want_row = eng._stage_logits.clone()
+            want = _outside_scratch(_snapshot(eng))
+            for _ in range(3):  # the eager + capture call, then 2 replays
+                _restore(eng, snap)
+                eng._admit_programs(*case)
+                torch.cuda.synchronize(dev)
+                assert torch.equal(eng._stage_logits, want_row), name
+                got = _outside_scratch(_snapshot(eng))
+                for k in want:
+                    assert torch.equal(got[k], want[k]), (name, k)
+        s = eng.stats()
+        assert (s["prefill_cache_size"], s["suffix_cache_size"],
+                s["write_cache_size"]) == (3, 1, 4)
+        assert s["prefill_replays"] > 0 and s["prefill_capture_ms"] > 0
+        assert all(isinstance(g, EngineGraph) and g.captured
+                   for g in eng._prefill_graphs())
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_chunk_rows_survive_a_prefill_replay(cuda_model):
+    """The chunk's static token rows, read only after a prefill replay
+    (the engine harvests them a tick later), equal the rows of a replay
+    read at once: the prefill families capture into a pool of their
+    own."""
+    dev, cfg, params = cuda_model
+    eng = _engine(dev, cfg, params, **PREFILL)
+    try:
+        cases = _prefill_cases(eng)
+        for case in cases.values():  # eager + capture, then a replay
+            eng._admit_programs(*case)
+            eng._admit_programs(*case)
+        tables = _mid_decode(eng, 4, seed=6)
+        step = eng._chunk_step_for(4)
+        snap = _snapshot(eng)
+        step(tables)
+        _restore(eng, snap)
+        want = step(tables).clone()
+        _restore(eng, snap)
+        rows = step(tables)
+        for case in cases.values():
+            eng._admit_programs(*case)
+        torch.cuda.synchronize(dev)
+        assert torch.equal(rows, want)
+        assert eng._graph_pool != eng._prefill_graph_pool
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_prefill_captures_keep_k6_workspace_and_counts(cuda_model):
+    """Prefill captures leave K6's workspace as the engine reserved it;
+    they launch no counted kernel, at capture or at replay, and a chunk
+    replayed between them still moves the fused op's count by L x
+    chunk."""
+    dev, cfg, params = cuda_model
+    eng = _engine(dev, cfg, params, **PREFILL)
+    try:
+        ws = pa.workspace_of(dev)
+        tables = _mid_decode(eng, 2, seed=7)
+        step = eng._chunk_step_for(2)
+        step(tables)
+        counted = (pa.paged_append_decode_attention, pa.paged_kv_append,
+                   pa.paged_decode_attention)
+        for fn in counted:
+            fn.launches = 0
+        for case in _prefill_cases(eng).values():
+            for _ in range(3):
+                eng._admit_programs(*case)
+            step(tables)
+        assert [fn.launches for fn in counted] == [
+            4 * cfg.n_layers * eng.chunk, 0, 0]
+        for g in eng._prefill_graphs():
+            assert g.launches == {"paged_append_decode_attention": 0,
+                                  "paged_kv_append": 0,
+                                  "paged_decode_attention": 0,
+                                  "flash_fwd": 0}
+        now = pa.workspace_of(dev)
+        assert now[0] is ws[0] and now[1] is ws[1]
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_prefill_families_memory_stays_bounded():
+    """Many distinct prompt lengths and prefix hits fill the three
+    families with many keys; after the widest bucket's entries exist,
+    the rest add next to no device memory: every entry stages its
+    outputs in the engine's buffers and keeps none of its own, and its
+    graph's temporaries reuse the families' pool.  With a 65,536-token
+    vocabulary an entry that kept its bucket's f32 logits would hold
+    at least 8 MiB (bucket 32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = tllama.LlamaConfig.tiny(vocab_size=65536)
+    params = tllama.init_params(cfg, 0, device=dev, dtype=cfg.dtype)
+    eng = LlamaEngine(cfg, params, slots=4, chunk=4, block_size=8,
+                      max_len=512, device=dev)
+    rng = np.random.default_rng(9)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(1, 65536, size=n)]
+
+    try:
+        base = toks(300)  # bucket 511, the cap; donates 37 blocks
+        eng.submit(base, 4).result(timeout=300)
+        torch.cuda.synchronize(dev)
+        r1 = torch.cuda.memory_reserved(dev)
+        s1 = eng.stats()
+        prompts = [toks(n) for n in (17, 20, 33, 40, 65, 70, 129, 140,
+                                     257, 260)]
+        prompts += [base[:16] + toks(20), base[:40] + toks(50),
+                    base[:120] + toks(10), base[:200] + toks(100)]
+        for f in [eng.submit(p, 4) for p in prompts]:
+            f.result(timeout=300)
+        torch.cuda.synchronize(dev)
+        r2 = torch.cuda.memory_reserved(dev)
+        s2 = eng.stats()
+        graphs = eng._prefill_graphs()
+        added = sum(s2[k] - s1[k] for k in (
+            "prefill_cache_size", "suffix_cache_size", "write_cache_size"))
+        seen = {k: (s1[k], s2[k]) for k in (
+            "prefill_cache_size", "suffix_cache_size", "write_cache_size",
+            "prefill_graph_bytes")}
+        assert s2["suffix_cache_size"] >= 4 and added >= 15, seen
+        assert all(g.captured and g._out is None for g in graphs), seen
+        grew = s2["prefill_graph_bytes"] - s1["prefill_graph_bytes"]
+        assert grew <= 8 << 20, (grew, seen)
+        assert r2 - r1 <= 64 << 20, (r2 - r1, grew, seen)
+    finally:
+        eng.shutdown()

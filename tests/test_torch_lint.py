@@ -6,7 +6,7 @@
   copy is (`test_torch_copies.rewrite`), gives the port's linter the
   same (rule, path, line) findings, RT007's aside.
 - RT007 guards CUDA graph captures in the port (a `torch.cuda.graph`
-  block, the function a `ChunkGraph` records): capture fixtures of its
+  block, the function an `EngineGraph` records): capture fixtures of its
   own, and the reference's `jax.jit`
   fixtures draw no RT007 from it.
 - The port's tree and tests are clean against the port's baseline, and
@@ -137,11 +137,11 @@ def test_rt007_recorded_function_positive(tmp_path):
         import random
         import uuid
 
-        from ray_tpu_torch.serve.llm_engine import ChunkGraph
+        from ray_tpu_torch.serve.llm_engine import EngineGraph
 
         class Engine:
             def stepper(self):
-                return ChunkGraph(self._run_chunk, None)
+                return EngineGraph(self._run_chunk, None)
 
             def _run_chunk(self, tables):
                 return tables + random.random()
@@ -150,7 +150,7 @@ def test_rt007_recorded_function_positive(tmp_path):
             tag = uuid.uuid4()
             return x * 2
 
-        stepper = ChunkGraph(step)
+        stepper = EngineGraph(step)
         """,
     )
     assert [(f.rule, f.line) for f in out] == [("RT007", 12), ("RT007", 15)]

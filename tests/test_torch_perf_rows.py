@@ -83,15 +83,25 @@ def test_obs_overhead_row():
         "--num-workers", "2",
     ])
     row = results["obs_overhead"]
-    assert results["metrics_off"]["tasks_per_s"] > 0
-    assert results["metrics_on"]["tasks_per_s"] > 0
-    assert row["instrumented"] == 1.0
-    assert -50.0 < row["overhead_pct"] < 50.0
+    off, on = results["metrics_off"], results["metrics_on"]
+    readings = (f"overhead_pct={row['overhead_pct']}, tasks/s off "
+                f"{off['tasks_per_s']} ({off['tasks_per_s_min']}-"
+                f"{off['tasks_per_s_max']}), on {on['tasks_per_s']} "
+                f"({on['tasks_per_s_min']}-{on['tasks_per_s_max']})")
+    assert off["tasks_per_s"] > 0, readings
+    assert on["tasks_per_s"] > 0, readings
+    assert row["instrumented"] == 1.0, readings
+    assert -50.0 < row["overhead_pct"] < 50.0, readings
     srow = results["serve_obs_overhead"]
-    assert results["serve_obs_off"]["tokens_per_sec"] > 0
-    assert results["serve_obs_on"]["tokens_per_sec"] > 0
-    assert srow["instrumented"] == 1.0
-    assert -50.0 < srow["overhead_pct"] < 50.0
+    soff, son = results["serve_obs_off"], results["serve_obs_on"]
+    readings = (f"overhead_pct={srow['overhead_pct']}, tokens/s off "
+                f"{soff['tokens_per_sec']} ({soff['tokens_per_sec_min']}-"
+                f"{soff['tokens_per_sec_max']}), on {son['tokens_per_sec']} "
+                f"({son['tokens_per_sec_min']}-{son['tokens_per_sec_max']})")
+    assert soff["tokens_per_sec"] > 0, readings
+    assert son["tokens_per_sec"] > 0, readings
+    assert srow["instrumented"] == 1.0, readings
+    assert -50.0 < srow["overhead_pct"] < 50.0, readings
 
 
 def test_dag_calls_row():
