@@ -117,7 +117,7 @@ exits non-zero:
     f32 values: the ring path
     of the object plane) mean-allreduced through
     `cuda_utils.sync_gradients` before every AdamW update, rank 0
-    checkpointing every step: 4 steps, then a second `fit` resumed from
+    checkpointing every step: 3 steps, then a second `fit` resumed from
     the last checkpoint for 1 more.  Held: both ranks' adapters
     bit-equal after every step; the first synced gradient against one
     process's gradient on the whole batch (computed here after the
@@ -131,15 +131,34 @@ exits non-zero:
     `torch_distributed`: one `num_gpus=1` worker joins an NCCL group,
     builds its `DeviceMesh` on `cuda` and takes one step, whose loss
     equals the one-process step's.
-13c. sp_attention: two gloo ranks (this script, `--sp-rank`) share the
-    card (NCCL refuses two ranks on one GPU) in an sp 2 mesh:
-    `ring_attention` and `ulysses_attention` at B 8, T 1,024, H 16, D
-    128, f32 and bf16, causal and not, against `plain_attention` on the
-    whole sequence (f32 1e-5, bf16 2e-2); the gradient of a sum through
-    the ring against dense (1e-4); `llama.loss_fn` with attention
-    "ring" over the mesh at 4 layers against dense (2e-2); with the
-    backend and how each collective's bytes travelled (gloo: through
-    the host).
+13c. sharded_train: four gloo ranks (this script, `--shard-rank`) share
+    the card (NCCL refuses two ranks on one GPU) in an fsdp 2 x tp 2
+    mesh.  GPT-2 124M at full width and depth (the train main path's
+    config: flash, bf16 on f32 master, full remat, `default_optimizer`)
+    through `make_train_step` on DTensor params (`shard_params`), the
+    moments placed by `optimizer_shardings`, the batch (global 8 x
+    1,024) by `prepare_batch`: 1 + 2 steps.  Held: step-0 loss within
+    0.5 of ln 50,257 and falling; step-0 loss within 2e-2 and the
+    pre-clip gradient norm within 3e-2 (relative) of one process's step
+    on the same weights and batch; 24 K1 and 12 K2 a step a rank, every
+    one on its local [4 x 6, 1,024, 64] block, no plain dispatch; every
+    collective through the host (gloo), and the c10d ops of step 0 only
+    those (no functional collective of DTensor's).  The state is saved
+    sharded after step 2, loaded onto fsdp 4 x tp 1 in the same ranks
+    (params' global norm within 1e-6 relative, the step count kept) and
+    steps once more.  Then the LoRA bench's width at 4 layers (bf16
+    frozen base, rank-8 adapters, both sharded): one step, its loss
+    within 2e-2 of one process's, 8 K1 and 4 K2 a rank on [4 x 8,
+    1,024, 128] blocks.  Recorded: step ms, tokens/s, each rank's peak
+    memory, calls / bytes / ms in collectives by op and route,
+    start-up s.  Then sp_attention on the same
+    ranks over dp 2 x sp 2: `ring_attention` and `ulysses_attention` at
+    B 8, T 1,024, H 16, D 128, f32 and bf16, causal and not, against
+    `plain_attention` on the whole sequence (f32 1e-5, bf16 2e-2); the
+    gradient of a sum through the ring against dense (1e-4);
+    `llama.loss_fn` with attention "ring" over the mesh at 4 layers
+    against dense (2e-2); with the backend and how each collective's
+    bytes travelled (gloo: through the host).
 13c'. data_ingest: 16 `.npz` files of 1,024 rows (int32 tokens [1,025]
     uniform in [0, 32,000) from `default_rng(0)`, int64 `row_id`; 67.2
     MB) written to a temp directory, then `read_numpy` -> `map_batches`
@@ -148,7 +167,7 @@ exits non-zero:
     `CudaTrainer(ingest_train_loop, datasets={"train": ds})` with two
     collective-mode workers sharing the card (`GPU` 0.5, `CPU` 1 each),
     each taking 4 rows a step through `iter_cuda_batches` at the LoRA
-    bench's width at 4 of its 22 layers for 4 steps.  Held: every batch on the card, int32
+    bench's width at 4 of its 22 layers for 3 steps.  Held: every batch on the card, int32
     [4, 1,025], its digest recomputed there; every (row_id, digest) pair
     against the driver's own corpus and no row_id twice; both ranks'
     adapters bit-equal after every step; the step-0 synced gradient
@@ -175,7 +194,7 @@ exits non-zero:
     slot into one store object a hop) and a dict of small f32 / int8
     CUDA tensors (inline in the slot): each arrives bit-equal, in its
     dtype, on the reader's card (each hop checks it got CUDA tensors);
-    ms an execute over 10 calls and the route of each payload.
+    ms an execute over 5 calls and the route of each payload.
 13e. mixtral_train: Mixtral-8x7B's full width (vocab 32,000, dim 4,096,
     32 / 8 heads, expert hidden 14,336, 8 experts, top-2, capacity 1.25)
     with its depth cut to 2 layers (2.23e9 params: f32 params,
@@ -203,14 +222,14 @@ exits non-zero:
     (8 MB activations, spilled past the slot), loss mean(y^2): loss (1e-2
     relative) and each stage's gradients (relative norm 3e-2) against
     one process's serial autograd over the same two blocks with dense
-    attention; ms an
-    execute over 3, the bytes through the channels, the bubble model's
+    attention; ms of one timed execute after the warm-up one, the bytes
+    through the channels, the bubble model's
     (S-1)/(M+S-1), and each stage's K1 / K2 launches over the timed
     executes (M each an execute), read in the stage.
 13h. rllib_ppo: BASELINE config #3's fleet (`rllib/bench.py`'s
     defaults: CartPole, 8 runners x 16 envs x 64 steps, minibatch
     2,048, 2 epochs, lr 3e-4, seed 0) with the learner on the card, a
-    gang of 1, 1 warm-up + 4 iterations in the overlap, sync and
+    gang of 1, 1 warm-up + 2 iterations in the overlap, sync and
     compiled-DAG rounds: env steps/s, updates/s, the overlap, the
     learner's ms a minibatch (h2d copy, forward + backward, optimizer;
     CUDA events), the weights' device-to-host ms, the card's idle share
@@ -1158,7 +1177,7 @@ def _engine_restore(engine: LlamaEngine, snap: dict) -> None:
 
 
 def graph_vs_eager(cfg, params, state, device, *, chunk=8, block_size=16,
-                   max_len=512, reps=5) -> dict:
+                   max_len=512, reps=3) -> dict:
     """The engine's chunk replayed from its CUDA graph against its eager
     chunk, from the main path's mid-decode state loaded into an idle
     engine (bf16 KV, and int8 KV quantized from it): token rows,
@@ -2377,7 +2396,7 @@ PLANE_REDUCED = ("depth 22 -> 4 layers: keeps the script in its time "
                  "depend on depth")
 
 
-def train_plane(device, *, batch=8, seq=1024, steps=4, resume_steps=1,
+def train_plane(device, *, batch=8, seq=1024, steps=3, resume_steps=1,
                 cfg=None) -> dict:
     """`CudaTrainer(...).fit()` with two collective-mode workers sharing
     the card (`GPU` 0.5 each), each running `dp_train_loop` on its half
@@ -2594,30 +2613,279 @@ def train_plane_lines(tp: dict, smi: str) -> tuple:
 # ----------------------------------------------------------------------
 # ring and Ulysses attention over a process group, on the card
 # ----------------------------------------------------------------------
-def sp_rank(rank: int, port: str, out_dir: str) -> None:
-    """One of two gloo ranks sharing the card (NCCL refuses two ranks on
-    one GPU): ring and Ulysses attention at the LoRA shape against dense
-    attention on the whole sequence, the gradient of a sum through the
-    ring, and `llama.loss_fn` with attention "ring" over the sp 2 mesh
-    at 4 layers against dense.  Writes its readings as JSON."""
+# the sharded step (`sharded_train`): four gloo ranks sharing the card
+# over fsdp 2 x tp 2, GPT-2 124M and the LoRA bench's width, against one
+# process's step on the same weights and batch; the state resharded onto
+# fsdp 4 x tp 1 through a sharded checkpoint
+SHARD_WORLD = 4
+SHARD_MESH = {"fsdp": 2, "tp": 2}
+SHARD_RELOAD_MESH = {"fsdp": 4}
+SHARD_BATCH, SHARD_SEQ = 8, 1024
+SHARD_TIMED = 2  # steps after the first
+# step 0 against one process: the loss relative (the lse over a
+# vocabulary split over tp, bf16 products summed in other orders), the
+# pre-clip gradient norm relative (the data ranks' gradients summed
+# through the host in f32 where one process sums one batch); the f32
+# params' norm across the reshard (the same values, summed per block)
+SHARD_LOSS_TOL = 2e-2
+SHARD_GRAD_TOL = 3e-2
+SHARD_NORM_TOL = 1e-6
+SHARD_LORA_LAYERS = 4  # the LoRA bench's 22 layers cut, as train_plane
+
+
+class recorded_flash:
+    """K1 and K2's wrappers, called through, recording the folded [BH,
+    T, D] q of each call in this process (`shapes[name]`).  A wrapper
+    counts its launches on the module's name, so the recorders carry
+    the counts while they stand in, and hand them back at the end."""
+
+    def __enter__(self):
+        self.shapes = {"flash_fwd": [], "flash_bwd_fused": []}
+        self.orig = {n: getattr(fa, n) for n in self.shapes}
+
+        def recorder(name):
+            def call(q, *args):
+                self.shapes[name].append(tuple(q.shape))
+                return self.orig[name](q, *args)
+            call.launches = self.orig[name].launches
+            return call
+
+        for name in self.shapes:
+            setattr(fa, name, recorder(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            fn.launches = getattr(fa, name).launches
+            setattr(fa, name, fn)
+
+
+def _clear_collectives() -> None:
+    for c in (collectives.TRANSPORTS, collectives.TRANSPORT_BYTES,
+              collectives.TRANSPORT_MS):
+        c.clear()
+
+
+def _collective_rows() -> dict:
+    """(op / backend / route) -> calls, input bytes and host ms since the
+    last `_clear_collectives`."""
+    return {"/".join(k): {"calls": n,
+                          "bytes": collectives.TRANSPORT_BYTES[k],
+                          "ms": collectives.TRANSPORT_MS[k]}
+            for k, n in sorted(collectives.TRANSPORTS.items())}
+
+
+def _peak_gb(device):
+    return (torch.cuda.max_memory_allocated(device) / 1e9
+            if device.type == "cuda" else None)
+
+
+def _sharded_step(step, args, device, debug: bool = False) -> tuple:
+    """One sharded step: (its outputs, its record: wall ms to a sync, the
+    K1-K4 counts and plain dispatches of this step alone, each flash
+    call's folded q shape, the collectives by op and route, and with
+    `debug` every c10d op it dispatched, by name)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    reset_counts()
+    _clear_collectives()
+    with recorded_flash() as rec:
+        _sync(device)
+        t0 = time.perf_counter()
+        if debug:
+            comm = CommDebugMode()
+            with comm:
+                outs = step(*args)
+        else:
+            outs = step(*args)
+        loss = float(outs[-1]["loss"])
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+    rec_ = {"ms": ms, "loss": loss, "launches": read_counts(),
+            "plain_dispatches": fa.flash_attention.plain_dispatches,
+            "shapes": {n: [list(t) for t in sorted(set(v))]
+                       for n, v in rec.shapes.items()},
+            "collectives": _collective_rows()}
+    if "grad_norm" in outs[-1]:
+        rec_["grad_norm"] = float(outs[-1]["grad_norm"])
+    if debug:
+        # every c10d op the step dispatched; DTensor's own would be
+        # functional collectives
+        rec_["comm_ops"] = {str(k): int(v) for k, v in
+                            comm.get_comm_counts().items()}
+    return outs, rec_
+
+
+def shard_gpt2_config() -> gpt2.GPT2Config:
+    """The train main path's GPT-2 124M (`train_gpt2.build`'s config)."""
+    return gpt2.GPT2Config(attention="flash", logits_dtype=torch.bfloat16)
+
+
+def shard_gpt2_inputs(cfg, device, seq: int = SHARD_SEQ) -> tuple:
+    """(the params, the global batch [8, seq + 1]) from their seeds: the
+    same on every rank and in the one-process reference."""
+    params = gpt2.init_params(cfg, 0, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (SHARD_BATCH, seq + 1),
+                           generator=gen, device=device, dtype=torch.int32)
+    return params, tokens
+
+
+def one_process_references(device) -> dict:
+    """One process's GPT-2 step and LoRA loss on the sharded phase's
+    weights and batches, taken while its ranks run."""
+    cfg = shard_gpt2_config()
+    params, tokens = shard_gpt2_inputs(cfg, device)
+    opt = gpt2.default_optimizer(total_steps=1000)
+    _, _, m = gpt2.make_train_step(cfg, opt)(params, opt.init(params),
+                                             tokens)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    del params, tokens, m
+    lcfg = train_llama_lora.lora_config(n_layers=SHARD_LORA_LAYERS)
+    st = train_llama_lora.build(device, SHARD_BATCH, SHARD_SEQ, 0, lcfg)
+    with torch.no_grad():
+        out["lora_loss"] = float(llama.loss_fn(
+            lcfg, st["params"], st["tokens"], lora=st["lora"]))
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_rank(rank: int, port: str, out_dir: str, *, device="cuda",
+               cfg=None, lcfg=None, seq: int = SHARD_SEQ,
+               sp: bool = True) -> None:
+    """One of `SHARD_WORLD` gloo ranks sharing the card (NCCL refuses two
+    ranks on one GPU).  GPT-2 124M's sharded step over fsdp 2 x tp 2,
+    its state saved sharded, reloaded onto fsdp 4 x tp 1 and
+    stepped once more; the LoRA bench's width at 4 layers, one step; the
+    sequence-parallel checks over dp 2 x sp 2.  Writes its readings as
+    JSON.  `device`, the configs,
+    `seq` and `sp` are for a rehearsal on the CPU at a small size."""
+    t_start = time.perf_counter()
     import datetime
 
     import torch.distributed as dist
 
-    from ray_tpu_torch.parallel import MeshSpec
-    from ray_tpu_torch.parallel.ring_attention import (ring_attention,
-                                                       ulysses_attention)
+    from ray_tpu_torch.parallel import (MeshSpec, optimizer_shardings,
+                                        shard_params, tree_shardings)
+    from ray_tpu_torch.parallel.sharding import distribute_tree, global_norm
+    from ray_tpu_torch.train.cuda_utils import prepare_batch
+    from ray_tpu_torch.train.sharded_checkpoint import (load_sharded,
+                                                        save_sharded)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=2, rank=rank,
+                            world_size=SHARD_WORLD, rank=rank,
                             timeout=datetime.timedelta(seconds=300))
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    mesh = MeshSpec(sp=2).build(device_type="cuda")
+    device = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    path = os.path.join(out_dir, f"shard_rank{rank}.json")
+    out = {"rank": rank, "world": dist.get_world_size(),
+           "backend": str(dist.get_backend())}
+
+    # GPT-2 124M: the train main path's config, 8 x 1,024 a step
+    cfg = cfg or shard_gpt2_config()
+    logical = gpt2.logical_axes(cfg)
+    params, tokens = shard_gpt2_inputs(cfg, device, seq)
+    opt = gpt2.default_optimizer(total_steps=1000)
+    mesh = MeshSpec(**SHARD_MESH).build(device_type=device.type)
+    sh = tree_shardings(mesh, logical)
+    opt_state = distribute_tree(opt.init(params), mesh,
+                                optimizer_shardings(mesh, opt, params, sh))
+    params = shard_params(params, mesh, logical)
+    step = gpt2.make_train_step(cfg, opt, mesh)
+    batch = prepare_batch(tokens, mesh)
+    out["startup_s"] = time.perf_counter() - t_start
+    out["mesh_dims"] = list(params["wte"].device_mesh.mesh_dim_names)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    steps = []
+    for i in range(1 + SHARD_TIMED):
+        (params, opt_state, _), rec = _sharded_step(
+            step, (params, opt_state, batch), device, debug=i == 0)
+        steps.append(rec)
+    out["gpt2_steps"] = steps
+    out["gpt2_peak_gb"] = _peak_gb(device)
+
+    # the state through a sharded checkpoint onto fsdp 4 x tp 1
+    norm_saved = float(global_norm(gpt2._leaves(params)))
+    ck = os.path.join(out_dir, "sharded_ckpt")
+    t0 = time.perf_counter()
+    save_sharded({"params": params, "opt_state": opt_state,
+                  "step": len(steps)}, ck)
+    dist.barrier()
+    save_s = time.perf_counter() - t0
+    del params, opt_state, step
+    mesh2 = MeshSpec(**SHARD_RELOAD_MESH).build(device_type=device.type)
+    whole = gpt2.init_params(cfg, 1, device=device)
+    target = {"params": shard_params(whole, mesh2, logical),
+              "opt_state": distribute_tree(
+                  opt.init(whole), mesh2, optimizer_shardings(
+                      mesh2, opt, whole, tree_shardings(mesh2, logical))),
+              "step": 0}
+    del whole
+    t0 = time.perf_counter()
+    state = load_sharded(ck, target)
+    load_s = time.perf_counter() - t0
+    norm_loaded = float(global_norm(gpt2._leaves(state["params"])))
+    (_, _, _), rec = _sharded_step(
+        gpt2.make_train_step(cfg, opt, mesh2),
+        (state["params"], state["opt_state"], prepare_batch(tokens, mesh2)),
+        device)
+    out["reshard"] = {"mesh": SHARD_RELOAD_MESH, "step": state["step"],
+                      "count": state["opt_state"]["count"],
+                      "norm_saved": norm_saved, "norm_loaded": norm_loaded,
+                      "save_s": save_s, "load_s": load_s, "next_step": rec}
+    del state, target
+
+    # the LoRA bench's width: a bf16 frozen base, rank-8 adapters
+    lcfg = lcfg or train_llama_lora.lora_config(n_layers=SHARD_LORA_LAYERS)
+    st = train_llama_lora.build(device, SHARD_BATCH, seq, 0, lcfg)
+    lopt = train_llama_lora.adamw()
+    lora_axes = llama.lora_logical_axes(lcfg, st["lora"])
+    lstate = distribute_tree(lopt.init(st["lora"]), mesh, optimizer_shardings(
+        mesh, lopt, st["lora"], tree_shardings(mesh, lora_axes)))
+    base = shard_params(st["params"], mesh, llama.logical_axes(lcfg))
+    lora = shard_params(st["lora"], mesh, lora_axes)
+    lbatch = prepare_batch(st["tokens"], mesh)
+    del st
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    _, rec = _sharded_step(llama.make_lora_train_step(lcfg, lopt, mesh),
+                           (base, lora, lstate, lbatch), device)
+    out["lora_step"] = rec
+    out["lora_peak_gb"] = _peak_gb(device)
+    del base, lora, lstate, lbatch
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ring and Ulysses attention over dp 2 x sp 2 on the same ranks
+    t0 = time.perf_counter()
+    if sp:
+        sp_checks(MeshSpec(dp=2, sp=2).build(device_type="cuda"), device,
+                  out)
+    out["sp_s"] = time.perf_counter() - t0
+    with open(path, "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sp_checks(mesh, device, out: dict) -> None:
+    """Ring and Ulysses attention at the LoRA shape against dense
+    attention on the whole sequence, the gradient of a sum through the
+    ring, and `llama.loss_fn` with attention "ring" over the mesh at 4
+    layers against dense, into `out`."""
+    from ray_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                       ulysses_attention)
+
     B, T, H, D = 8, 1024, 16, 128
-    out = {"rank": rank, "backend": str(dist.get_backend()),
-           "mesh_device_type": mesh.device_type, "cases": []}
+    out["mesh_device_type"] = mesh.device_type
+    out["cases"] = []
     for kind, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         gen = torch.Generator(device=device)
         gen.manual_seed(11)
@@ -2627,7 +2895,7 @@ def sp_rank(rank: int, port: str, out_dir: str) -> None:
             dense = plain_attention(q, k, v, causal=causal)
             for name, fn in (("ring", ring_attention),
                              ("ulysses", ulysses_attention)):
-                collectives.TRANSPORTS.clear()
+                _clear_collectives()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 got = fn(q, k, v, mesh, causal=causal)
@@ -2667,15 +2935,13 @@ def sp_rank(rank: int, port: str, out_dir: str) -> None:
     out["llama"] = {"n_layers": 4, "ring_loss": ring_loss,
                     "dense_loss": dense_loss,
                     "within": abs(ring_loss - dense_loss) <= FULL_LOSS_TOL}
-    with open(os.path.join(out_dir, f"sp_rank{rank}.json"), "w") as f:
-        json.dump(out, f)
-    dist.barrier()
-    dist.destroy_process_group()
 
 
-def _spawn_ranks(flag: str, timeout: float) -> tuple:
-    """Runs this script as two ranks (`flag` rank port dir); returns
-    (their output dir, wall s).  A rank that outlives `timeout` is
+def _spawn_ranks(flag: str, timeout: float, world: int = 2,
+                 meanwhile=None) -> tuple:
+    """Runs this script as `world` ranks (`flag` rank port dir), and
+    `meanwhile()` here while they run; returns (their output dir, wall
+    s, what `meanwhile` returned).  A rank that outlives `timeout` is
     killed and the phase fails."""
     work = tempfile.mkdtemp(prefix="rtt" + flag.replace("-", "_") + "_")
     with socket.socket() as s:
@@ -2685,32 +2951,177 @@ def _spawn_ranks(flag: str, timeout: float) -> tuple:
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), flag, str(r), port,
          work], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in (0, 1)]
-    logs = []
+        text=True) for r in range(world)]
+    logs, got = [], None
     try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
+        # each rank's output drained on its own thread: a rank that
+        # fills its pipe must not stall the group
+        with ThreadPoolExecutor(world) as pool:
+            futs = [pool.submit(p.communicate, timeout=timeout)
+                    for p in procs]
+            if meanwhile is not None:
+                got = meanwhile()
+            logs = [f.result()[0] for f in futs]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for p, log in zip(procs, logs):
-        if p.returncode != 0:
-            raise AssertionError(f"{flag} rank failed ({p.returncode}): "
-                                 f"{log[-3000:]}")
-    return work, time.perf_counter() - t0
+    failed = [(r, p.returncode) for r, p in enumerate(procs)
+              if p.returncode != 0]
+    if failed:
+        r = failed[0][0]
+        raise AssertionError(f"{flag} ranks failed (rank, code): {failed}; "
+                             f"rank {r}'s output: {logs[r][-3000:]}")
+    return work, time.perf_counter() - t0, got
 
 
-def sp_attention(smi: str, timeout: float = 600.0) -> dict:
-    """Spawns the two `sp_rank` processes (this script, `--sp-rank`) and
-    holds their readings; a rank that outlives `timeout` is killed and
-    the phase fails."""
-    work, wall = _spawn_ranks("--sp-rank", timeout)
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def sharded_train(smi: str, timeout: float = 420.0) -> tuple:
+    """Spawns the `shard_rank` processes (this script, `--shard-rank`) and
+    holds their readings; returns (the `sharded_train` line, the
+    `sp_attention` line, the main path's K1-K4 launches over every rank).
+    One process's references (the GPT-2 step, the LoRA loss) are taken
+    here while the ranks run.  A rank that fails, or outlives
+    `timeout`, fails the phase."""
+    work, wall, ref = _spawn_ranks(
+        "--shard-rank", timeout, world=SHARD_WORLD,
+        meanwhile=lambda: one_process_references(torch.device("cuda")))
     ranks = []
-    for r in (0, 1):
-        with open(os.path.join(work, f"sp_rank{r}.json")) as f:
+    for r in range(SHARD_WORLD):
+        with open(os.path.join(work, f"shard_rank{r}.json")) as f:
             ranks.append(json.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    r0 = ranks[0]
+    cfg = gpt2.GPT2Config()
+    lcfg = train_llama_lora.lora_config(n_layers=SHARD_LORA_LAYERS)
+    tp = SHARD_MESH["tp"]
+    local_b = SHARD_BATCH // SHARD_MESH["fsdp"]
+    want = {"flash_fwd": 2 * cfg.n_layer, "flash_bwd_fused": cfg.n_layer,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    shape = [local_b * cfg.n_head // tp, SHARD_SEQ, cfg.head_dim]
+    shape2 = [SHARD_BATCH // SHARD_RELOAD_MESH["fsdp"] * cfg.n_head,
+              SHARD_SEQ, cfg.head_dim]
+    lwant = {"flash_fwd": 2 * lcfg.n_layers, "flash_bwd_fused": lcfg.n_layers,
+             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    lshape = [local_b * lcfg.n_heads // tp, SHARD_SEQ, lcfg.head_dim]
+    bad = []
+
+    def held(what, rec, launches, shape_):
+        if rec["launches"] != launches or rec["plain_dispatches"]:
+            bad.append((what, "launches", rec["launches"],
+                        rec["plain_dispatches"]))
+        if rec["shapes"] != {"flash_fwd": [shape_],
+                             "flash_bwd_fused": [shape_]}:
+            bad.append((what, "local blocks", rec["shapes"]))
+        if not all(row.endswith("/host") for row in rec["collectives"]):
+            bad.append((what, "a collective off the host route",
+                        rec["collectives"]))
+
+    for r in ranks:
+        losses = [s["loss"] for s in r["gpt2_steps"]]
+        if not all(math.isfinite(x) for x in losses):
+            bad.append((r["rank"], "losses", losses))
+        if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+            bad.append((r["rank"], "step-0 loss far from ln V", losses[0]))
+        if not losses[-1] < losses[0]:
+            bad.append((r["rank"], "loss not falling", losses))
+        s0 = r["gpt2_steps"][0]
+        if _rel(s0["loss"], ref["loss"]) > SHARD_LOSS_TOL:
+            bad.append((r["rank"], "step-0 loss", s0["loss"], ref["loss"]))
+        if _rel(s0["grad_norm"], ref["grad_norm"]) > SHARD_GRAD_TOL:
+            bad.append((r["rank"], "step-0 grad norm", s0["grad_norm"],
+                        ref["grad_norm"]))
+        # the c10d ops of step 0 are the staged collectives' own, one
+        # each; DTensor issued none (no functional collective)
+        staged = sum(c["calls"] for c in s0["collectives"].values())
+        if (any("functional" in op for op in s0["comm_ops"])
+                or sum(s0["comm_ops"].values()) != staged):
+            bad.append((r["rank"], "collectives outside the staged ones",
+                        s0["comm_ops"], staged))
+        for i, s in enumerate(r["gpt2_steps"]):
+            held((r["rank"], "gpt2", i), s, want, shape)
+        rs = r["reshard"]
+        if _rel(rs["norm_loaded"], rs["norm_saved"]) > SHARD_NORM_TOL:
+            bad.append((r["rank"], "reshard norm", rs))
+        if (rs["step"], rs["count"]) != (1 + SHARD_TIMED, 1 + SHARD_TIMED):
+            bad.append((r["rank"], "reshard step", rs["step"], rs["count"]))
+        if not math.isfinite(rs["next_step"]["loss"]):
+            bad.append((r["rank"], "step after the reshard", rs))
+        held((r["rank"], "gpt2 after the reshard"), rs["next_step"], want,
+             shape2)
+        ls = r["lora_step"]
+        if _rel(ls["loss"], ref["lora_loss"]) > SHARD_LOSS_TOL:
+            bad.append((r["rank"], "lora loss", ls["loss"],
+                        ref["lora_loss"]))
+        held((r["rank"], "lora"), ls, lwant, lshape)
+    if bad:
+        raise AssertionError(f"sharded_train outside its limits: {bad}")
+    launches = {n: sum(s["launches"][n] for r in ranks
+                       for s in r["gpt2_steps"] + [r["reshard"]["next_step"],
+                                                   r["lora_step"]])
+                for n in FLASH}
+    timed = [s["ms"] for s in r0["gpt2_steps"][1:]]
+    step_s = statistics.mean(timed) / 1e3
+    line = {
+        "phase": "sharded_train", "nvidia_smi": smi, "ranks": SHARD_WORLD,
+        "backend": r0["backend"], "mesh": SHARD_MESH,
+        "mesh_dims": r0["mesh_dims"], "wall_s": wall,
+        "gpt2": {
+            "model": "gpt2_124m", "n_layer": cfg.n_layer,
+            "attention": "flash", "dtype": "bfloat16",
+            "master_dtype": "float32", "logits_dtype": "bfloat16",
+            "remat_policy": cfg.remat_policy, "global_batch": SHARD_BATCH,
+            "seq": SHARD_SEQ, "steps": 1 + SHARD_TIMED,
+            "losses": [s["loss"] for s in r0["gpt2_steps"]],
+            "grad_norms": [s["grad_norm"] for s in r0["gpt2_steps"]],
+            "loss_spread_over_ranks": max(
+                abs(r["gpt2_steps"][0]["loss"] - r0["gpt2_steps"][0]["loss"])
+                for r in ranks),
+            "one_process": {k: ref[k] for k in ("loss", "grad_norm")},
+            "step0_rel_err": {
+                "loss": _rel(r0["gpt2_steps"][0]["loss"], ref["loss"]),
+                "grad_norm": _rel(r0["gpt2_steps"][0]["grad_norm"],
+                                  ref["grad_norm"])},
+            "tolerance": {"loss": SHARD_LOSS_TOL,
+                          "grad_norm": SHARD_GRAD_TOL},
+            "step_ms": [s["ms"] for s in r0["gpt2_steps"]],
+            "tokens_per_s": SHARD_BATCH * SHARD_SEQ / step_s,
+            "launches_a_step_a_rank": r0["gpt2_steps"][-1]["launches"],
+            "local_blocks": r0["gpt2_steps"][-1]["shapes"],
+            "c10d_ops_step0": r0["gpt2_steps"][0]["comm_ops"],
+            "collectives_a_step": r0["gpt2_steps"][-1]["collectives"],
+            "peak_gb_each_rank": [r["gpt2_peak_gb"] for r in ranks]},
+        "reshard": {k: r0["reshard"][k] for k in (
+            "mesh", "step", "norm_saved", "norm_loaded", "save_s",
+            "load_s")} | {
+            "norm_rel_err": _rel(r0["reshard"]["norm_loaded"],
+                                 r0["reshard"]["norm_saved"]),
+            "tolerance": SHARD_NORM_TOL,
+            "next_step": {k: r0["reshard"]["next_step"][k] for k in (
+                "ms", "loss", "launches", "shapes")}},
+        "lora": {
+            "n_layers": lcfg.n_layers, "depth_cut": "22 -> 4",
+            "loss": r0["lora_step"]["loss"],
+            "one_process_loss": ref["lora_loss"],
+            "rel_err": _rel(r0["lora_step"]["loss"], ref["lora_loss"]),
+            "tolerance": SHARD_LOSS_TOL, "ms": r0["lora_step"]["ms"],
+            "launches": r0["lora_step"]["launches"],
+            "local_blocks": r0["lora_step"]["shapes"],
+            "collectives": r0["lora_step"]["collectives"],
+            "peak_gb_each_rank": [r["lora_peak_gb"] for r in ranks]},
+        "startup_s_each_rank": [r["startup_s"] for r in ranks],
+        "launches_all_ranks": launches,
+    }
+    return line, sp_line(ranks, smi), launches
+
+
+def sp_line(ranks: list, smi: str) -> dict:
+    """The `sp_attention` line from the ranks' sequence-parallel
+    readings (dp 2 x sp 2 over the sharded step's ranks)."""
     bad = [(r["rank"], c) for r in ranks for c in r["cases"]
            if not c["within"]]
     bad += [(r["rank"], n, g) for r in ranks for n, g in r["grad"].items()
@@ -2720,20 +3131,19 @@ def sp_attention(smi: str, timeout: float = 600.0) -> dict:
     if bad:
         raise AssertionError(f"sp_attention outside its limits: {bad}")
     r0 = ranks[0]
-    return {"phase": "sp_attention", "nvidia_smi": smi, "ranks": 2,
-            "sp": 2, "backend": r0["backend"],
+    return {"phase": "sp_attention", "nvidia_smi": smi,
+            "ranks": len(ranks), "sp": 2, "dp": 2, "backend": r0["backend"],
             "mesh_device_type": r0["mesh_device_type"],
             "shape": {"B": 8, "T": 1024, "H": 16, "D": 128},
             "cases": [{k: c[k] for k in ("fn", "dtype", "causal",
                                          "max_abs_err", "wall_ms",
                                          "transports")}
                       for c in r0["cases"]],
-            "max_abs_err_both_ranks": max(c["max_abs_err"] for r in ranks
-                                          for c in r["cases"]),
+            "max_abs_err_all_ranks": max(c["max_abs_err"] for r in ranks
+                                         for c in r["cases"]),
             "tolerance": SP_TOL, "grad": r0["grad"],
             "grad_tolerance": SP_GRAD_TOL, "llama": r0["llama"],
-            "llama_tolerance": FULL_LOSS_TOL,
-            "wall_s": wall}
+            "llama_tolerance": FULL_LOSS_TOL, "wall_s": r0["sp_s"]}
 
 
 # ----------------------------------------------------------------------
@@ -2771,7 +3181,7 @@ def _same_on_card(got, want) -> bool:
                and torch.equal(a, b) for a, b in pairs)
 
 
-def compiled_dag(device, smi: str, *, reps: int = 10,
+def compiled_dag(device, smi: str, *, reps: int = 5,
                  big_shape=(8, 1024, 4096)) -> dict:
     """Two `num_gpus=0.5` port actors in a compiled chain `a.hop(inp) ->
     b.hop(...)` carry a CUDA bf16 tensor (64 MB: spilled past the slot
@@ -3179,7 +3589,7 @@ def moe_ep(smi: str, timeout: float = 600.0) -> dict:
     oracle's, the gradients of the router, both expert weights and x
     through both all_to_alls within relative norm 3e-2 of the oracle's,
     on both ranks."""
-    work, wall = _spawn_ranks("--moe-rank", timeout)
+    work, wall, _ = _spawn_ranks("--moe-rank", timeout)
     ranks = []
     for r in (0, 1):
         with open(os.path.join(work, f"moe_rank{r}.json")) as f:
@@ -3230,7 +3640,7 @@ def pipe_loss(y):
     return y.float().square().mean()
 
 
-def pipeline_1f1b(device, smi: str, *, M=4, mb=1, seq=1024, executes=3,
+def pipeline_1f1b(device, smi: str, *, M=4, mb=1, seq=1024, executes=1,
                   cfg=None) -> dict:
     """`compile_pipeline` with 2 stage actors on the card (`num_gpus`
     0.5 each), each one Llama-3-8B block at full width (flash, bf16
@@ -3479,7 +3889,7 @@ def check_batches(recs: dict, corpus: dict, batch: int, seq: int) -> list:
     return seen
 
 
-def data_ingest(device, smi: str, corpus: dict, *, batch=4, steps=4,
+def data_ingest(device, smi: str, corpus: dict, *, batch=4, steps=3,
                 cfg=None, timeout: float = 900.0) -> dict:
     """`read_numpy` -> `map_batches(digest_fn)` -> `random_shuffle(seed=0)`
     streamed into `CudaTrainer(ingest_train_loop)`: two collective-mode
@@ -4163,11 +4573,14 @@ def update_vs_cpu(algo, first: dict, learner=None) -> dict:
 def profile_call(fn) -> tuple:
     """`fn()` under `torch.profiler`: (its value, the wall ms to the
     card's last work, the card's busy ms: the device time of every
-    kernel and copy in the trace)."""
+    kernel and copy in the trace).  The card's activity only: a trace of
+    every host op as well took 7-35 s to collect after a 0.2-1.8 s
+    iteration (rllib_ppo, rllib_dreamer_pixels, rllib_multi_agent on
+    the H100), and its recording lengthened the wall it is read
+    against."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         value = fn()
         torch.cuda.synchronize()
@@ -4178,10 +4591,10 @@ def profile_call(fn) -> tuple:
 
 
 def device_idle_share(algo) -> dict:
-    """One more iteration under `torch.profiler`: the card's busy ms
-    over the iteration's wall ms.  The profiler's host overhead
-    lengthens the wall, so the share reads high; None when the trace
-    shows no device time."""
+    """One more iteration under `torch.profiler` (the card's activity
+    only): the card's busy ms over the iteration's wall ms.  The
+    tracer's host overhead still lengthens the wall a little, so the
+    share reads high; None when the trace shows no device time."""
     _, wall_ms, busy_ms = profile_call(algo.train)
     return {"profiled_iteration_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms
@@ -4259,7 +4672,7 @@ def rllib_run(algo, probe, smi: str, *, iters: int, deadline: float
 
 
 def rllib_ppo(device, smi: str, *, runners=8, envs=16, rollout=64,
-              minibatch=2048, epochs=2, iters=4, learn_iters=20) -> dict:
+              minibatch=2048, epochs=2, iters=2, learn_iters=20) -> dict:
     """BASELINE config #3's fleet (`rllib/bench.py`'s defaults:
     CartPole, 8 runners x 16 envs x 64 steps, minibatch 2,048, 2
     epochs, lr 3e-4, seed 0) with the learner on the card, a gang of 1:
@@ -6657,7 +7070,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    rank_main = {"--sp-rank": sp_rank, "--moe-rank": moe_rank}
+    rank_main = {"--shard-rank": shard_rank, "--moe-rank": moe_rank}
     if sys.argv[1:2] and sys.argv[1] in rank_main:
         rank_main[sys.argv[1]](int(sys.argv[2]), sys.argv[3], sys.argv[4])
         sys.stdout.flush()
@@ -6918,9 +7331,10 @@ def run_all() -> int:
           "nvidia_smi": smi})
     torch.cuda.empty_cache()
     # the train plane (two data-parallel workers sharing the card, a
-    # resumed fit, the NCCL mode at one worker) and sequence-parallel
-    # attention over a process group
-    run_parallel_phases(device, smi)
+    # resumed fit, the NCCL mode at one worker), then the sharded step
+    # (four gloo ranks, fsdp 2 x tp 2) with sequence-parallel attention
+    # on the same ranks
+    sharded_launches = run_parallel_phases(device, smi)
     # a shuffled token dataset streamed into the trainer's workers through
     # iter_cuda_batches, then a Tuner sweeping the trainer's learning rate
     data_tune_phases(device, smi)
@@ -7019,12 +7433,14 @@ def run_all() -> int:
                 **{n: split["launches"][n] + split_llama["launches"][n]
                    for n in ("flash_bwd_dq", "flash_bwd_dkv")},
                 **xent_run["launches"]}
-    # the workflow's `train` step, the CLI's job and the pool's workers
-    # launch K1 / K2 in their own processes, which return their counts
+    # the workflow's `train` step, the CLI's job, the pool's workers and
+    # the sharded step's ranks launch K1 / K2 in their own processes,
+    # which return their counts
     for name in ("flash_fwd", "flash_bwd_fused"):
         launches[name] += (ops["train"]["launches"][name]
                            + cli_run["job"]["launches"][name]
-                           + cli_run["pool"]["launches"][name])
+                           + cli_run["pool"]["launches"][name]
+                           + sharded_launches[name])
     # perf_plane's fused append + attention launches: its tiny engines' and
     # the measured full-width kernel row's; and the int8 phase's measured
     # runs'
@@ -7061,16 +7477,20 @@ def run_all() -> int:
     return 0
 
 
-def run_parallel_phases(device, smi: str) -> None:
-    """The train plane's main path and its NCCL mode, then ring and
-    Ulysses attention over two ranks."""
+def run_parallel_phases(device, smi: str) -> dict:
+    """The train plane's main path and its NCCL mode, then the sharded
+    step over four ranks with ring and Ulysses attention on the same
+    ranks; returns the sharded step's K1-K4 launches over its ranks."""
     t0 = time.perf_counter()
     tp = train_plane(device)
     plane, nccl = train_plane_lines(tp, smi)
     emit({**plane, "wall_s": time.perf_counter() - t0})
     emit(nccl)
     torch.cuda.empty_cache()
-    emit(sp_attention(smi))
+    sharded, sp, launches = sharded_train(smi)
+    emit(sharded)
+    emit(sp)
+    return launches
 
 
 if __name__ == "__main__":

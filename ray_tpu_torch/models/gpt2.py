@@ -10,6 +10,11 @@ per layer); `jax.checkpoint` becomes `torch.utils.checkpoint`
 (`use_reentrant=False`) per remat policy; the optax chain becomes
 `AdamW`, the same arithmetic written out.
 
+Sharded training: on DTensor params every rank gathers its blocks over
+the data axes, splits the heads, the MLP and the vocabulary over tp
+(`parallel.sharding.LocalShards`), and the step keeps the DTensors as
+storage (see `make_train_step`).
+
 Numerics follow the reference: f32 master weights cast to `cfg.dtype`
 inside each layer (so remat replays the casts), LayerNorm with the
 population variance, tanh GELU (`jax.nn.gelu`'s default), the weight-tied
@@ -32,6 +37,7 @@ from torch.utils.checkpoint import (
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models.bridge import tree_leaves
+from ray_tpu_torch.parallel import sharding as _sh
 from ray_tpu_torch.parallel.ring_attention import select_attention
 
 
@@ -202,71 +208,116 @@ def _layer_norm(x, g, b, eps=1e-5):
     return (x - mu) * torch.rsqrt(var + eps) * g + b
 
 
-def _block(cfg: GPT2Config, mesh, remat_attention: bool, x, *weights):
+def _block(cfg: GPT2Config, mesh, shards, remat_attention: bool, x,
+           *weights):
     """One transformer block; `weights` are one layer's leaves in
-    `_LAYER_KEYS` order, cast to the compute dtype here."""
+    `_LAYER_KEYS` order, cast to the compute dtype here.  Under a
+    sharded step (`shards`) they are this rank's tp blocks: the heads and
+    the MLP's columns split over tp, `enter` before the column-parallel
+    products, `exit` after the row-parallel ones."""
     p = dict(zip(_LAYER_KEYS, weights))
     dt = cfg.dtype
-    B, T, E = x.shape
+    B, T, _ = x.shape
     h = _layer_norm(x, p["ln1_g"].to(dt), p["ln1_b"].to(dt))
-    qkv = h @ p["attn_qkv_w"].to(dt) + p["attn_qkv_b"].to(dt)
-    q, k, v = (t.reshape(B, T, cfg.n_head, cfg.head_dim)
-               for t in qkv.split(E, dim=-1))
+    qkv = shards.enter(h) @ p["attn_qkv_w"].to(dt) + p["attn_qkv_b"].to(dt)
+    q, k, v = (t.reshape(B, T, -1, cfg.head_dim)
+               for t in qkv.split(qkv.shape[-1] // 3, dim=-1))
     if remat_attention:
         o = checkpoint(select_attention, cfg.attention, q, k, v, mesh, True,
                        use_reentrant=False)
     else:
         o = select_attention(cfg.attention, q, k, v, mesh, causal=True)
-    x1 = x + (o.reshape(B, T, E) @ p["attn_out_w"].to(dt)
+    x1 = x + (shards.exit(o.reshape(B, T, -1) @ p["attn_out_w"].to(dt))
               + p["attn_out_b"].to(dt))
     h2 = _layer_norm(x1, p["ln2_g"].to(dt), p["ln2_b"].to(dt))
-    h2 = h2 @ p["mlp_fc_w"].to(dt) + p["mlp_fc_b"].to(dt)
+    h2 = shards.enter(h2) @ p["mlp_fc_w"].to(dt) + p["mlp_fc_b"].to(dt)
     h2 = F.gelu(h2, approximate="tanh")
-    h2 = h2 @ p["mlp_out_w"].to(dt) + p["mlp_out_b"].to(dt)
+    h2 = shards.exit(h2 @ p["mlp_out_w"].to(dt)) + p["mlp_out_b"].to(dt)
     return x1 + h2
 
 
-def _run_block(cfg: GPT2Config, mesh, i: int, x, weights):
+def _run_block(cfg: GPT2Config, mesh, shards, i: int, x, weights):
     """Block i under the config's remat policy."""
     if not cfg.remat:
-        return _block(cfg, mesh, False, x, *weights)
+        return _block(cfg, mesh, shards, False, x, *weights)
     policy = cfg.remat_policy
     if policy == "names":
-        return _block(cfg, mesh, True, x, *weights)
+        return _block(cfg, mesh, shards, True, x, *weights)
     if policy == "half" and i % 2:
-        return _block(cfg, mesh, False, x, *weights)
+        return _block(cfg, mesh, shards, False, x, *weights)
     if policy == "full" and i >= cfg.n_layer - cfg.remat_skip:
-        return _block(cfg, mesh, False, x, *weights)
+        return _block(cfg, mesh, shards, False, x, *weights)
     extra = {"context_fn": _dots_context} if policy == "dots" else {}
-    return checkpoint(_block, cfg, mesh, False, x, *weights,
+    return checkpoint(_block, cfg, mesh, shards, False, x, *weights,
                       use_reentrant=False, **extra)
+
+
+def _qkv_columns(w, tp: int, rank: int):
+    """This tp rank's columns of the fused [.., 3E] qkv leaf (its heads of
+    q, of k and of v), from the whole leaf."""
+    E = w.shape[-1] // 3
+    n = E // tp
+    return torch.cat([w[..., s * E + rank * n: s * E + (rank + 1) * n]
+                      for s in range(3)], dim=-1)
+
+
+def _localize(cfg: GPT2Config, params: Dict, tokens):
+    """(shards, params, tokens) for the arithmetic: plain params as they
+    are; DTensor params as this rank's compute blocks (gathered over the
+    data axes, the fused qkv over tp too and cut to this rank's heads)
+    and this rank's rows of the batch."""
+    shards = _sh.local_shards(params)
+    if shards is _sh.UNSHARDED:
+        return shards, params, tokens
+    if cfg.n_head % shards.tp:
+        raise ValueError(f"{cfg.n_head} heads do not split over tp "
+                         f"{shards.tp}")
+    local = _sh.unshard_tree(shards, params,
+                             over_tp=("attn_qkv_w", "attn_qkv_b"))
+    blocks = dict(local["blocks"])
+    for key in ("attn_qkv_w", "attn_qkv_b"):
+        blocks[key] = _qkv_columns(blocks[key], shards.tp, shards.tp_rank)
+    return shards, {**local, "blocks": blocks}, shards.rows(tokens)
+
+
+def _backbone(cfg: GPT2Config, params: Dict, tokens, mesh, shards):
+    T = tokens.shape[1]
+    dt = cfg.dtype
+    tokens = tokens.long()
+    x = (_sh.embed(shards, params["wte"].to(dt), tokens, cfg.vocab_size)
+         + params["wpe"].to(dt)[:T])
+    blocks = params["blocks"]
+    for i in range(cfg.n_layer):
+        x = _run_block(cfg, mesh, shards, i, x,
+                       [blocks[k][i] for k in _LAYER_KEYS])
+    return _layer_norm(x, params["lnf_g"].to(dt), params["lnf_b"].to(dt))
 
 
 def backbone(cfg: GPT2Config, params: Dict, tokens: torch.Tensor,
              mesh=None) -> torch.Tensor:
     """tokens [B, T] int -> final hidden states [B, T, embd] (compute
-    dtype), i.e. everything up to (not including) the lm-head matmul."""
-    T = tokens.shape[1]
-    dt = cfg.dtype
-    tokens = tokens.long()
-    x = params["wte"].to(dt)[tokens] + params["wpe"].to(dt)[:T]
-    blocks = params["blocks"]
-    for i in range(cfg.n_layer):
-        x = _run_block(cfg, mesh, i, x, [blocks[k][i] for k in _LAYER_KEYS])
-    return _layer_norm(x, params["lnf_g"].to(dt), params["lnf_b"].to(dt))
+    dtype), i.e. everything up to (not including) the lm-head matmul.
+    With DTensor params (`shard_params`), this rank's rows of them."""
+    shards, params, tokens = _localize(cfg, params, tokens)
+    return _backbone(cfg, params, tokens, mesh, shards)
 
 
 def lm_head(cfg: GPT2Config, params: Dict, x: torch.Tensor,
-            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+            out_dtype: torch.dtype = torch.float32,
+            shards=_sh.UNSHARDED) -> torch.Tensor:
     """Weight-tied projection to vocab logits: the one definition the
-    training loss and inference share."""
-    return (x @ params["wte"].to(cfg.dtype).T).to(out_dtype)
+    training loss and inference share (under a sharded step, this tp
+    rank's block of the vocabulary)."""
+    return (shards.enter(x) @ params["wte"].to(cfg.dtype).T).to(out_dtype)
 
 
 def forward(cfg: GPT2Config, params: Dict, tokens: torch.Tensor,
             mesh=None) -> torch.Tensor:
-    """tokens [B, T] int -> logits [B, T, vocab] (f32)."""
-    return lm_head(cfg, params, backbone(cfg, params, tokens, mesh))
+    """tokens [B, T] int -> logits [B, T, vocab] (f32); with DTensor
+    params, this rank's rows and block of the vocabulary."""
+    shards, params, tokens = _localize(cfg, params, tokens)
+    return lm_head(cfg, params, _backbone(cfg, params, tokens, mesh, shards),
+                   shards=shards)
 
 
 def loss_fn(cfg: GPT2Config, params: Dict, tokens: torch.Tensor,
@@ -274,14 +325,19 @@ def loss_fn(cfg: GPT2Config, params: Dict, tokens: torch.Tensor,
     """Next-token cross entropy; tokens [B, T+1] (shift done here).  The
     lse form: logits in `cfg.logits_dtype`, logsumexp and the target
     gather in f32.  Eager PyTorch materialises the f32 upcast of the
-    logits, which the reference's fused XLA reduction does not."""
+    logits, which the reference's fused XLA reduction does not.  With
+    DTensor params each rank computes the mean over its rows, with the
+    vocabulary split over tp, and the loss is their mean over the data
+    axes (the same value on every rank)."""
+    shards, params, tokens = _localize(cfg, params, tokens)
     tokens = tokens.long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    x = backbone(cfg, params, inputs, mesh)
-    logits = lm_head(cfg, params, x, out_dtype=cfg.logits_dtype)
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    tgt = logits.gather(-1, targets[..., None])[..., 0].float()
-    return (lse - tgt).mean()
+    x = _backbone(cfg, params, inputs, mesh, shards)
+    logits = lm_head(cfg, params, x, out_dtype=cfg.logits_dtype,
+                     shards=shards)
+    lse, tgt = _sh.lse_and_target(shards, logits, targets, cfg.vocab_size)
+    loss = (lse - tgt).mean()
+    return loss if shards is _sh.UNSHARDED else shards.data_mean(loss)
 
 
 def _leaves(params: Dict) -> List[torch.Tensor]:
@@ -302,7 +358,11 @@ def make_train_step(cfg: GPT2Config, optimizer: "AdamW", mesh=None):
     metrics) with metrics {"loss", "grad_norm"} (the pre-clip global
     norm, f32).  Unlike the reference, which returns new arrays, the
     params are leaf tensors updated IN PLACE (with the optimizer state),
-    and the same dict comes back."""
+    and the same dict comes back.  The sharded step is this one on
+    DTensor params (`shard_params`), moments placed by
+    `optimizer_shardings` and the batch by `prepare_batch`: each rank
+    computes on its blocks (`parallel.sharding.LocalShards`) and
+    updates them; the loss and the norm are the global ones."""
 
     def step(params, opt_state, tokens):
         leaves = _leaves(params)
@@ -314,10 +374,6 @@ def make_train_step(cfg: GPT2Config, optimizer: "AdamW", mesh=None):
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
 
     return step
-
-
-def _global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -372,7 +428,7 @@ class AdamW:
     def update(self, grads, state: Dict[str, Any],
                params: Dict) -> Tuple[Dict[str, Any], torch.Tensor]:
         """`grads`: one per leaf of `params`, in `_leaves` order."""
-        norm = _global_norm(grads)
+        norm = _sh.global_norm(grads)
         keep = norm < self.max_norm
         count = state["count"] + 1
         # bias corrections in f32, as optax computes decay ** count
@@ -381,6 +437,9 @@ class AdamW:
         step = -self.schedule(state["count"])
         for p, g, mu, nu in zip(_leaves(params), grads, state["mu"],
                                 state["nu"]):
+            # DTensor leaves: each rank updates its own blocks (the
+            # moments and the gradient split as their parameter)
+            p, g, mu, nu = _same_blocks(p, g, mu, nu)
             g = torch.where(keep, g, g / norm * self.max_norm)
             mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
             nu.mul_(self.b2).add_(g * g, alpha=1 - self.b2)
@@ -388,6 +447,21 @@ class AdamW:
             u = (u + self.weight_decay * p) * step
             p.add_(u)
         return {"count": count, "mu": state["mu"], "nu": state["nu"]}, norm
+
+
+def _same_blocks(*ts):
+    """The local blocks of DTensors of one layout (tensors as they
+    are)."""
+    DTensor = _sh.dtensor().DTensor
+    if not isinstance(ts[0], DTensor):
+        return ts
+    for t in ts[1:]:
+        if not isinstance(t, DTensor) or t.placements != ts[0].placements:
+            raise ValueError(
+                "a DTensor parameter's gradient and moments must be split "
+                f"as it is ({ts[0].placements}); got "
+                f"{getattr(t, 'placements', 'a plain tensor')}")
+    return tuple(t.to_local() for t in ts)
 
 
 def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,

@@ -25,8 +25,11 @@ LoRA train step differentiates the adapter tree only.  With
 `cfg.remat` each block runs under `torch.utils.checkpoint`
 (`use_reentrant=False`) while gradients are recorded, as the
 reference's `jax.checkpoint`.  `loss_fn` keeps the reference's lse
-form.  The optimizer is the caller's (`gpt2.AdamW` where the reference
-takes optax); the params are updated in place.
+form.  On DTensor params (a sharded step) each rank computes on its
+blocks, the heads, the MLP and the vocabulary split over tp
+(`parallel.sharding.LocalShards`; `_apply` places the tp collectives).
+The optimizer is the caller's (`gpt2.AdamW` where the reference takes
+optax); the params are updated in place.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models.gpt2 import _leaves
 from ray_tpu_torch.ops import paged_attention as _pa
+from ray_tpu_torch.parallel import sharding as _sh
 from ray_tpu_torch.parallel.ring_attention import select_attention
 
 _NEG_INF = -1e30
@@ -225,27 +229,47 @@ def _layers(params: Dict) -> Iterator[Dict[str, torch.Tensor]]:
         yield {k: v[i] for k, v in blocks.items()}
 
 
-def _apply(x, w, dtype, scale=None, lora_layer=None, name: str = ""):
+# the products whose weight splits its OUTPUT over tp (column-parallel);
+# the others (wo, w_down) split their input (row-parallel)
+_COLUMN = ("wq", "wk", "wv", "w_gate", "w_up")
+
+
+def _apply(x, w, dtype, scale=None, lora_layer=None, name: str = "",
+           shards=_sh.UNSHARDED):
     """x @ w on an `[in, out]` weight, with an optional low-rank delta
     `((x @ A) @ B) * lora_scale` from `lora_layer` (one layer's adapter
     leaves plus "__scale__"), all cast to `dtype` as the reference
     casts them.  `scale` (per-OUTPUT-channel, from
     `quantize_weights_int8`) dequantizes int8 weights after the matmul:
     (x @ q) * scale == x @ (q * scale) because the scale is constant
-    along the contraction."""
-    out = x @ w.to(dtype)
+    along the contraction.  Under a sharded step (`shards`) `w` and B
+    are this tp rank's columns of a column-parallel product (A whole),
+    or `w` and A its rows of a row-parallel one (B whole), and the tp
+    collectives sit where each gradient or sum needs them."""
+    col = name in _COLUMN
+    out = (shards.enter(x) if col else x) @ w.to(dtype)
+    if not col:
+        out = shards.exit(out)
     if scale is not None:
         out = out * scale.to(dtype)
     if lora_layer is not None and f"{name}_a" in lora_layer:
         a = lora_layer[f"{name}_a"].to(dtype)
         b = lora_layer[f"{name}_b"].to(dtype)
-        out = out + ((x @ a) @ b) * lora_layer["__scale__"].to(dtype)
+        s = lora_layer["__scale__"].to(dtype)
+        if col:
+            # A and the scale are whole on every tp rank, but their
+            # products meet this rank's columns only: `enter` sums their
+            # gradients over tp
+            out = out + (shards.enter(x @ a) @ b) * shards.enter(s)
+        else:
+            out = out + (shards.exit(x @ a) @ b) * s
     return out
 
 
-def _lm_head(x, params, dtype):
-    """Final projection to vocab logits in f32, int8-aware."""
-    logits = x @ params["lm_head"].to(dtype)
+def _lm_head(x, params, dtype, shards=_sh.UNSHARDED):
+    """Final projection to vocab logits in f32, int8-aware (under a
+    sharded step, this tp rank's block of the vocabulary)."""
+    logits = shards.enter(x) @ params["lm_head"].to(dtype)
     scale = params.get("lm_head_scale")
     if scale is not None:
         logits = logits * scale.to(dtype)
@@ -317,53 +341,59 @@ def _rope_at(x, theta: float, pos_b):
     return _rotate(x, cos, sin)
 
 
-def _proj(cfg: LlamaConfig, layer, lora_layer, name: str, x):
+def _proj(cfg: LlamaConfig, layer, lora_layer, name: str, x,
+          shards=_sh.UNSHARDED):
     """One of the block's projections, int8- and LoRA-aware."""
     return _apply(x, layer[name], cfg.dtype, layer.get(f"{name}_scale"),
-                  lora_layer, name)
+                  lora_layer, name, shards)
 
 
-def _mlp(cfg: LlamaConfig, layer, x1, lora_layer=None):
+def _mlp(cfg: LlamaConfig, layer, x1, lora_layer=None,
+         shards=_sh.UNSHARDED):
     h2 = _rms_norm(x1, layer["mlp_norm"].to(cfg.dtype), cfg.norm_eps)
-    gate = _proj(cfg, layer, lora_layer, "w_gate", h2)
-    up = _proj(cfg, layer, lora_layer, "w_up", h2)
-    return x1 + _proj(cfg, layer, lora_layer, "w_down", F.silu(gate) * up)
+    gate = _proj(cfg, layer, lora_layer, "w_gate", h2, shards)
+    up = _proj(cfg, layer, lora_layer, "w_up", h2, shards)
+    return x1 + _proj(cfg, layer, lora_layer, "w_down", F.silu(gate) * up,
+                      shards)
 
 
-def _qkv(cfg: LlamaConfig, layer, x, lora_layer=None):
+def _qkv(cfg: LlamaConfig, layer, x, lora_layer=None, shards=_sh.UNSHARDED):
     h = _rms_norm(x, layer["attn_norm"].to(cfg.dtype), cfg.norm_eps)
-    return (_proj(cfg, layer, lora_layer, "wq", h),
-            _proj(cfg, layer, lora_layer, "wk", h),
-            _proj(cfg, layer, lora_layer, "wv", h))
+    return (_proj(cfg, layer, lora_layer, "wq", h, shards),
+            _proj(cfg, layer, lora_layer, "wk", h, shards),
+            _proj(cfg, layer, lora_layer, "wv", h, shards))
 
 
-def _embed(cfg: LlamaConfig, params, tokens):
+def _embed(cfg: LlamaConfig, params, tokens, shards=_sh.UNSHARDED):
     # gather, then cast: equal to the reference's cast-then-gather
-    return params["tok_emb"][tokens.long()].to(cfg.dtype)
+    return _sh.embed(shards, params["tok_emb"], tokens.long(),
+                     cfg.vocab_size).to(cfg.dtype)
 
 
-def _finish(cfg: LlamaConfig, params, x):
+def _finish(cfg: LlamaConfig, params, x, shards=_sh.UNSHARDED):
     x = _rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
-    return _lm_head(x, params, cfg.dtype)
+    return _lm_head(x, params, cfg.dtype, shards)
 
 
-def _block(cfg: LlamaConfig, layer, lora_layer, x, mesh=None):
+def _block(cfg: LlamaConfig, layer, lora_layer, x, mesh=None,
+           shards=_sh.UNSHARDED):
     """One transformer block over x [B, T, dim]: (x out, post-RoPE K,
-    V [B, T, KV, hd])."""
+    V [B, T, KV, hd]); under a sharded step, this tp rank's heads."""
     B, T, _ = x.shape
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     group = H // KV
-    q, k, v = _qkv(cfg, layer, x, lora_layer)
-    q = _rope(q.reshape(B, T, H, hd), cfg.rope_theta)
-    k_kv = _rope(k.reshape(B, T, KV, hd), cfg.rope_theta)
-    v_kv = v.reshape(B, T, KV, hd)
+    q, k, v = _qkv(cfg, layer, x, lora_layer, shards)
+    q = _rope(q.reshape(B, T, -1, hd), cfg.rope_theta)
+    k_kv = _rope(k.reshape(B, T, -1, hd), cfg.rope_theta)
+    v_kv = v.reshape(B, T, -1, hd)
     k, v = k_kv, v_kv
     if group > 1:  # GQA: each kv head serves `group` query heads
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
     o = select_attention(cfg.attention, q, k, v, mesh, causal=True)
-    x1 = x + _proj(cfg, layer, lora_layer, "wo", o.reshape(B, T, H * hd))
-    return _mlp(cfg, layer, x1, lora_layer), k_kv, v_kv
+    x1 = x + _proj(cfg, layer, lora_layer, "wo", o.reshape(B, T, -1),
+                   shards)
+    return _mlp(cfg, layer, x1, lora_layer, shards), k_kv, v_kv
 
 
 def _lora_layers(lora: Dict, n: int) -> Iterator[Dict[str, torch.Tensor]]:
@@ -372,6 +402,46 @@ def _lora_layers(lora: Dict, n: int) -> Iterator[Dict[str, torch.Tensor]]:
         layer = {k: v[i] for k, v in lora["blocks"].items()}
         layer["__scale__"] = lora["scale"]
         yield layer
+
+
+def _localize(cfg: LlamaConfig, params: Dict, lora: Optional[Dict],
+              tokens):
+    """(shards, params, lora, tokens) for the arithmetic: plain trees as
+    they are; DTensor trees (`shard_params`) as this rank's compute
+    blocks (gathered over the data axes) and its rows of the batch."""
+    shards = _sh.local_shards(params)
+    if shards is _sh.UNSHARDED:
+        return shards, params, lora, tokens
+    if cfg.n_kv_heads % shards.tp:
+        raise ValueError(f"{cfg.n_kv_heads} kv heads do not split over tp "
+                         f"{shards.tp}")
+    if lora is not None:
+        lora = _sh.unshard_tree(shards, lora)
+    return (shards, _sh.unshard_tree(shards, params), lora,
+            shards.rows(tokens))
+
+
+def _forward(cfg: LlamaConfig, params: Dict, tokens, mesh, lora,
+             return_kv: bool, shards):
+    x = _embed(cfg, params, tokens, shards)
+    L = params["blocks"]["wq"].shape[0]
+    lora_layers = (_lora_layers(lora, L) if lora is not None
+                   else (None for _ in range(L)))
+    remat = cfg.remat and torch.is_grad_enabled()
+    ks, vs = [], []
+    for layer, lora_layer in zip(_layers(params), lora_layers):
+        if remat:
+            x, k_kv, v_kv = checkpoint(_block, cfg, layer, lora_layer, x,
+                                       mesh, shards, use_reentrant=False)
+        else:
+            x, k_kv, v_kv = _block(cfg, layer, lora_layer, x, mesh, shards)
+        if return_kv:
+            ks.append(k_kv)
+            vs.append(v_kv)
+    logits = _finish(cfg, params, x, shards)
+    if return_kv:
+        return logits, (torch.stack(ks), torch.stack(vs))
+    return logits
 
 
 def forward(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
@@ -388,38 +458,28 @@ def forward(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
     recomputed.  `mesh` (a `DeviceMesh`, every rank passing the same
     inputs) reaches `select_attention`, as in the reference: with
     `attention="ring"` or `"ulysses"` the sequence splits over its `sp`
-    axis."""
-    x = _embed(cfg, params, tokens)
-    L = params["blocks"]["wq"].shape[0]
-    lora_layers = (_lora_layers(lora, L) if lora is not None
-                   else (None for _ in range(L)))
-    remat = cfg.remat and torch.is_grad_enabled()
-    ks, vs = [], []
-    for layer, lora_layer in zip(_layers(params), lora_layers):
-        if remat:
-            x, k_kv, v_kv = checkpoint(_block, cfg, layer, lora_layer, x,
-                                       mesh, use_reentrant=False)
-        else:
-            x, k_kv, v_kv = _block(cfg, layer, lora_layer, x, mesh)
-        if return_kv:
-            ks.append(k_kv)
-            vs.append(v_kv)
-    logits = _finish(cfg, params, x)
-    if return_kv:
-        return logits, (torch.stack(ks), torch.stack(vs))
-    return logits
+    axis.  With DTensor params (`shard_params`) the result is this
+    rank's rows and its tp block of the vocabulary (no KV)."""
+    shards, params, lora, tokens = _localize(cfg, params, lora, tokens)
+    if return_kv and shards is not _sh.UNSHARDED:
+        raise ValueError("return_kv takes unsharded params")
+    return _forward(cfg, params, tokens, mesh, lora, return_kv, shards)
 
 
 def loss_fn(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
             mesh=None, lora: Optional[Dict] = None) -> torch.Tensor:
     """Next-token cross entropy; tokens [B, T+1] (shift done here).  The
-    reference's lse form over the f32 logits: lse - target logit."""
+    reference's lse form over the f32 logits: lse - target logit.  With
+    DTensor params each rank computes the mean over its rows, with the
+    vocabulary split over tp, and the loss is their mean over the data
+    axes (the same value on every rank)."""
+    shards, params, lora, tokens = _localize(cfg, params, lora, tokens)
     tokens = tokens.long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits = forward(cfg, params, inputs, mesh, lora)
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, targets[..., None])[..., 0]
-    return (lse - tgt).mean()
+    logits = _forward(cfg, params, inputs, mesh, lora, False, shards)
+    lse, tgt = _sh.lse_and_target(shards, logits, targets, cfg.vocab_size)
+    loss = (lse - tgt).mean()
+    return loss if shards is _sh.UNSHARDED else shards.data_mean(loss)
 
 
 def num_params(params: Dict) -> int:
@@ -453,7 +513,9 @@ def make_lora_train_step(cfg: LlamaConfig, optimizer, mesh=None):
     (lora_params, opt_state, {"loss": loss}).  The base is frozen:
     gradients flow only into the adapter tree (every leaf of it, its
     `scale` included, as the reference differentiates the whole tree),
-    which is updated IN PLACE."""
+    which is updated IN PLACE.  Sharded: a DTensor base and adapters
+    (`shard_params` with `logical_axes` / `lora_logical_axes`), as
+    `gpt2.make_train_step` takes them."""
 
     def step(base_params, lora_params, opt_state, tokens):
         leaves = _leaves(lora_params)

@@ -40,7 +40,9 @@ import ctypes
 import torch
 
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.parallel.ring_attention import plain_attention
+from ray_tpu_torch.parallel.ring_attention import (
+    on_local_blocks, plain_attention,
+)
 
 _NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -316,7 +318,15 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 1024,
                     block_k: int = 1024):
     """q/k/v [B, T, H, D] -> [B, T, H, D], differentiable.  Shapes that
     `_supported` refuses run `plain_attention` (counted in
-    `flash_attention.plain_dispatches`)."""
+    `flash_attention.plain_dispatches`).  DTensor q / k / v (a sharded
+    step's) run K1 / K2 on each rank's local blocks: the batch split
+    over (dp, fsdp), the heads over tp (`on_local_blocks`)."""
+    return on_local_blocks(
+        lambda q, k, v: _flash_attention(q, k, v, causal, block_q, block_k),
+        q, k, v)
+
+
+def _flash_attention(q, k, v, causal, block_q, block_k):
     B, T, H, D = q.shape
     block_q, block_k = min(block_q, T), min(block_k, T)
     if not _supported(T, D, block_q, block_k):

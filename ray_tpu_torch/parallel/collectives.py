@@ -39,8 +39,11 @@ import numpy as np
 # ---- tier 1: in-program (torch imported lazily to keep core torch-free)
 
 # (op, backend, "device" | "host") -> calls: how each collective's bytes
-# travelled (a gloo group given CUDA tensors copies them to the host)
+# travelled (a gloo group given CUDA tensors copies them to the host);
+# the same key -> the input bytes, and the ms from staging to the result
 TRANSPORTS: Counter = Counter()
+TRANSPORT_BYTES: Counter = Counter()
+TRANSPORT_MS: Counter = Counter()
 
 
 def _group(axis_name, mesh):
@@ -56,20 +59,28 @@ def _group(axis_name, mesh):
 
 def _stage(x, group, op: str):
     """`x` as the group's backend takes it: CUDA tensors go to the host
-    for any backend but NCCL.  Returns (tensor, device to return to or
-    None)."""
+    for any backend but NCCL.  Returns (tensor, where to return it: the
+    device or None, with the op's key and start for `_back`)."""
     import torch.distributed as dist
 
     backend = str(dist.get_backend(group))
     host = x.is_cuda and backend != "nccl"
-    TRANSPORTS[(op, backend, "host" if host else "device")] += 1
+    key = (op, backend, "host" if host else "device")
+    TRANSPORTS[key] += 1
+    TRANSPORT_BYTES[key] += x.numel() * x.element_size()
+    where = (x.device if host else None, key, time.perf_counter())
     if host:
-        return x.detach().cpu().contiguous(), x.device
-    return x.detach().contiguous(), None
+        return x.detach().cpu().contiguous(), where
+    return x.detach().contiguous(), where
 
 
-def _back(out, device):
-    return out if device is None else out.to(device)
+def _back(out, where):
+    device, key, t0 = where
+    out = out if device is None else out.to(device)
+    # the host wall of the op from its staging on (a host route's copy
+    # back from pageable memory returns once it is done)
+    TRANSPORT_MS[key] += (time.perf_counter() - t0) * 1e3
+    return out
 
 
 def _size_rank(group):
@@ -83,10 +94,10 @@ def psum(x, axis_name, *, mesh=None):
     import torch.distributed as dist
 
     g = _group(axis_name, mesh)
-    t, dev = _stage(x, g, "psum")
+    t, where = _stage(x, g, "psum")
     t = t.clone()
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g)
-    return _back(t, dev)
+    return _back(t, where)
 
 
 def pmean(x, axis_name, *, mesh=None):
@@ -102,11 +113,11 @@ def all_gather(x, axis_name, axis=0, tiled=True, *, mesh=None):
 
     g = _group(axis_name, mesh)
     n, _ = _size_rank(g)
-    t, dev = _stage(x, g, "all_gather")
+    t, where = _stage(x, g, "all_gather")
     parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t, group=g)
     out = torch.cat(parts, dim=axis) if tiled else torch.stack(parts, axis)
-    return _back(out, dev)
+    return _back(out, where)
 
 
 def reduce_scatter(x, axis_name, scatter_dimension=0, tiled=True, *,
@@ -125,14 +136,14 @@ def reduce_scatter(x, axis_name, scatter_dimension=0, tiled=True, *,
     if not tiled and x.shape[scatter_dimension] != n:
         raise ValueError("untiled reduce_scatter needs the dimension to "
                          f"equal the axis size {n}")
-    t, dev = _stage(x, g, "reduce_scatter")
+    t, where = _stage(x, g, "reduce_scatter")
     # the whole sum, then this member's block: one path for every backend
     full = t.clone()
     dist.all_reduce(full, op=dist.ReduceOp.SUM, group=g)
     out = full.chunk(n, dim=scatter_dimension)[r].contiguous()
     if not tiled:
         out = out.squeeze(scatter_dimension)
-    return _back(out, dev)
+    return _back(out, where)
 
 
 def _ppermute(x, group, perm):
@@ -140,7 +151,7 @@ def _ppermute(x, group, perm):
     import torch.distributed as dist
 
     _, r = _size_rank(group)
-    t, dev = _stage(x, group, "ppermute")
+    t, where = _stage(x, group, "ppermute")
     out = torch.zeros_like(t)
     ops = []
     for src, dst in perm:
@@ -155,7 +166,7 @@ def _ppermute(x, group, perm):
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    return _back(out, dev)
+    return _back(out, where)
 
 
 def _check_perm(perm, n: int):
@@ -178,7 +189,7 @@ def _all_to_all(x, group, split_axis, concat_axis, tiled):
     if not tiled and x.shape[split_axis] != n:
         raise ValueError("untiled all_to_all needs the split dimension to "
                          f"equal the axis size {n}")
-    t, dev = _stage(x, group, "all_to_all")
+    t, where = _stage(x, group, "all_to_all")
     send = [c.contiguous() for c in t.chunk(n, dim=split_axis)]
     recv = [torch.empty_like(c) for c in send]
     # one send / recv pair a peer, on every backend (gloo has no
@@ -198,7 +209,7 @@ def _all_to_all(x, group, split_axis, concat_axis, tiled):
     else:
         out = torch.stack([c.squeeze(split_axis) for c in recv],
                           dim=concat_axis)
-    return _back(out, dev)
+    return _back(out, where)
 
 
 def _autograd():

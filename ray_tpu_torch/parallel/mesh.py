@@ -268,6 +268,45 @@ def placements(mesh, dims: Sequence) -> tuple:
     return tuple(out)
 
 
+def compute_mesh(mesh):
+    """The mesh a training step's DTensors live on: `mesh`'s dims of
+    size > 1, by name and in its order (its first dim when all have size
+    1).  DTensor's sharding propagation enumerates each op's strategies
+    over every mesh dim, size-1 dims included, so on the six-dim mesh of
+    `MeshSpec.build` a sharded forward's first ops take minutes; the
+    submesh holds the same shards on the same ranks.  A mesh with no
+    size-1 dim comes back as it is.  Every rank calls this together, as
+    slicing a mesh may create its groups."""
+    names = list(mesh.mesh_dim_names)
+    keep = tuple(n for i, n in enumerate(names) if mesh.size(i) > 1)
+    keep = keep or (names[0],)
+    return mesh if keep == tuple(names) else mesh[keep]
+
+
+def onto_compute_mesh(mesh, places: Sequence) -> tuple:
+    """(`compute_mesh(mesh)`, `places` over it): placements given over
+    `mesh`'s dims (as `placements` spells them), kept for the dims the
+    compute mesh keeps, by name."""
+    sub = compute_mesh(mesh)
+    if sub is mesh:
+        return mesh, tuple(places)
+    names = list(mesh.mesh_dim_names)
+    return sub, tuple(places[names.index(n)] for n in sub.mesh_dim_names)
+
+
+def distribute(x, mesh, places: Sequence):
+    """`x` (the same whole tensor on every rank) as a DTensor on
+    `compute_mesh(mesh)`, split by `places` (over `mesh`'s dims): each
+    rank cuts its own block, and nothing crosses the group."""
+    import inspect
+
+    sub, places = onto_compute_mesh(mesh, places)
+    fn = dtensor().distribute_tensor
+    kw = ({"src_data_rank": None}
+          if "src_data_rank" in inspect.signature(fn).parameters else {})
+    return fn(x, sub, list(places), **kw)
+
+
 def data_sharding(mesh, *trailing) -> tuple:
     """Batch-dim sharded over (dp, fsdp); trailing dims as given."""
     return placements(mesh, (batch_axes(), *trailing))

@@ -29,8 +29,42 @@ from typing import Optional
 import torch
 
 from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel.mesh import batch_axes, dtensor
 
 _NEG_INF = -1e30
+
+
+def on_local_blocks(fn, q, k, v):
+    """`fn(q, k, v)` for [B, T, H, D] q / k / v.  Plain tensors go
+    straight to `fn`.  DTensors (a sharded training step's) are first
+    laid out with the batch split over the mesh's (dp, fsdp) dims and
+    the heads over tp, replicated over any other dim; `fn` then runs on
+    each rank's local blocks and the output is the DTensor of their
+    blocks.  Attention is computed per (batch row, head), so this is
+    the same function as on the whole tensors.  The layout costs no
+    traffic when q / k / v already hold it (a replicated dim is cut
+    locally); the gradients return through the same redistribution."""
+    DTensor = dtensor().DTensor
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    Replicate, Shard = dtensor().Replicate, dtensor().Shard
+    mesh = q.device_mesh
+    places = tuple(Shard(0) if n in batch_axes() else
+                   Shard(2) if n == "tp" else Replicate()
+                   for n in mesh.mesh_dim_names)
+    q, k, v = (t.redistribute(mesh, places) for t in (q, k, v))
+    out = fn(q.to_local(), k.to_local(), v.to_local()).contiguous()
+    return DTensor.from_local(out, mesh, places, run_check=False,
+                              shape=q.shape,
+                              stride=_contiguous_stride(q.shape))
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, n = [], 1
+    for s in reversed(shape):
+        stride.append(n)
+        n *= s
+    return tuple(reversed(stride))
 
 
 def select_attention(kind: str, q, k, v, mesh=None, causal: bool = True):
@@ -263,7 +297,13 @@ def ulysses_attention(
 
 def plain_attention(q, k, v, *, causal=True, scale=None):
     """Reference (unsharded) attention: scores, mask and softmax in the
-    compute dtype, as the JAX reference."""
+    compute dtype, as the JAX reference.  DTensor inputs run on each
+    rank's local blocks (`on_local_blocks`)."""
+    return on_local_blocks(
+        lambda q, k, v: _plain_attention(q, k, v, causal, scale), q, k, v)
+
+
+def _plain_attention(q, k, v, causal, scale):
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale

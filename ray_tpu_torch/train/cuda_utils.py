@@ -87,7 +87,8 @@ def world_mean(value: float, group_name: str = "train") -> float:
 def prepare_batch(batch, mesh=None, sharding=None, device=None):
     """A host batch (numpy or tensor) on the worker's device; with a
     mesh, a DTensor split per `sharding` (the mesh's `data_sharding`
-    by default) — every rank passes the same global batch."""
+    by default), on the mesh's `compute_mesh` where a sharded step's
+    DTensors live — every rank passes the same global batch."""
     import os
 
     import torch
@@ -104,6 +105,6 @@ def prepare_batch(batch, mesh=None, sharding=None, device=None):
         sharding = data_sharding(mesh)
     if sharding is None:
         return x
-    from ray_tpu_torch.parallel.mesh import dtensor
+    from ray_tpu_torch.parallel.mesh import distribute
 
-    return dtensor().distribute_tensor(x, mesh, list(sharding))
+    return distribute(x, mesh, sharding)
