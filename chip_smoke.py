@@ -158,7 +158,30 @@ exits non-zero:
     gradient of a sum through the ring against dense (1e-4);
     `llama.loss_fn` with attention "ring" over the mesh at 4 layers
     against dense (2e-2); with the backend and how each collective's
-    bytes travelled (gloo: through the host).
+    bytes travelled (gloo: through the host).  Then sharded_sp,
+    sequence parallelism inside the sharded step on the same ranks:
+    (a) GPT-2 124M (the config above, `default_optimizer` without its
+    warm-up) on DTensor params over tp 2 x sp 2, each rank computing on
+    its 512-token half of the sequence, with attention "ring" for 1 + 1
+    steps, then "ulysses" for one step from the same weights; each
+    step-0 loss within 2e-2 and pre-clip gradient norm within 3e-2
+    (relative) of one process's step on the same weights and batch with
+    dense attention, the ring's loss falling, no K1-K4 launch and no
+    plain dispatch (the reference's ring and Ulysses are plain
+    blockwise attention), every collective through the host, the
+    ring's ppermutes, Ulysses' all_to_alls and the sums among them;
+    (b) the LoRA width at 4 layers over dp 2 x sp 2 with "ring", one
+    step, its loss within 2e-2 of one process's; (c) the multichip dry
+    run (`ray_tpu_torch.dryrun.dryrun_multichip(4)` in f32: GPT-2 over
+    tp 2 x sp 2 with the ring, `pipeline_apply` over pp 4, Mixtral's
+    step over ep 4, `dryrun_multislice(2, 2)`), each loss finite and
+    within 1e-5 relative of one process's on the same draws (Mixtral's:
+    the local path on each ep rank's batch shard, averaged), the
+    pipeline's output within 1e-5 of its stages in series; on rank 0
+    `dryrun.entry()`'s GPT-2 124M forward, finite logits [4, 512,
+    50,257].  Recorded:
+    step ms, tokens/s, collectives' calls / bytes / ms, each rank's peak
+    memory.
 13c'. data_ingest: 16 `.npz` files of 1,024 rows (int32 tokens [1,025]
     uniform in [0, 32,000) from `default_rng(0)`, int64 `row_id`; 67.2
     MB) written to a temp directory, then `read_numpy` -> `map_batches`
@@ -409,6 +432,7 @@ import torch
 import torch.nn.functional as F
 
 import ray_tpu_torch as rt
+from ray_tpu_torch import dryrun
 from ray_tpu_torch import serve as rt_serve
 from ray_tpu_torch.core import accelerators
 from ray_tpu_torch.core.config import get_config
@@ -2631,6 +2655,16 @@ SHARD_LOSS_TOL = 2e-2
 SHARD_GRAD_TOL = 3e-2
 SHARD_NORM_TOL = 1e-6
 SHARD_LORA_LAYERS = 4  # the LoRA bench's 22 layers cut, as train_plane
+# sequence parallelism inside the sharded step, on the same ranks: GPT-2
+# 124M over tp 2 x sp 2 with ring attention (1 + 1 steps) and Ulysses
+# (one step), the LoRA width over dp 2 x sp 2 with the ring (one step),
+# each against one process on the same weights and batch at the limits
+# above; then the multichip dry run in f32, each of its losses within
+# DRYRUN_TOL (relative) of one process's on the same draws
+SP_MESH = {"tp": 2, "sp": 2}
+SP_LORA_MESH = {"dp": 2, "sp": 2}
+SP_RING_STEPS = 2
+DRYRUN_TOL = 1e-5
 
 
 class recorded_flash:
@@ -2724,24 +2758,35 @@ def shard_gpt2_config() -> gpt2.GPT2Config:
 def shard_gpt2_inputs(cfg, device, seq: int = SHARD_SEQ) -> tuple:
     """(the params, the global batch [8, seq + 1]) from their seeds: the
     same on every rank and in the one-process reference."""
-    params = gpt2.init_params(cfg, 0, device=device)
+    return gpt2.init_params(cfg, 0, device=device), shard_gpt2_tokens(
+        cfg, device, seq)
+
+
+def shard_gpt2_tokens(cfg, device, seq: int = SHARD_SEQ):
+    """The global batch [8, seq + 1] from its seed."""
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (SHARD_BATCH, seq + 1),
-                           generator=gen, device=device, dtype=torch.int32)
-    return params, tokens
+    return torch.randint(0, cfg.vocab_size, (SHARD_BATCH, seq + 1),
+                         generator=gen, device=device, dtype=torch.int32)
 
 
 def one_process_references(device) -> dict:
-    """One process's GPT-2 step and LoRA loss on the sharded phase's
-    weights and batches, taken while its ranks run."""
+    """One process's GPT-2 steps (flash, as the fsdp x tp step; dense, for
+    the sp steps) and LoRA loss on the sharded phase's weights and
+    batches, taken while its ranks run."""
     cfg = shard_gpt2_config()
-    params, tokens = shard_gpt2_inputs(cfg, device)
-    opt = gpt2.default_optimizer(total_steps=1000)
-    _, _, m = gpt2.make_train_step(cfg, opt)(params, opt.init(params),
-                                             tokens)
-    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
-    del params, tokens, m
+    out = {}
+    # the main path's flash step; the sp steps' dense one
+    for tag, c in (("", cfg), ("dense_", dataclasses.replace(
+            cfg, attention="dense"))):
+        params, tokens = shard_gpt2_inputs(c, device)
+        opt = gpt2.default_optimizer(total_steps=1000)
+        _, _, m = gpt2.make_train_step(c, opt)(params, opt.init(params),
+                                               tokens)
+        out[tag + "loss"] = float(m["loss"])
+        out[tag + "grad_norm"] = float(m["grad_norm"])
+        del params, tokens, m
+        torch.cuda.empty_cache()
     lcfg = train_llama_lora.lora_config(n_layers=SHARD_LORA_LAYERS)
     st = train_llama_lora.build(device, SHARD_BATCH, SHARD_SEQ, 0, lcfg)
     with torch.no_grad():
@@ -2752,6 +2797,149 @@ def one_process_references(device) -> dict:
     return out
 
 
+def _gpt2_sharded(cfg, mesh, device, seq: int, opt) -> tuple:
+    """(params, optimizer state, step, batch) of GPT-2's sharded step over
+    `mesh` from `shard_gpt2_inputs`' seeds."""
+    from ray_tpu_torch.parallel import (optimizer_shardings, shard_params,
+                                        tree_shardings)
+    from ray_tpu_torch.parallel.sharding import distribute_tree
+    from ray_tpu_torch.train.cuda_utils import prepare_batch
+
+    logical = gpt2.logical_axes(cfg)
+    params, tokens = shard_gpt2_inputs(cfg, device, seq)
+    opt_state = distribute_tree(opt.init(params), mesh, optimizer_shardings(
+        mesh, opt, params, tree_shardings(mesh, logical)))
+    params = shard_params(params, mesh, logical)
+    return (params, opt_state, gpt2.make_train_step(cfg, opt, mesh),
+            prepare_batch(tokens, mesh))
+
+
+def _lora_sharded_step(lcfg, mesh, device, seq: int) -> tuple:
+    """One LoRA step (the bench's bf16 frozen base and rank-8 adapters,
+    both sharded over `mesh`): (its record, the rank's peak GB)."""
+    from ray_tpu_torch.parallel import (optimizer_shardings, shard_params,
+                                        tree_shardings)
+    from ray_tpu_torch.parallel.sharding import distribute_tree
+    from ray_tpu_torch.train.cuda_utils import prepare_batch
+
+    st = train_llama_lora.build(device, SHARD_BATCH, seq, 0, lcfg)
+    lopt = train_llama_lora.adamw()
+    lora_axes = llama.lora_logical_axes(lcfg, st["lora"])
+    lstate = distribute_tree(lopt.init(st["lora"]), mesh, optimizer_shardings(
+        mesh, lopt, st["lora"], tree_shardings(mesh, lora_axes)))
+    base = shard_params(st["params"], mesh, llama.logical_axes(lcfg))
+    lora = shard_params(st["lora"], mesh, lora_axes)
+    lbatch = prepare_batch(st["tokens"], mesh)
+    del st
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    _, rec = _sharded_step(llama.make_lora_train_step(lcfg, lopt, mesh),
+                           (base, lora, lstate, lbatch), device)
+    peak = _peak_gb(device)
+    del base, lora, lstate, lbatch
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec, peak
+
+
+def sp_optimizer() -> gpt2.AdamW:
+    """`default_optimizer` without its warm-up: lr 3e-4 from step 0, so
+    the sp steps' one update shows the loss falling."""
+    return gpt2.default_optimizer(total_steps=1000, warmup_steps=0)
+
+
+def sp_train(device, out: dict, *, cfg=None, lcfg=None,
+             seq: int = SHARD_SEQ) -> None:
+    """Sequence parallelism inside the sharded step, into `out`: GPT-2
+    124M on DTensor params over tp 2 x sp 2 with attention "ring" (1 + 1
+    steps), then "ulysses" (one step from the same weights), each rank
+    computing on its half of the sequence; the LoRA width over dp 2 x
+    sp 2 with "ring", one step."""
+    from ray_tpu_torch.parallel import MeshSpec
+
+    cfg = cfg or shard_gpt2_config()
+    mesh = MeshSpec(**SP_MESH).build(device_type=device.type)
+    out["sp_gpt2"] = {}
+    for kind, steps in (("ring", SP_RING_STEPS), ("ulysses", 1)):
+        params, opt_state, step, batch = _gpt2_sharded(
+            dataclasses.replace(cfg, attention=kind), mesh, device, seq,
+            sp_optimizer())
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        recs = []
+        for _ in range(steps):
+            (params, opt_state, _), rec = _sharded_step(
+                step, (params, opt_state, batch), device)
+            recs.append(rec)
+        out["sp_gpt2"][kind] = {"steps": recs, "peak_gb": _peak_gb(device)}
+        del params, opt_state, step, batch
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    lcfg = dataclasses.replace(
+        lcfg or train_llama_lora.lora_config(n_layers=SHARD_LORA_LAYERS),
+        attention="ring")
+    out["sp_lora"], out["sp_lora_peak_gb"] = _lora_sharded_step(
+        lcfg, MeshSpec(**SP_LORA_MESH).build(device_type=device.type),
+        device, seq)
+
+
+def dryrun_check(device) -> dict:
+    """`dryrun.dryrun_multichip(SHARD_WORLD)` in f32 on this rank, and
+    one process's f32 readings on the same draws: GPT-2's step with
+    dense attention, the multi-slice step's loss, the pipeline's stages
+    applied in series, and Mixtral's loss on each ep rank's batch shard
+    (the capacity each rank routes with), averaged over the shards; on
+    rank 0 also `dryrun.entry()`'s forward."""
+    f32 = torch.float32
+    _sync(device)
+    t0 = time.perf_counter()
+    got = dryrun.dryrun_multichip(SHARD_WORLD, device=device, dtype=f32)
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    axes = got["mesh"]
+    ref = {}
+    cfg = dataclasses.replace(dryrun.gpt2_config(axes, f32),
+                              attention="dense")
+    params, tokens = dryrun.gpt2_inputs(
+        cfg, axes["dp"] * axes["fsdp"] * 2, 32 * axes["sp"], 1, device)
+    opt = gpt2.default_optimizer(total_steps=10)
+    ref["gpt2_loss"] = float(gpt2.make_train_step(cfg, opt)(
+        params, opt.init(params), tokens)[2]["loss"])
+    per_slice = SHARD_WORLD // 2
+    fsdp = max(1, per_slice // 2)
+    cfg = dryrun.multislice_config(per_slice // fsdp, f32)
+    params, tokens = dryrun.gpt2_inputs(cfg, 2 * 2 * fsdp, 32, 2, device)
+    with torch.no_grad():
+        ref["multislice_loss"] = float(gpt2.loss_fn(cfg, params, tokens))
+        w, x = dryrun.pp_inputs(4, device)
+        for s in range(w["w"].shape[0]):
+            x = dryrun.pp_stage({"w": w["w"][s]}, x)
+        ep = min(4, SHARD_WORLD)
+        mcfg = dryrun.mixtral_config(ep, f32)
+        mparams, mtokens = dryrun.mixtral_inputs(mcfg, ep, device)
+        ref["mixtral_loss"] = statistics.mean(
+            float(mixtral.loss_fn(mcfg, mparams, shard)[0])
+            for shard in mtokens.chunk(ep))
+    pp = got["pp_out"].to(device)
+    out = {}
+    if torch.distributed.get_rank() == 0:
+        # `entry()`: GPT-2 124M's forward over its example args
+        fwd, args = dryrun.entry(device)
+        with torch.no_grad():
+            logits = fwd(*args)
+        out["entry"] = {"shape": list(logits.shape),
+                        "finite": bool(torch.isfinite(logits).all())}
+        del fwd, args, logits
+    return {**out, "ms": ms, "mesh": axes,
+            "losses": {k: got[k] for k in ref},
+            "one_process": ref,
+            "rel_err": {k: _rel(got[k], ref[k]) for k in ref},
+            "pp_max_abs_err": float((pp - x).abs().max()),
+            "pp_within": bool(torch.allclose(pp, x, rtol=DRYRUN_TOL,
+                                             atol=DRYRUN_TOL))}
+
+
 def shard_rank(rank: int, port: str, out_dir: str, *, device="cuda",
                cfg=None, lcfg=None, seq: int = SHARD_SEQ,
                sp: bool = True) -> None:
@@ -2759,9 +2947,11 @@ def shard_rank(rank: int, port: str, out_dir: str, *, device="cuda",
     ranks on one GPU).  GPT-2 124M's sharded step over fsdp 2 x tp 2,
     its state saved sharded, reloaded onto fsdp 4 x tp 1 and
     stepped once more; the LoRA bench's width at 4 layers, one step; the
-    sequence-parallel checks over dp 2 x sp 2.  Writes its readings as
-    JSON.  `device`, the configs,
-    `seq` and `sp` are for a rehearsal on the CPU at a small size."""
+    sequence-parallel checks over dp 2 x sp 2; sequence parallelism
+    inside the sharded step (`sp_train`); the multichip dry run
+    (`dryrun_check`).  Writes its readings as JSON.  `device`, the
+    configs, `seq` and `sp` are for a rehearsal on the CPU at a small
+    size."""
     t_start = time.perf_counter()
     import datetime
 
@@ -2789,15 +2979,10 @@ def shard_rank(rank: int, port: str, out_dir: str, *, device="cuda",
     # GPT-2 124M: the train main path's config, 8 x 1,024 a step
     cfg = cfg or shard_gpt2_config()
     logical = gpt2.logical_axes(cfg)
-    params, tokens = shard_gpt2_inputs(cfg, device, seq)
     opt = gpt2.default_optimizer(total_steps=1000)
     mesh = MeshSpec(**SHARD_MESH).build(device_type=device.type)
-    sh = tree_shardings(mesh, logical)
-    opt_state = distribute_tree(opt.init(params), mesh,
-                                optimizer_shardings(mesh, opt, params, sh))
-    params = shard_params(params, mesh, logical)
-    step = gpt2.make_train_step(cfg, opt, mesh)
-    batch = prepare_batch(tokens, mesh)
+    params, opt_state, step, batch = _gpt2_sharded(cfg, mesh, device, seq,
+                                                   opt)
     out["startup_s"] = time.perf_counter() - t_start
     out["mesh_dims"] = list(params["wte"].device_mesh.mesh_dim_names)
     if device.type == "cuda":
@@ -2833,7 +3018,8 @@ def shard_rank(rank: int, port: str, out_dir: str, *, device="cuda",
     norm_loaded = float(global_norm(gpt2._leaves(state["params"])))
     (_, _, _), rec = _sharded_step(
         gpt2.make_train_step(cfg, opt, mesh2),
-        (state["params"], state["opt_state"], prepare_batch(tokens, mesh2)),
+        (state["params"], state["opt_state"],
+         prepare_batch(shard_gpt2_tokens(cfg, device, seq), mesh2)),
         device)
     out["reshard"] = {"mesh": SHARD_RELOAD_MESH, "step": state["step"],
                       "count": state["opt_state"]["count"],
@@ -2843,32 +3029,24 @@ def shard_rank(rank: int, port: str, out_dir: str, *, device="cuda",
 
     # the LoRA bench's width: a bf16 frozen base, rank-8 adapters
     lcfg = lcfg or train_llama_lora.lora_config(n_layers=SHARD_LORA_LAYERS)
-    st = train_llama_lora.build(device, SHARD_BATCH, seq, 0, lcfg)
-    lopt = train_llama_lora.adamw()
-    lora_axes = llama.lora_logical_axes(lcfg, st["lora"])
-    lstate = distribute_tree(lopt.init(st["lora"]), mesh, optimizer_shardings(
-        mesh, lopt, st["lora"], tree_shardings(mesh, lora_axes)))
-    base = shard_params(st["params"], mesh, llama.logical_axes(lcfg))
-    lora = shard_params(st["lora"], mesh, lora_axes)
-    lbatch = prepare_batch(st["tokens"], mesh)
-    del st
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(device)
-    _, rec = _sharded_step(llama.make_lora_train_step(lcfg, lopt, mesh),
-                           (base, lora, lstate, lbatch), device)
-    out["lora_step"] = rec
-    out["lora_peak_gb"] = _peak_gb(device)
-    del base, lora, lstate, lbatch
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    out["lora_step"], out["lora_peak_gb"] = _lora_sharded_step(
+        lcfg, mesh, device, seq)
 
-    # ring and Ulysses attention over dp 2 x sp 2 on the same ranks
+    # ring and Ulysses attention over dp 2 x sp 2 on the same ranks, then
+    # sequence parallelism inside the sharded step, then the dry run
     t0 = time.perf_counter()
     if sp:
         sp_checks(MeshSpec(dp=2, sp=2).build(device_type="cuda"), device,
                   out)
     out["sp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if sp:
+        sp_train(device, out, cfg=cfg, lcfg=lcfg, seq=seq)
+    out["sp_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if sp:
+        out["dryrun"] = dryrun_check(device)
+    out["dryrun_s"] = time.perf_counter() - t0
     with open(path, "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -2983,7 +3161,8 @@ def _rel(a: float, b: float) -> float:
 def sharded_train(smi: str, timeout: float = 420.0) -> tuple:
     """Spawns the `shard_rank` processes (this script, `--shard-rank`) and
     holds their readings; returns (the `sharded_train` line, the
-    `sp_attention` line, the main path's K1-K4 launches over every rank).
+    `sp_attention` line, the `sharded_sp` line, the main path's K1-K4
+    launches over every rank).
     One process's references (the GPT-2 step, the LoRA loss) are taken
     here while the ranks run.  A rank that fails, or outlives
     `timeout`, fails the phase."""
@@ -3116,7 +3295,121 @@ def sharded_train(smi: str, timeout: float = 420.0) -> tuple:
         "startup_s_each_rank": [r["startup_s"] for r in ranks],
         "launches_all_ranks": launches,
     }
-    return line, sp_line(ranks, smi), launches
+    return (line, sp_line(ranks, smi), sp_train_line(ranks, ref, smi),
+            launches)
+
+
+def sp_train_line(ranks: list, ref: dict, smi: str) -> dict:
+    """The `sharded_sp` line from the ranks' `sp_train` and `dryrun_check`
+    readings, held against one process's (`ref`): GPT-2's step 0 (ring
+    and Ulysses) against the dense one-process step, loss falling over
+    the ring's steps, no K1-K4 launch or plain dispatch in these steps,
+    every collective on the host route with the ring's sends, Ulysses'
+    all_to_alls and the sums among them; the LoRA loss; the dry run's
+    losses against one process's f32 readings."""
+    cfg = shard_gpt2_config()
+    bad = []
+
+    def on_host(what, rec, ops):
+        rows = rec["collectives"]
+        if not all(row.endswith("/host") for row in rows):
+            bad.append((what, "a collective off the host route", rows))
+        got = {row.split("/")[0] for row in rows}
+        if not set(ops) <= got:
+            bad.append((what, "collectives missing", sorted(ops), rows))
+        if any(rec["launches"].values()) or rec["plain_dispatches"]:
+            bad.append((what, "flash launches", rec["launches"],
+                        rec["plain_dispatches"]))
+
+    for r in ranks:
+        for kind, ops in (("ring", ("ppermute", "psum")),
+                          ("ulysses", ("all_to_all", "psum"))):
+            steps = r["sp_gpt2"][kind]["steps"]
+            s0 = steps[0]
+            if not all(math.isfinite(s["loss"]) for s in steps):
+                bad.append((r["rank"], kind, "losses", steps))
+            if _rel(s0["loss"], ref["dense_loss"]) > SHARD_LOSS_TOL:
+                bad.append((r["rank"], kind, "step-0 loss", s0["loss"],
+                            ref["dense_loss"]))
+            if _rel(s0["grad_norm"], ref["dense_grad_norm"]) > SHARD_GRAD_TOL:
+                bad.append((r["rank"], kind, "step-0 grad norm",
+                            s0["grad_norm"], ref["dense_grad_norm"]))
+            for i, s in enumerate(steps):
+                on_host((r["rank"], kind, i), s, ops)
+        ring = [s["loss"] for s in r["sp_gpt2"]["ring"]["steps"]]
+        if not ring[-1] < ring[0]:
+            bad.append((r["rank"], "ring loss not falling", ring))
+        ls = r["sp_lora"]
+        if _rel(ls["loss"], ref["lora_loss"]) > SHARD_LOSS_TOL:
+            bad.append((r["rank"], "sp lora loss", ls["loss"],
+                        ref["lora_loss"]))
+        on_host((r["rank"], "sp lora"), ls, ("ppermute", "psum"))
+        d = r["dryrun"]
+        if not all(math.isfinite(x) for x in d["losses"].values()):
+            bad.append((r["rank"], "dry run losses", d["losses"]))
+        if max(d["rel_err"].values()) > DRYRUN_TOL or not d["pp_within"]:
+            bad.append((r["rank"], "dry run against one process", d))
+    entry = ranks[0]["dryrun"]["entry"]
+    if entry != {"shape": [4, 512, cfg.vocab_size], "finite": True}:
+        bad.append(("entry() forward", entry))
+    if bad:
+        raise AssertionError(f"sharded_sp outside its limits: {bad}")
+    r0 = ranks[0]
+
+    def step_row(steps, tokens):
+        return {"losses": [s["loss"] for s in steps],
+                "grad_norms": [s["grad_norm"] for s in steps],
+                "step_ms": [s["ms"] for s in steps],
+                "tokens_per_s": [tokens / (s["ms"] / 1e3) for s in steps],
+                "collectives": [s["collectives"] for s in steps],
+                "launches": steps[-1]["launches"]}
+
+    gpt2_rows = {}
+    for kind in ("ring", "ulysses"):
+        steps = r0["sp_gpt2"][kind]["steps"]
+        gpt2_rows[kind] = {
+            **step_row(steps, SHARD_BATCH * SHARD_SEQ),
+            "step0_rel_err": {
+                "loss": _rel(steps[0]["loss"], ref["dense_loss"]),
+                "grad_norm": _rel(steps[0]["grad_norm"],
+                                  ref["dense_grad_norm"])},
+            "peak_gb_each_rank": [r["sp_gpt2"][kind]["peak_gb"]
+                                  for r in ranks]}
+    d0 = r0["dryrun"]
+    return {
+        "phase": "sharded_sp", "nvidia_smi": smi, "ranks": len(ranks),
+        "backend": r0["backend"],
+        "gpt2": {"model": "gpt2_124m", "n_layer": cfg.n_layer,
+                 "mesh": SP_MESH, "dtype": "bfloat16",
+                 "master_dtype": "float32", "logits_dtype": "bfloat16",
+                 "remat_policy": cfg.remat_policy,
+                 "optimizer": "default_optimizer, warmup 0",
+                 "global_batch": SHARD_BATCH, "seq": SHARD_SEQ,
+                 "local_seq": SHARD_SEQ // SP_MESH["sp"],
+                 "one_process_dense": {k: ref["dense_" + k]
+                                       for k in ("loss", "grad_norm")},
+                 "tolerance": {"loss": SHARD_LOSS_TOL,
+                               "grad_norm": SHARD_GRAD_TOL},
+                 **gpt2_rows},
+        "lora": {"n_layers": SHARD_LORA_LAYERS, "mesh": SP_LORA_MESH,
+                 "attention": "ring", "loss": r0["sp_lora"]["loss"],
+                 "one_process_loss": ref["lora_loss"],
+                 "rel_err": _rel(r0["sp_lora"]["loss"], ref["lora_loss"]),
+                 "tolerance": SHARD_LOSS_TOL, "ms": r0["sp_lora"]["ms"],
+                 "tokens_per_s": SHARD_BATCH * SHARD_SEQ
+                 / (r0["sp_lora"]["ms"] / 1e3),
+                 "collectives": r0["sp_lora"]["collectives"],
+                 "launches": r0["sp_lora"]["launches"],
+                 "peak_gb_each_rank": [r["sp_lora_peak_gb"] for r in ranks]},
+        "dryrun": {"n_devices": SHARD_WORLD, "dtype": "float32",
+                   **{k: d0[k] for k in ("entry", "mesh", "ms", "losses",
+                                         "one_process", "rel_err",
+                                         "pp_max_abs_err")},
+                   "rel_err_all_ranks": max(
+                       max(r["dryrun"]["rel_err"].values()) for r in ranks),
+                   "tolerance": DRYRUN_TOL},
+        "wall_s": {"sp_train": r0["sp_train_s"], "dryrun": r0["dryrun_s"]},
+    }
 
 
 def sp_line(ranks: list, smi: str) -> dict:
@@ -7487,9 +7780,10 @@ def run_parallel_phases(device, smi: str) -> dict:
     emit({**plane, "wall_s": time.perf_counter() - t0})
     emit(nccl)
     torch.cuda.empty_cache()
-    sharded, sp, launches = sharded_train(smi)
+    sharded, sp, sp_train_, launches = sharded_train(smi)
     emit(sharded)
     emit(sp)
+    emit(sp_train_)
     return launches
 
 

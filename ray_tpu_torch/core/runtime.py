@@ -1921,13 +1921,18 @@ class Runtime:
     def _deser_pinned(self, id_bytes: bytes, buf):
         """Deserialize a shm buffer; the get's pin is held while the
         value lives.  EVERY get keeps its own store pin: a per-get
-        finalizer on the returned array releases exactly that pin when
-        the array is garbage-collected (numpy view chains hold base
-        references, so the finalizer cannot fire while derived views
-        live — the reference releases plasma buffers on value GC the
-        same way).  Non-array values may leak extracted views past their
-        container's death, so their pin is held for the process lifetime
-        (released at shutdown)."""
+        finalizer releases exactly that pin when the arrays over the
+        buffer are garbage-collected — on each array's view root
+        (`_view_root`), the array every view derived from it keeps
+        alive, since numpy collapses a view's base past intermediate
+        views: a finalizer on the returned array itself fired while a
+        slice of it still read the buffer, and the store then spilled
+        and reused the memory under the slice (rows lost or duplicated
+        in `scripts/perf.py`'s storage-faults epoch).  The reference
+        releases plasma buffers on value GC the same way.  Non-array
+        values may leak extracted views past their container's death,
+        so their pin is held for the process lifetime (released at
+        shutdown)."""
         import weakref
 
         import numpy as _np
@@ -1935,16 +1940,18 @@ class Runtime:
         tag, val = ser.deserialize(buf)
         out = _unwrap(tag, val)
         if isinstance(out, _np.ndarray):
-            weakref.finalize(out, self._release_pin, id_bytes)
+            weakref.finalize(_view_root(out), self._release_pin, id_bytes)
         elif (isinstance(out, dict) and out
               and all(isinstance(v, _np.ndarray) for v in out.values())):
             # a column block (dict of arrays, each possibly a zero-copy
             # view into this buffer): release the pin when the LAST
-            # array is collected.  The former process-lifetime pin here
-            # made every fetched block permanently unspillable, which
-            # wedged any shuffle larger than the object store.
+            # array root is collected.  The former process-lifetime pin
+            # here made every fetched block permanently unspillable,
+            # which wedged any shuffle larger than the object store.
+            roots = list({id(r): r for r in map(_view_root, out.values())
+                          }.values())
             release = self._release_pin
-            remaining = [len(out)]
+            remaining = [len(roots)]
 
             def _dec(remaining=remaining, release=release,
                      id_bytes=id_bytes):
@@ -1952,8 +1959,8 @@ class Runtime:
                 if remaining[0] == 0:
                     release(id_bytes)
 
-            for v in out.values():
-                weakref.finalize(v, _dec)
+            for r in roots:
+                weakref.finalize(r, _dec)
         else:
             self._held_pins.add(id_bytes)  # process-lifetime pin
         return out
@@ -4258,6 +4265,18 @@ def _unwrap(tag: int, value):
     if tag == ser.TAG_ERROR:
         raise value
     return value
+
+
+def _view_root(a):
+    """The array that every view derived from `a` references: numpy sets
+    a new view's base to the last array of `a`'s base chain (here the one
+    over the deserialized buffer), not to `a`, so only that root's
+    lifetime covers them all."""
+    import numpy as _np
+
+    while isinstance(a.base, _np.ndarray):
+        a = a.base
+    return a
 
 
 def _spill_clamp_streak(reply, streak: int) -> int:

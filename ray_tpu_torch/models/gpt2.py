@@ -224,9 +224,10 @@ def _block(cfg: GPT2Config, mesh, shards, remat_attention: bool, x,
                for t in qkv.split(qkv.shape[-1] // 3, dim=-1))
     if remat_attention:
         o = checkpoint(select_attention, cfg.attention, q, k, v, mesh, True,
-                       use_reentrant=False)
+                       shards, use_reentrant=False)
     else:
-        o = select_attention(cfg.attention, q, k, v, mesh, causal=True)
+        o = select_attention(cfg.attention, q, k, v, mesh, causal=True,
+                             shards=shards)
     x1 = x + (shards.exit(o.reshape(B, T, -1) @ p["attn_out_w"].to(dt))
               + p["attn_out_b"].to(dt))
     h2 = _layer_norm(x1, p["ln2_g"].to(dt), p["ln2_b"].to(dt))
@@ -265,7 +266,8 @@ def _localize(cfg: GPT2Config, params: Dict, tokens):
     """(shards, params, tokens) for the arithmetic: plain params as they
     are; DTensor params as this rank's compute blocks (gathered over the
     data axes, the fused qkv over tp too and cut to this rank's heads)
-    and this rank's rows of the batch."""
+    and this rank's rows of the batch, whole over the sequence (the
+    caller cuts its sp chunk: `shards.seq_chunk`)."""
     shards = _sh.local_shards(params)
     if shards is _sh.UNSHARDED:
         return shards, params, tokens
@@ -281,11 +283,14 @@ def _localize(cfg: GPT2Config, params: Dict, tokens):
 
 
 def _backbone(cfg: GPT2Config, params: Dict, tokens, mesh, shards):
+    """The blocks over `tokens`, this rank's chunk of the sequence under
+    sp (positions from the chunk's offset on)."""
     T = tokens.shape[1]
+    t0 = shards.seq_offset(T)
     dt = cfg.dtype
     tokens = tokens.long()
     x = (_sh.embed(shards, params["wte"].to(dt), tokens, cfg.vocab_size)
-         + params["wpe"].to(dt)[:T])
+         + params["wpe"].to(dt)[t0:t0 + T])
     blocks = params["blocks"]
     for i in range(cfg.n_layer):
         x = _run_block(cfg, mesh, shards, i, x,
@@ -297,9 +302,10 @@ def backbone(cfg: GPT2Config, params: Dict, tokens: torch.Tensor,
              mesh=None) -> torch.Tensor:
     """tokens [B, T] int -> final hidden states [B, T, embd] (compute
     dtype), i.e. everything up to (not including) the lm-head matmul.
-    With DTensor params (`shard_params`), this rank's rows of them."""
+    With DTensor params (`shard_params`), this rank's rows of them (and
+    its chunk of the sequence under sp)."""
     shards, params, tokens = _localize(cfg, params, tokens)
-    return _backbone(cfg, params, tokens, mesh, shards)
+    return _backbone(cfg, params, shards.seq_chunk(tokens), mesh, shards)
 
 
 def lm_head(cfg: GPT2Config, params: Dict, x: torch.Tensor,
@@ -314,10 +320,11 @@ def lm_head(cfg: GPT2Config, params: Dict, x: torch.Tensor,
 def forward(cfg: GPT2Config, params: Dict, tokens: torch.Tensor,
             mesh=None) -> torch.Tensor:
     """tokens [B, T] int -> logits [B, T, vocab] (f32); with DTensor
-    params, this rank's rows and block of the vocabulary."""
+    params, this rank's rows, sequence chunk and block of the
+    vocabulary."""
     shards, params, tokens = _localize(cfg, params, tokens)
-    return lm_head(cfg, params, _backbone(cfg, params, tokens, mesh, shards),
-                   shards=shards)
+    x = _backbone(cfg, params, shards.seq_chunk(tokens), mesh, shards)
+    return lm_head(cfg, params, x, shards=shards)
 
 
 def loss_fn(cfg: GPT2Config, params: Dict, tokens: torch.Tensor,
@@ -326,12 +333,15 @@ def loss_fn(cfg: GPT2Config, params: Dict, tokens: torch.Tensor,
     lse form: logits in `cfg.logits_dtype`, logsumexp and the target
     gather in f32.  Eager PyTorch materialises the f32 upcast of the
     logits, which the reference's fused XLA reduction does not.  With
-    DTensor params each rank computes the mean over its rows, with the
-    vocabulary split over tp, and the loss is their mean over the data
-    axes (the same value on every rank)."""
+    DTensor params each rank computes the mean over its rows and its
+    chunk of the sequence (cut after the shift, so each chunk keeps its
+    own targets), with the vocabulary split over tp, and the loss is
+    their mean over the data axes and sp (the same value on every
+    rank)."""
     shards, params, tokens = _localize(cfg, params, tokens)
     tokens = tokens.long()
-    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    inputs = shards.seq_chunk(tokens[:, :-1])
+    targets = shards.seq_chunk(tokens[:, 1:])
     x = _backbone(cfg, params, inputs, mesh, shards)
     logits = lm_head(cfg, params, x, out_dtype=cfg.logits_dtype,
                      shards=shards)

@@ -382,15 +382,17 @@ def _block(cfg: LlamaConfig, layer, lora_layer, x, mesh=None,
     B, T, _ = x.shape
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     group = H // KV
+    t0 = shards.seq_offset(T)  # this rank's chunk of the sequence
     q, k, v = _qkv(cfg, layer, x, lora_layer, shards)
-    q = _rope(q.reshape(B, T, -1, hd), cfg.rope_theta)
-    k_kv = _rope(k.reshape(B, T, -1, hd), cfg.rope_theta)
+    q = _rope(q.reshape(B, T, -1, hd), cfg.rope_theta, t0)
+    k_kv = _rope(k.reshape(B, T, -1, hd), cfg.rope_theta, t0)
     v_kv = v.reshape(B, T, -1, hd)
     k, v = k_kv, v_kv
     if group > 1:  # GQA: each kv head serves `group` query heads
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
-    o = select_attention(cfg.attention, q, k, v, mesh, causal=True)
+    o = select_attention(cfg.attention, q, k, v, mesh, causal=True,
+                         shards=shards)
     x1 = x + _proj(cfg, layer, lora_layer, "wo", o.reshape(B, T, -1),
                    shards)
     return _mlp(cfg, layer, x1, lora_layer, shards), k_kv, v_kv
@@ -408,7 +410,8 @@ def _localize(cfg: LlamaConfig, params: Dict, lora: Optional[Dict],
               tokens):
     """(shards, params, lora, tokens) for the arithmetic: plain trees as
     they are; DTensor trees (`shard_params`) as this rank's compute
-    blocks (gathered over the data axes) and its rows of the batch."""
+    blocks (gathered over the data axes) and its rows of the batch,
+    whole over the sequence (the caller cuts its sp chunk)."""
     shards = _sh.local_shards(params)
     if shards is _sh.UNSHARDED:
         return shards, params, lora, tokens
@@ -459,23 +462,27 @@ def forward(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
     inputs) reaches `select_attention`, as in the reference: with
     `attention="ring"` or `"ulysses"` the sequence splits over its `sp`
     axis.  With DTensor params (`shard_params`) the result is this
-    rank's rows and its tp block of the vocabulary (no KV)."""
+    rank's rows, its chunk of the sequence under sp and its tp block of
+    the vocabulary (no KV)."""
     shards, params, lora, tokens = _localize(cfg, params, lora, tokens)
     if return_kv and shards is not _sh.UNSHARDED:
         raise ValueError("return_kv takes unsharded params")
-    return _forward(cfg, params, tokens, mesh, lora, return_kv, shards)
+    return _forward(cfg, params, shards.seq_chunk(tokens), mesh, lora,
+                    return_kv, shards)
 
 
 def loss_fn(cfg: LlamaConfig, params: Dict, tokens: torch.Tensor,
             mesh=None, lora: Optional[Dict] = None) -> torch.Tensor:
     """Next-token cross entropy; tokens [B, T+1] (shift done here).  The
     reference's lse form over the f32 logits: lse - target logit.  With
-    DTensor params each rank computes the mean over its rows, with the
-    vocabulary split over tp, and the loss is their mean over the data
-    axes (the same value on every rank)."""
+    DTensor params each rank computes the mean over its rows and its
+    chunk of the sequence (cut after the shift), with the vocabulary
+    split over tp, and the loss is their mean over the data axes and sp
+    (the same value on every rank)."""
     shards, params, lora, tokens = _localize(cfg, params, lora, tokens)
     tokens = tokens.long()
-    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    inputs = shards.seq_chunk(tokens[:, :-1])
+    targets = shards.seq_chunk(tokens[:, 1:])
     logits = _forward(cfg, params, inputs, mesh, lora, False, shards)
     lse, tgt = _sh.lse_and_target(shards, logits, targets, cfg.vocab_size)
     loss = (lse - tgt).mean()

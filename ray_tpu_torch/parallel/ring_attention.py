@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel import sharding as _sh
 from ray_tpu_torch.parallel.mesh import batch_axes, dtensor
 
 _NEG_INF = -1e30
@@ -67,11 +68,33 @@ def _contiguous_stride(shape) -> tuple:
     return tuple(reversed(stride))
 
 
-def select_attention(kind: str, q, k, v, mesh=None, causal: bool = True):
+def select_attention(kind: str, q, k, v, mesh=None, causal: bool = True,
+                     shards=None):
     """One dispatch point for the attention backends (dense | flash |
     ring | ulysses) shared by all model families; "ring" and
     "ulysses" without a mesh run `plain_attention`, as in the
-    reference."""
+    reference.  Under a sharded step (`shards` a
+    `sharding.LocalShards`) q / k / v are this rank's rows, tp heads and
+    contiguous chunk of the sequence, chunk `sp_rank` of the sp group's:
+    over more than one sp rank "ring" and "ulysses" run on the chunks
+    over the sp group alone (nothing is split again; Ulysses needs the
+    local heads divisible by sp), and "dense" / "flash", which read the
+    whole sequence, refuse; over one sp rank each kind is attention on
+    the local blocks."""
+    if isinstance(shards, _sh.LocalShards):
+        if shards.sp > 1:
+            scale = q.shape[-1] ** -0.5
+            if kind == "ring":
+                return _ring_attention_local(q, k, v, shards.sp_group,
+                                             causal, scale)
+            if kind == "ulysses":
+                return _ulysses_local(q, k, v, shards.sp_group, causal,
+                                      scale)
+            raise ValueError(
+                f"attention {kind!r} reads the whole sequence; a step "
+                f"that splits it over sp {shards.sp} takes 'ring' or "
+                "'ulysses'")
+        mesh = None
     if kind == "flash":
         from ray_tpu_torch.ops.attention import flash_attention
 
@@ -108,14 +131,10 @@ def _causal_bias(row0: int, Tq: int, col0: int, Tk: int, dtype, device):
     return torch.where(rows >= cols, zero, neg)[None, None, :, :]
 
 
-def _ring_attention_local(q, k, v, axis_name, causal: bool, scale: float,
-                          mesh=None):
-    """Per-rank body; the sequence dim is this rank's block."""
-    group = collectives._group(axis_name, mesh)
-    import torch.distributed as dist
-
-    axis_size = dist.get_world_size(group)
-    my_idx = dist.get_rank(group)
+def _ring_attention_local(q, k, v, group, causal: bool, scale: float):
+    """Per-rank body over `group`; the sequence dim is this rank's block,
+    block `rank` of the group's."""
+    axis_size, my_idx = collectives._size_rank(group)
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     perm = [(j, (j + 1) % axis_size) for j in range(axis_size)]
@@ -249,10 +268,37 @@ def ring_attention(
     if scale is None:
         scale = q.shape[-1] ** -0.5
     layout = _layout(mesh, axis_name)
+    group = collectives._group(axis_name, mesh)
     return _spmd(
-        lambda q, k, v: _ring_attention_local(
-            q, k, v, axis_name, causal, scale, mesh),
+        lambda q, k, v: _ring_attention_local(q, k, v, group, causal, scale),
         [layout] * 3, layout, q, k, v)
+
+
+def _ulysses_local(q, k, v, group, causal: bool, scale: float):
+    """Per-rank body over `group`: all_to_all so this rank holds the
+    whole sequence for its share of the heads, dense attention, the
+    inverse all_to_all."""
+    n, _ = collectives._size_rank(group)
+    if q.shape[2] % n:
+        raise ValueError(f"Ulysses splits this rank's {q.shape[2]} heads "
+                         f"over sp {n}: they must divide")
+
+    # local shapes: [b, t_local, h, d]; scatter heads, gather seq
+    def a2a(x):
+        return collectives.all_to_all(x, group, split_axis=2,
+                                      concat_axis=1, tiled=True)
+
+    def a2a_inv(x):
+        return collectives.all_to_all(x, group, split_axis=1,
+                                      concat_axis=2, tiled=True)
+
+    qg, kg, vg = a2a(q), a2a(k), a2a(v)  # [b, T, h/sp, d]
+    T = qg.shape[1]
+    bias = (_causal_bias(0, T, 0, T, qg.dtype, qg.device)
+            if causal else None)
+    o, m, l = _block_attn(qg, kg, vg, bias, scale)
+    o = o / torch.clamp_min(l, 1e-20).transpose(1, 2)[..., None]
+    return a2a_inv(o)
 
 
 def ulysses_attention(
@@ -270,29 +316,11 @@ def ulysses_attention(
     inverse all_to_all.  Requires H % sp == 0."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-
-    def local(q, k, v):
-        # local shapes: [b, t_local, h, d]; scatter heads, gather seq
-        def a2a(x):
-            return collectives.all_to_all(x, axis_name, split_axis=2,
-                                          concat_axis=1, tiled=True,
-                                          mesh=mesh)
-
-        def a2a_inv(x):
-            return collectives.all_to_all(x, axis_name, split_axis=1,
-                                          concat_axis=2, tiled=True,
-                                          mesh=mesh)
-
-        qg, kg, vg = a2a(q), a2a(k), a2a(v)  # [b, T, h/sp, d]
-        T = qg.shape[1]
-        bias = (_causal_bias(0, T, 0, T, qg.dtype, qg.device)
-                if causal else None)
-        o, m, l = _block_attn(qg, kg, vg, bias, scale)
-        o = o / torch.clamp_min(l, 1e-20).transpose(1, 2)[..., None]
-        return a2a_inv(o)
-
     layout = _layout(mesh, axis_name)
-    return _spmd(local, [layout] * 3, layout, q, k, v)
+    group = collectives._group(axis_name, mesh)
+    return _spmd(
+        lambda q, k, v: _ulysses_local(q, k, v, group, causal, scale),
+        [layout] * 3, layout, q, k, v)
 
 
 def plain_attention(q, k, v, *, causal=True, scale=None):

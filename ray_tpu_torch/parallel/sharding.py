@@ -208,7 +208,11 @@ def optimizer_shardings(mesh, opt, params: Any, param_shardings: Any) -> Any:
 # crashes on a CUDA `all_gather_into_tensor`: `scripts/gloo_cuda_probe`).
 
 DATA_AXES = ("dp", "fsdp")
-STEP_AXES = DATA_AXES + ("tp",)
+# sp is a data axis for the parameters (replicated over it, their
+# gradients summed over it) and a sequence axis for the activations
+# (each rank computes on its contiguous chunk of the sequence)
+PARAM_DATA_AXES = DATA_AXES + ("sp",)
+STEP_AXES = PARAM_DATA_AXES + ("tp",)
 
 
 def _autograd():
@@ -306,6 +310,12 @@ class Unsharded:
     def exit(self, x):
         return x
 
+    def seq_chunk(self, x):
+        return x
+
+    def seq_offset(self, n_local: int) -> int:
+        return 0
+
 
 UNSHARDED = Unsharded()
 
@@ -314,7 +324,11 @@ class LocalShards(Unsharded):
     """How a sharded step's DTensor leaves become each rank's compute
     blocks, and the tp collectives of the model around them.  Built from
     the mesh the leaves live on (`compute_mesh`), whose dims must be
-    among dp, fsdp and tp."""
+    among dp, fsdp, sp and tp.  Over sp each rank computes on its
+    contiguous chunk of the sequence (`seq_chunk`), the attention
+    crosses the chunks (`ring_attention.select_attention`), and the
+    parameters, replicated over sp, have their gradients summed over
+    it."""
 
     def __init__(self, mesh):
         import torch.distributed as dist
@@ -329,13 +343,18 @@ class LocalShards(Unsharded):
         self.mesh = mesh
         self.names = names
         self.groups = {n: mesh.get_group(n) for n in names}
-        self.data = [n for n in names if n in DATA_AXES]
+        # the loss is a mean over rows and sequence chunks alike
+        self.data = [n for n in names if n in PARAM_DATA_AXES]
         self.n_data = 1
         for n in self.data:
             self.n_data *= sizes[n]
         self.tp = sizes.get("tp", 1)
         self.tp_group = self.groups.get("tp")
         self.tp_rank = (dist.get_rank(self.tp_group) if self.tp > 1
+                        else 0)
+        self.sp = sizes.get("sp", 1)
+        self.sp_group = self.groups.get("sp")
+        self.sp_rank = (dist.get_rank(self.sp_group) if self.sp > 1
                         else 0)
 
     # -- leaves ---------------------------------------------------------
@@ -350,7 +369,7 @@ class LocalShards(Unsharded):
         gathers, sums = [], []
         for i in reversed(range(len(self.names))):
             name, pl = self.names[i], p.placements[i]
-            gather = name in DATA_AXES or (over_tp and name == "tp")
+            gather = name in PARAM_DATA_AXES or (over_tp and name == "tp")
             if pl.is_shard() and gather:
                 n = self.mesh.size(i)
                 if p.shape[pl.dim] % n:
@@ -359,19 +378,42 @@ class LocalShards(Unsharded):
                         f"{tuple(p.shape)} leaf does not gather evenly "
                         f"over {name} {n}")
                 gathers.append((pl.dim, self.groups[name]))
-            elif pl.is_shard() or name not in DATA_AXES:
+            elif pl.is_shard() or name not in PARAM_DATA_AXES:
                 continue
             else:
                 sums.append(self.groups[name])
         return _fns()[0].apply(p.to_local(), gathers, sums)
 
-    @staticmethod
-    def rows(t):
-        """This rank's rows of a batch placed by `prepare_batch`."""
+    def rows(self, t):
+        """This rank's rows of a batch placed by `prepare_batch` (the
+        whole sequence: `seq_chunk` cuts it after the shift)."""
         if not isinstance(t, dtensor().DTensor):
             raise TypeError("a sharded step takes its batch as a DTensor "
                             "(train.cuda_utils.prepare_batch)")
+        if "sp" in self.names and t.placements[
+                self.names.index("sp")].is_shard():
+            raise ValueError("a sharded step takes its batch whole over "
+                             "sp (prepare_batch's data_sharding); the "
+                             "model cuts each rank's chunk")
         return t.to_local()
+
+    # -- the sequence over sp -------------------------------------------
+    def seq_chunk(self, x):
+        """This rank's contiguous chunk of dim 1 (the sequence) of `x`,
+        chunk `sp_rank` of `sp` equal ones."""
+        if self.sp == 1:
+            return x
+        T = x.shape[1]
+        if T % self.sp:
+            raise ValueError(f"sequence length {T} does not split over "
+                             f"sp {self.sp}")
+        n = T // self.sp
+        return x[:, self.sp_rank * n:(self.sp_rank + 1) * n]
+
+    def seq_offset(self, n_local: int) -> int:
+        """Where this rank's chunk of `n_local` positions starts in the
+        whole sequence."""
+        return self.sp_rank * n_local
 
     # -- tp around the model's products ---------------------------------
     def enter(self, x):
@@ -386,6 +428,9 @@ class LocalShards(Unsharded):
                 _chunk_start(vocab, self.tp, self.tp_rank + 1))
 
     def data_mean(self, x):
+        """The mean over the data ranks and the sequence chunks (all of
+        one size) of a mean each rank took over its own: the global
+        mean."""
         return _fns()[3].apply(x, [self.groups[n] for n in self.data],
                                self.n_data)
 

@@ -304,6 +304,10 @@ ADAPTED = {
     # (test_perf_outside_its_adaptations_is_a_copy below)
     "scripts/perf.py": "test_torch_perf_harness.py::"
                        "test_engine_and_decode_rows_match_jax",
+    # the counterpart of `__graft_entry__.py`'s entry points (beside the
+    # JAX package) on a process group
+    "dryrun.py": "test_torch_dryrun.py::"
+                 "test_dryrun_gpt2_step_matches_reference",
 }
 
 

@@ -72,7 +72,7 @@ RUNTIME_MODULES = (
     "util/multiprocessing/pool.py", "util/joblib/__init__.py",
     "util/joblib/ray_backend.py", "lint/__init__.py", "lint/__main__.py",
     "lint/framework.py", "lint/checks.py", "lint/concurrency.py",
-    "lint/jscheck.py", "scripts/perf.py",
+    "lint/jscheck.py", "scripts/perf.py", "dryrun.py",
 )
 
 
@@ -182,6 +182,44 @@ def test_parallel_and_train_planes_run_with_jax_and_ray_tpu_blocked(
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK")
+
+
+def test_dryrun_runs_with_jax_and_ray_tpu_blocked(tmp_path):
+    """A fresh interpreter where importing jax, ray_tpu or the
+    reference's `__graft_entry__` fails runs the port's dry run on a
+    one-rank gloo world (`dryrun_multichip(1)`: the GPT-2 step alone),
+    and `entry()` refuses to run without a card unless given the CPU."""
+    code = textwrap.dedent(f"""
+        import datetime, sys
+        sys.path.insert(0, {str(REPO)!r})
+        for name in {FORBIDDEN!r} + ("__graft_entry__",):
+            sys.modules[name] = None
+        import torch
+        import torch.distributed as dist
+        from ray_tpu_torch import dryrun
+        # one rank: its store takes any free port
+        dist.init_process_group("gloo", init_method="tcp://127.0.0.1:0",
+                                world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=60))
+        out = dryrun.dryrun_multichip(1, device="cpu", dtype=torch.float32)
+        dist.destroy_process_group()
+        assert out["mesh"] == {{"dp": 1, "fsdp": 1, "tp": 1, "sp": 1}}
+        assert out["gpt2_loss"] > 0 and out["pp_out"] is None
+        if not torch.cuda.is_available():
+            try:
+                dryrun.entry()
+            except RuntimeError:
+                pass
+            else:
+                raise AssertionError("entry() ran without a card")
+        assert not any(m.split(".")[0] in {FORBIDDEN!r} + ("__graft_entry__",)
+                       for m, mod in sys.modules.items() if mod is not None)
+        print("OK")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "OK", proc.stdout
 
 
 def test_experts_pipelines_and_dag_run_with_jax_and_ray_tpu_blocked(

@@ -13,7 +13,6 @@ the port's runtime and on the JAX package's, with the same inputs.
 """
 
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -43,17 +42,36 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # gloo ranks in subprocesses
 # ----------------------------------------------------------------------
 _RANK_MAIN = r"""
-import datetime, os, sys
+import datetime, os, sys, time
 import numpy as np
-rank, world, port, work, repo = (int(sys.argv[1]), int(sys.argv[2]),
-                                 sys.argv[3], sys.argv[4], sys.argv[5])
+rank, world, work, repo = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                           sys.argv[4])
 sys.path.insert(0, repo)
 import torch
 import torch.distributed as dist
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        world_size=world, rank=rank,
-                        timeout=datetime.timedelta(seconds=60))
+# rank 0's store takes a port from the OS and publishes it in the work
+# dir: a port picked by the parent and released could be taken by another
+# group's gloo sockets before rank 0 binds it (EADDRINUSE)
+limit = datetime.timedelta(seconds=60)
+published = os.path.join(work, "store_port")
+if rank == 0:
+    store = dist.TCPStore("127.0.0.1", 0, world, True, timeout=limit,
+                          wait_for_workers=False)
+    with open(published + ".tmp", "w") as f:
+        f.write(str(store.port))
+    os.replace(published + ".tmp", published)
+else:
+    deadline = time.monotonic() + limit.total_seconds()
+    while not os.path.exists(published):
+        if time.monotonic() > deadline:
+            raise TimeoutError("rank 0 published no store port")
+        time.sleep(0.02)
+    with open(published) as f:
+        store = dist.TCPStore("127.0.0.1", int(f.read()), world, False,
+                              timeout=limit)
+dist.init_process_group("gloo", store=store, world_size=world, rank=rank,
+                        timeout=limit)
 ns = {}
 with open(os.path.join(work, "task.py")) as f:
     exec(f.read(), ns)
@@ -70,12 +88,6 @@ os._exit(0)
 """
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def spawn(task: str, world: int, inputs: dict, work: Path,
           timeout: float = 150.0):
     """Run `run(rank, world, inputs) -> {name: array}` (defined in the
@@ -83,14 +95,14 @@ def spawn(task: str, world: int, inputs: dict, work: Path,
     rank that outlives `timeout` is killed and the call fails."""
     work.mkdir(parents=True, exist_ok=True)
     (work / "task.py").write_text(textwrap.dedent(task))
+    (work / "store_port").unlink(missing_ok=True)
     np.savez(work / "inputs.npz", **inputs)
-    port = str(_free_port())
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("RT_", "RTT_"))}
     env["OMP_NUM_THREADS"] = "1"
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _RANK_MAIN, str(r), str(world), port,
-         str(work), str(REPO)], env=env, stdout=subprocess.PIPE,
+        [sys.executable, "-c", _RANK_MAIN, str(r), str(world), str(work),
+         str(REPO)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     logs = []
     try:
