@@ -181,7 +181,23 @@ exits non-zero:
     `dryrun.entry()`'s GPT-2 124M forward, finite logits [4, 512,
     50,257].  Recorded:
     step ms, tokens/s, collectives' calls / bytes / ms, each rank's peak
-    memory.
+    memory.  Then sharded_moe on the same ranks: Mixtral-8x7B's widths
+    (`MixtralConfig.mixtral_8x7b`: vocab 32,000, dim 4,096, 32 / 8
+    heads, expert hidden 14,336, 8 experts, top-2, capacity 1.25;
+    flash, remat, bf16 on f32 master, adamw(3e-4), seed 0) at depth 1,
+    global batch 4 x 1,024, through `make_train_step` on DTensor params
+    over ep 2 x tp 2 (1 + 1 steps) and ep 2 x fsdp 2 (one step): the
+    experts split over ep, each ep rank's ranks routing their chunk of
+    the batch with its capacity and exchanging the slots with
+    all_to_all.  Held: the step-0 loss within 2e-2 and the pre-clip
+    gradient norm within 3e-2 (relative) of one process's step on the
+    same draws that routes each ep chunk of the batch on its own
+    (`chunk_routed`); the load-balance loss in (0.5, 2.0); over ep 2 x
+    tp 2 the step-0 flash loss within 2e-2 of dense attention's under
+    the same mesh; 2 K1 and 1 K2 a step a rank on its local [32, 1,024,
+    128] block, no plain dispatch; every collective through the host,
+    all_to_all among them.  Recorded: step ms, tokens/s, collectives'
+    calls / bytes / ms by op, each rank's peak memory.
 13c'. data_ingest: 16 `.npz` files of 1,024 rows (int32 tokens [1,025]
     uniform in [0, 32,000) from `default_rng(0)`, int64 `row_id`; 67.2
     MB) written to a temp directory, then `read_numpy` -> `map_batches`
@@ -400,6 +416,26 @@ exits non-zero:
     with each kernel's achieved TFLOP/s.
 18. the kernels line, the `nvidia-smi` line, and the final result line.
 
+Side groups.  Three groups of phases run each in a process of its own
+(this script, `--side <group>`) beside the main sequence, their lines
+relayed here as they come.  `rllib` (13h, 13i's IMPALA / APPO, replay
+and offline algorithms, the examples) needs none of the port's kernels
+and starts with the run; `rllib_last` (13j's multi-agent PPO and
+DreamerV3, then data_ingest and tune_trainer) and `graph` (13f, 13g,
+then 13d) start once the main path's kernels are timed (after phase 5).
+The two rllib groups run at nice 10, and every process they start with
+them, so the main sequence's phases take the CPU first.  None of the
+groups feeds the kernels line.  A lease on the card (an exclusive
+`flock`) keeps the phases that hold 40-55 GB of it (phases 6-6b and the
+int8 configurations while Llama-3-8B's params are held, 13c's ranks,
+13e) apart from those that hold ~25 (13f, 13g); the rllib groups' phases
+hold a few GB at most.  The main sequence waits for the three groups
+before 13k: 13k and 13l (their gates read the whole card's used memory)
+and 13m (its overhead rows) run alone.  A `sides` line gives each
+group's wall s; a `load` line before the processes line gives the
+card's used memory (`nvidia-smi` every 0.5 s) and the CPU seconds of
+the run's processes by group and by kind (/proc, every second).
+
 Times are medians of CUDA-event timings of device work, with the 50 MB
 L2 flushed (a 1 GiB write) before each launch.  Bounds use the H100 SXM's published 3.35 TB/s of
 HBM and its dense peaks (989 TFLOP/s bf16, 67 TFLOP/s f32).
@@ -407,8 +443,10 @@ HBM and its dense peaks (989 TFLOP/s bf16, 67 TFLOP/s f32).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import fcntl
 import functools
 import gc
 import json
@@ -536,7 +574,12 @@ XENT_TOL = {"f32": {"rtol": 1e-4, "atol": 1e-5, "rel": 1e-5},
 XENT_MAIN_TOL = {"loss": 1e-5, "dx": 2e-3, "dw": 5e-3}
 
 
-_T0 = time.perf_counter()
+# a side group's lines count from the main run's start: perf_counter is
+# CLOCK_MONOTONIC, one clock for every process of the host
+T0_ENV = "CHIP_SMOKE_T0"
+_T0 = float(os.environ.get(T0_ENV, time.perf_counter()))
+# the main sequence's lines and the side groups' relayed lines, whole
+_OUT_LOCK = threading.Lock()
 
 
 def emit(obj) -> None:
@@ -544,7 +587,10 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
         note_processes(obj["phase"])
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj) + "\n"
+    with _OUT_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 # ----------------------------------------------------------------------
@@ -2665,6 +2711,18 @@ SP_MESH = {"tp": 2, "sp": 2}
 SP_LORA_MESH = {"dp": 2, "sp": 2}
 SP_RING_STEPS = 2
 DRYRUN_TOL = 1e-5
+# Mixtral's expert-parallel step inside the sharded mesh, on the same
+# ranks: Mixtral-8x7B's widths at depth 1 (one layer is 1.2e9 params:
+# ~19 GB of f32 params, gradients and moments over the 4 ranks), over ep
+# 2 x tp 2 then ep 2 x fsdp 2, (tag, mesh, steps); step 0 against one
+# process's step that routes each ep chunk on its own, at the sharded
+# step's limits above
+MOE_SHARD_MESHES = (("ep2tp2", {"ep": 2, "tp": 2}, 2),
+                    ("ep2fsdp2", {"ep": 2, "fsdp": 2}, 1))
+MOE_SHARD_EP = 2
+MOE_SHARD_LAYERS = 1
+MOE_SHARD_BATCH = 4
+MOE_SHARD_LR = 3e-4
 
 
 class recorded_flash:
@@ -2740,8 +2798,9 @@ def _sharded_step(step, args, device, debug: bool = False) -> tuple:
             "shapes": {n: [list(t) for t in sorted(set(v))]
                        for n, v in rec.shapes.items()},
             "collectives": _collective_rows()}
-    if "grad_norm" in outs[-1]:
-        rec_["grad_norm"] = float(outs[-1]["grad_norm"])
+    for k in ("grad_norm", "ce_loss", "load_balance_loss"):
+        if k in outs[-1]:
+            rec_[k] = float(outs[-1][k])
     if debug:
         # every c10d op the step dispatched; DTensor's own would be
         # functional collectives
@@ -2770,10 +2829,70 @@ def shard_gpt2_tokens(cfg, device, seq: int = SHARD_SEQ):
                          generator=gen, device=device, dtype=torch.int32)
 
 
+def moe_shard_inputs(cfg, device, seq: int = SHARD_SEQ) -> tuple:
+    """(the f32 params from seed 0, the global batch [4, seq + 1] from
+    seed 1): the same on every rank and in the one-process reference."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_SHARD_BATCH, seq + 1),
+                           generator=gen, device=device, dtype=torch.int32)
+    return mixtral.init_params(cfg, 0, device=device), tokens
+
+
+class chunk_routed:
+    """While entered, Mixtral's MoE layer routes each of `ep` contiguous
+    chunks of the batch on its own (`moe._moe_forward_local` a chunk,
+    the capacity from the chunk) and its aux loss is the mean of the
+    chunks': the reference's MoE function under a mesh that splits ep
+    (`ray_tpu/parallel/moe.py`'s `shard_map` over P("ep")), on one
+    process."""
+
+    def __init__(self, ep: int):
+        self.ep = ep
+
+    def __enter__(self):
+        self._orig = mixtral.moe_forward
+
+        def chunked(cfg, params, x, mesh=None, shards=None):
+            parts = [moe._moe_forward_local(cfg, params, c)
+                     for c in x.chunk(self.ep)]
+            return (torch.cat([y for y, _ in parts]),
+                    {"load_balance_loss": torch.stack(
+                        [a["load_balance_loss"] for _, a in parts]).mean()})
+
+        mixtral.moe_forward = chunked
+        return self
+
+    def __exit__(self, *exc):
+        mixtral.moe_forward = self._orig
+        return False
+
+
+def moe_one_process(device, cfg=None, seq: int = SHARD_SEQ) -> dict:
+    """One process's step 0 on `sharded_moe`'s draws, each ep chunk of the
+    batch routed on its own: the loss, its parts and the pre-clip
+    gradient norm."""
+    from ray_tpu_torch.parallel.sharding import global_norm
+
+    cfg = cfg or mixtral_config(MOE_SHARD_LAYERS)
+    params, tokens = moe_shard_inputs(cfg, device, seq)
+    leaves = [p.requires_grad_(True) for p in gpt2._leaves(params)]
+    with chunk_routed(MOE_SHARD_EP):
+        loss, m = mixtral.loss_fn(cfg, params, tokens)
+        grads = torch.autograd.grad(loss, leaves)
+    out = {"loss": float(loss.detach()),
+           "grad_norm": float(global_norm(grads)),
+           **{k: float(v.detach()) for k, v in m.items()}}
+    del params, tokens, leaves, grads, loss, m
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def one_process_references(device) -> dict:
     """One process's GPT-2 steps (flash, as the fsdp x tp step; dense, for
-    the sp steps) and LoRA loss on the sharded phase's weights and
-    batches, taken while its ranks run."""
+    the sp steps), LoRA loss and chunk-routed Mixtral step on the sharded
+    phase's weights and batches, taken while its ranks run."""
     cfg = shard_gpt2_config()
     out = {}
     # the main path's flash step; the sp steps' dense one
@@ -2794,6 +2913,7 @@ def one_process_references(device) -> dict:
             lcfg, st["params"], st["tokens"], lora=st["lora"]))
     del st
     torch.cuda.empty_cache()
+    out["moe"] = moe_one_process(device)
     return out
 
 
@@ -2940,16 +3060,68 @@ def dryrun_check(device) -> dict:
                                              atol=DRYRUN_TOL))}
 
 
+def sharded_moe(device, out: dict, *, cfg=None,
+                seq: int = SHARD_SEQ) -> None:
+    """Mixtral's expert-parallel step inside the sharded mesh, into
+    `out["moe"]`: for each of `MOE_SHARD_MESHES`, the params from their
+    seed sharded by `mixtral.logical_axes` (the experts over ep), AdamW's
+    moments on their blocks, the batch by `prepare_batch`, then the
+    mesh's steps through `make_train_step`; over the first mesh also
+    step 0's loss with dense attention (no gradient) under the mesh."""
+    from ray_tpu_torch.parallel import MeshSpec, shard_params
+    from ray_tpu_torch.train.cuda_utils import prepare_batch
+
+    cfg = cfg or mixtral_config(MOE_SHARD_LAYERS)
+    out["moe"] = {}
+    for i, (tag, mesh_kw, steps) in enumerate(MOE_SHARD_MESHES):
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        mesh = MeshSpec(**mesh_kw).build(device_type=device.type)
+        t0 = time.perf_counter()
+        params, tokens = moe_shard_inputs(cfg, device, seq)
+        params = shard_params(params, mesh, mixtral.logical_axes(cfg))
+        batch = prepare_batch(tokens, mesh)
+        # the moments on their parameters' blocks: the same placements as
+        # `optimizer_shardings` gives (tests/test_torch_sharded_moe.py),
+        # without the whole f32 moments on every rank first
+        opt = gpt2.AdamW(lambda count: MOE_SHARD_LR, max_norm=float("inf"),
+                         b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4)
+        state = opt.init(params)
+        _sync(device)
+        row = {"mesh_dims": list(params["tok_emb"].device_mesh
+                                 .mesh_dim_names),
+               "init_s": time.perf_counter() - t0,
+               "init_peak_gb": _peak_gb(device)}
+        if i == 0:
+            with torch.no_grad():
+                row["dense_loss"] = float(mixtral.loss_fn(
+                    dataclasses.replace(cfg, attention="dense"), params,
+                    batch)[0])
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        step = mixtral.make_train_step(cfg, opt, mesh)
+        row["steps"] = []
+        for _ in range(steps):
+            (params, state, _), rec = _sharded_step(
+                step, (params, state, batch), device)
+            row["steps"].append(rec)
+        row["peak_gb"] = _peak_gb(device)
+        out["moe"][tag] = row
+        del params, state, batch, step, tokens
+
+
 def shard_rank(rank: int, port: str, out_dir: str, *, device="cuda",
                cfg=None, lcfg=None, seq: int = SHARD_SEQ,
-               sp: bool = True) -> None:
+               sp: bool = True, moe_cfg=None) -> None:
     """One of `SHARD_WORLD` gloo ranks sharing the card (NCCL refuses two
     ranks on one GPU).  GPT-2 124M's sharded step over fsdp 2 x tp 2,
     its state saved sharded, reloaded onto fsdp 4 x tp 1 and
     stepped once more; the LoRA bench's width at 4 layers, one step; the
     sequence-parallel checks over dp 2 x sp 2; sequence parallelism
     inside the sharded step (`sp_train`); the multichip dry run
-    (`dryrun_check`).  Writes its readings as JSON.  `device`, the
+    (`dryrun_check`); Mixtral's expert-parallel step inside the sharded
+    mesh (`sharded_moe`).  Writes its readings as JSON.  `device`, the
     configs, `seq` and `sp` are for a rehearsal on the CPU at a small
     size."""
     t_start = time.perf_counter()
@@ -3047,6 +3219,9 @@ def shard_rank(rank: int, port: str, out_dir: str, *, device="cuda",
     if sp:
         out["dryrun"] = dryrun_check(device)
     out["dryrun_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded_moe(device, out, cfg=moe_cfg, seq=seq)
+    out["moe_s"] = time.perf_counter() - t0
     with open(path, "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -3158,11 +3333,11 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / abs(b)
 
 
-def sharded_train(smi: str, timeout: float = 420.0) -> tuple:
+def sharded_train(smi: str, timeout: float = 480.0) -> tuple:
     """Spawns the `shard_rank` processes (this script, `--shard-rank`) and
     holds their readings; returns (the `sharded_train` line, the
-    `sp_attention` line, the `sharded_sp` line, the main path's K1-K4
-    launches over every rank).
+    `sp_attention` line, the `sharded_sp` line, the `sharded_moe` line,
+    the main path's K1-K4 launches over every rank).
     One process's references (the GPT-2 step, the LoRA loss) are taken
     here while the ranks run.  A rank that fails, or outlives
     `timeout`, fails the phase."""
@@ -3241,7 +3416,8 @@ def sharded_train(smi: str, timeout: float = 420.0) -> tuple:
         raise AssertionError(f"sharded_train outside its limits: {bad}")
     launches = {n: sum(s["launches"][n] for r in ranks
                        for s in r["gpt2_steps"] + [r["reshard"]["next_step"],
-                                                   r["lora_step"]])
+                                                   r["lora_step"]]
+                       + [s for m in r["moe"].values() for s in m["steps"]])
                 for n in FLASH}
     timed = [s["ms"] for s in r0["gpt2_steps"][1:]]
     step_s = statistics.mean(timed) / 1e3
@@ -3296,7 +3472,123 @@ def sharded_train(smi: str, timeout: float = 420.0) -> tuple:
         "launches_all_ranks": launches,
     }
     return (line, sp_line(ranks, smi), sp_train_line(ranks, ref, smi),
-            launches)
+            moe_line(ranks, ref["moe"], smi), launches)
+
+
+def moe_line(ranks: list, ref: dict, smi: str) -> dict:
+    """The `sharded_moe` line from the ranks' `sharded_moe` readings, held
+    against one process's chunk-routed step 0 (`ref`): the step-0 loss
+    and pre-clip gradient norm, the load-balance loss, flash against
+    dense under ep 2 x tp 2, K1 / K2 a step a rank on each rank's local
+    block with no plain dispatch, every collective through the host with
+    all_to_all among them."""
+    cfg = mixtral_config(MOE_SHARD_LAYERS)
+    tp_heads = {tag: cfg.n_heads // kw.get("tp", 1)
+                for tag, kw, _ in MOE_SHARD_MESHES}
+    rows_a_rank = {tag: MOE_SHARD_BATCH // (kw["ep"] * kw.get("fsdp", 1))
+                   for tag, kw, _ in MOE_SHARD_MESHES}
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_fused": cfg.n_layers,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    bad = []
+    for r in ranks:
+        for tag, _, n in MOE_SHARD_MESHES:
+            m = r["moe"][tag]
+            steps = m["steps"]
+            s0 = steps[0]
+            if len(steps) != n or not all(math.isfinite(s["loss"])
+                                          for s in steps):
+                bad.append((r["rank"], tag, "losses", steps))
+            if _rel(s0["loss"], ref["loss"]) > SHARD_LOSS_TOL:
+                bad.append((r["rank"], tag, "step-0 loss", s0["loss"],
+                            ref["loss"]))
+            if _rel(s0["grad_norm"], ref["grad_norm"]) > SHARD_GRAD_TOL:
+                bad.append((r["rank"], tag, "step-0 grad norm",
+                            s0["grad_norm"], ref["grad_norm"]))
+            if not 0.5 < s0["load_balance_loss"] < 2.0:
+                bad.append((r["rank"], tag, "load-balance loss",
+                            s0["load_balance_loss"]))
+            if "dense_loss" in m and _rel(s0["loss"], m["dense_loss"]) > \
+                    FULL_LOSS_TOL:
+                bad.append((r["rank"], tag, "flash vs dense", s0["loss"],
+                            m["dense_loss"]))
+            shape = [rows_a_rank[tag] * tp_heads[tag], SHARD_SEQ,
+                     cfg.head_dim]
+            for i, s in enumerate(steps):
+                if s["launches"] != want or s["plain_dispatches"]:
+                    bad.append((r["rank"], tag, i, "launches",
+                                s["launches"], s["plain_dispatches"]))
+                if s["shapes"] != {"flash_fwd": [shape],
+                                   "flash_bwd_fused": [shape]}:
+                    bad.append((r["rank"], tag, i, "local blocks",
+                                s["shapes"]))
+                rows = s["collectives"]
+                if not all(row.endswith("/host") for row in rows):
+                    bad.append((r["rank"], tag, i, "a collective off the "
+                                "host route", rows))
+                if "all_to_all" not in {row.split("/")[0] for row in rows}:
+                    bad.append((r["rank"], tag, i, "no all_to_all", rows))
+        if "dense_loss" not in r["moe"][MOE_SHARD_MESHES[0][0]]:
+            bad.append((r["rank"], "no dense step 0"))
+    if bad:
+        raise AssertionError(f"sharded_moe outside its limits: {bad}")
+    r0 = ranks[0]
+    meshes = {}
+    for tag, kw, _ in MOE_SHARD_MESHES:
+        m = r0["moe"][tag]
+        steps = m["steps"]
+        s0 = steps[0]
+        meshes[tag] = {
+            "mesh": kw, "mesh_dims": m["mesh_dims"],
+            "losses": [s["loss"] for s in steps],
+            "ce_losses": [s["ce_loss"] for s in steps],
+            "load_balance_losses": [s["load_balance_loss"] for s in steps],
+            "grad_norms": [s["grad_norm"] for s in steps],
+            "step0_rel_err": {"loss": _rel(s0["loss"], ref["loss"]),
+                              "grad_norm": _rel(s0["grad_norm"],
+                                                ref["grad_norm"])},
+            "loss_spread_over_ranks": max(
+                abs(r["moe"][tag]["steps"][0]["loss"] - s0["loss"])
+                for r in ranks),
+            "step_ms": [s["ms"] for s in steps],
+            "tokens_per_s": [MOE_SHARD_BATCH * SHARD_SEQ / (s["ms"] / 1e3)
+                             for s in steps],
+            "collectives_a_step": [s["collectives"] for s in steps],
+            "collectives_ms_share": [
+                sum(c["ms"] for c in s["collectives"].values()) / s["ms"]
+                for s in steps],
+            "launches_a_step_a_rank": steps[-1]["launches"],
+            "local_blocks": steps[-1]["shapes"],
+            "init_s": m["init_s"],
+            "init_peak_gb_each_rank": [r["moe"][tag]["init_peak_gb"]
+                                       for r in ranks],
+            "peak_gb_each_rank": [r["moe"][tag]["peak_gb"] for r in ranks]}
+        if "dense_loss" in m:
+            meshes[tag]["dense_step0_loss"] = m["dense_loss"]
+            meshes[tag]["flash_vs_dense_rel_err"] = _rel(s0["loss"],
+                                                         m["dense_loss"])
+    return {
+        "phase": "sharded_moe", "nvidia_smi": smi, "ranks": len(ranks),
+        "backend": r0["backend"], "model": "mixtral_8x7b",
+        "source": "MixtralConfig.mixtral_8x7b (Mixtral-8x7B's published "
+                  "widths)",
+        "reduced": {"n_layers": [32, cfg.n_layers]},
+        "vocab": cfg.vocab_size, "dim": cfg.dim, "n_heads": cfg.n_heads,
+        "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+        "intermediate": cfg.intermediate, "num_experts": cfg.num_experts,
+        "top_k": cfg.top_k, "capacity_factor": cfg.capacity_factor,
+        "capacity_slots_a_chunk": moe._capacity(
+            MOE_SHARD_BATCH // MOE_SHARD_EP * SHARD_SEQ, cfg.moe,
+            MOE_SHARD_EP),
+        "attention": cfg.attention, "remat": cfg.remat,
+        "compute_dtype": str(cfg.dtype)[6:], "master_dtype": "float32",
+        "optimizer": f"adamw({MOE_SHARD_LR})",
+        "global_batch": MOE_SHARD_BATCH, "seq": SHARD_SEQ,
+        "one_process_chunk_routed": ref,
+        "tolerance": {"loss": SHARD_LOSS_TOL, "grad_norm": SHARD_GRAD_TOL,
+                      "flash_vs_dense": FULL_LOSS_TOL,
+                      "load_balance_loss": [0.5, 2.0]},
+        "launches_want_a_step_a_rank": want,
+        **meshes, "wall_s": r0["moe_s"]}
 
 
 def sp_train_line(ranks: list, ref: dict, smi: str) -> dict:
@@ -4059,9 +4351,8 @@ def store_bytes(need: int) -> int:
     return cap
 
 
-def graph_phases(device, smi: str) -> None:
-    """compiled_dag, mixtral_train, moe_ep and pipeline_1f1b, each on
-    the card; the port's runtime is up for the first and the last."""
+def compiled_dag_phase(device, smi: str) -> None:
+    """compiled_dag on the card, inside a runtime of its own."""
     t0 = time.perf_counter()
     rt.init(num_workers=2, num_cpus=8)
     try:
@@ -4070,19 +4361,50 @@ def graph_phases(device, smi: str) -> None:
         rt.shutdown()
     emit({**line, "wall_s": time.perf_counter() - t0})
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    emit({**mixtral_train(device, smi), "wall_s": time.perf_counter() - t0})
+
+
+def graph_phases(device, smi: str) -> None:
+    """moe_ep and pipeline_1f1b, each on the card and under the card's
+    lease; the port's runtime is up for the second."""
+    with card_lease() as waited_s:
+        emit({**moe_ep(smi), "lease_wait_s": waited_s})
     torch.cuda.empty_cache()
-    emit(moe_ep(smi))
-    t0 = time.perf_counter()
-    rt.init(num_workers=2, num_cpus=8,
-            object_store_memory=store_bytes(6 << 30))
-    try:
-        line = pipeline_1f1b(device, smi)
-    finally:
-        rt.shutdown()
-    emit({**line, "wall_s": time.perf_counter() - t0})
+    with card_lease() as waited_s:
+        t0 = time.perf_counter()
+        rt.init(num_workers=2, num_cpus=8,
+                object_store_memory=store_bytes(6 << 30))
+        try:
+            line = pipeline_1f1b(device, smi)
+        finally:
+            rt.shutdown()
+        emit({**line, "wall_s": time.perf_counter() - t0,
+              "lease_wait_s": waited_s})
     torch.cuda.empty_cache()
+
+
+# the card's lease: a phase that holds 40-55 GB of the card (the serving
+# phases with Llama-3-8B's params, the sharded ranks, Mixtral's step) and
+# one that holds ~25 (moe_ep's ranks, the pipeline's stages) never run at
+# once, whichever process runs them
+LEASE_ENV = "CHIP_SMOKE_LEASE"
+
+
+@contextlib.contextmanager
+def card_lease():
+    """Holds the run's lease (an exclusive `flock` on the file that
+    `CHIP_SMOKE_LEASE` names; a no-op where it is unset); yields the
+    seconds it waited."""
+    path = os.environ.get(LEASE_ENV)
+    if not path:
+        yield 0.0
+        return
+    with open(path, "a") as f:
+        t0 = time.perf_counter()
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield time.perf_counter() - t0
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 # ----------------------------------------------------------------------
@@ -6249,13 +6571,20 @@ def examples_phase(device, smi: str) -> dict:
 
 
 def rllib_last_phases(device, smi: str) -> None:
-    """rllib_multi_agent, rllib_dreamer, rllib_dreamer_pixels and the
-    examples; each boots the port's runtime and shuts it down."""
-    for phase in (rllib_multi_agent, rllib_dreamer, rllib_dreamer_pixels,
-                  examples_phase):
+    """rllib_multi_agent, rllib_dreamer and rllib_dreamer_pixels; each
+    boots the port's runtime and shuts it down."""
+    for phase in (rllib_multi_agent, rllib_dreamer, rllib_dreamer_pixels):
         t0 = time.perf_counter()
         emit({**phase(device, smi), "wall_s": time.perf_counter() - t0})
         torch.cuda.empty_cache()
+
+
+def examples_phases(device, smi: str) -> None:
+    """The examples' phase; it boots the port's runtime and shuts it
+    down."""
+    t0 = time.perf_counter()
+    emit({**examples_phase(device, smi), "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------
@@ -7363,6 +7692,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--side"]:
+        return run_side(sys.argv[2], sys.argv[3])
     rank_main = {"--shard-rank": shard_rank, "--moe-rank": moe_rank}
     if sys.argv[1:2] and sys.argv[1] in rank_main:
         rank_main[sys.argv[1]](int(sys.argv[2]), sys.argv[3], sys.argv[4])
@@ -7387,15 +7718,16 @@ def run_all() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    lease_dir = tempfile.mkdtemp(prefix="rtt_lease_")
+    os.environ[LEASE_ENV] = os.path.join(lease_dir, "card")
+    card_mem, host_cpu = CardMemory(), HostCpu()
+    t_sides = time.perf_counter()
+    sides = [Side("rllib")]
 
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -7553,6 +7885,12 @@ def run_all() -> int:
           "paged_decode_attention_splits": k6_splits(attn_case),
           "kernel_shapes": {"B": B, "W": int(state["tables"].shape[1]),
                             "pos": state["pos"].tolist()}})
+    # the kernels are timed: the other side groups start beside the rest.
+    # The serving phases below hold Llama-3-8B (~48 GB with int8_serve's
+    # f32 copies) until its params are freed
+    serving_lease = contextlib.ExitStack()
+    serving_lease.enter_context(card_lease())
+    sides += [Side(name) for name in SIDES if name != "rllib"]
     # the chunk as the engine replays it, against its eager chunk
     emit({**graph_vs_eager(cfg, params, state, device), "nvidia_smi": smi})
     # the perf harness's decode rows at the main path's width, on its model
@@ -7569,6 +7907,7 @@ def run_all() -> int:
     del params, state, app_case, attn_case, mid
     gc.collect()
     torch.cuda.empty_cache()
+    serving_lease.close()
 
     emit(tiny_parity(device))
 
@@ -7628,26 +7967,27 @@ def run_all() -> int:
     # (four gloo ranks, fsdp 2 x tp 2) with sequence-parallel attention
     # on the same ranks
     sharded_launches = run_parallel_phases(device, smi)
-    # a shuffled token dataset streamed into the trainer's workers through
-    # iter_cuda_batches, then a Tuner sweeping the trainer's learning rate
-    data_tune_phases(device, smi)
-    # rllib's PPO: BASELINE config #3's fleet with the learner on the card
-    # (three rounds, the first update held against the CPU learner, the
-    # learning criterion), then the CNN learner at Atari's frame shape
-    rllib_phases(device, smi)
-    # the rest of rllib's algorithms with the learner on the card: IMPALA
-    # and APPO at the same fleet, DQN and SAC (discrete, continuous),
-    # BC, MARWIL and CQL, each with the reference's learning gate
-    rllib_algo_phases(device, smi)
-    # rllib's last two algorithms with the learners on the card:
-    # multi-agent PPO (a learner a module), DreamerV3 (its world model
-    # and imagination updates; vector, then pixels at 10 x 5 and 84 x
-    # 84), then the two examples through their entry points
-    rllib_last_phases(device, smi)
-    # compiled graphs with the tensor codec, Mixtral's widths trained,
-    # expert parallelism over a process group, a 1F1B pipeline of
-    # Llama-3-8B blocks over the port's channels
-    graph_phases(device, smi)
+    # Mixtral's widths trained
+    with card_lease() as waited_s:
+        t0 = time.perf_counter()
+        emit({**mixtral_train(device, smi), "lease_wait_s": waited_s,
+              "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    # the side groups (rllib's algorithms with their learners on the
+    # card, compiled graphs with the tensor codec, a token dataset
+    # streamed into the trainer's workers and a Tuner over it, expert
+    # parallelism over a process group, a 1F1B pipeline of Llama-3-8B
+    # blocks over the port's channels) end here: the planes below read
+    # the whole card's memory
+    walls = {side.name: side.join(timeout=900.0)["wall_s"]
+             for side in sides}
+    shutil.rmtree(lease_dir, ignore_errors=True)
+    emit({"phase": "sides", "groups": {
+        name: [f.__name__ for f in fns] for name, (fns, _) in SIDES.items()},
+        "nice": {name: SIDE_NICE if yields else 0
+                 for name, (_, yields) in SIDES.items()},
+        "wall_s": walls, "window_s": time.perf_counter() - t_sides,
+        "nvidia_smi": smi})
     # the operations plane: a GPU node scaled up on demand runs a durable
     # GPT-2 workflow, then submitted jobs, read through the dashboard
     ops = ops_plane(device, smi)
@@ -7747,6 +8087,9 @@ def run_all() -> int:
     errs = {"paged_kv_append": 0.0, "paged_decode_attention": attn_err,
             "paged_append_decode_attention": fused_errs["mid_decode"]["bf16"],
             **flash_errs, **xent_errs}
+    # the card's memory and the host's CPU from the side groups' start
+    emit({"phase": "load", "card_memory": card_mem.stop(),
+          "host_cpu": host_cpu.stop(), "nvidia_smi": smi})
     # every process the phases started has ended: the clusters' daemons
     # and workers, jobs, pools and rank processes
     stopped = stop_processes()
@@ -7770,6 +8113,209 @@ def run_all() -> int:
     return 0
 
 
+# ----------------------------------------------------------------------
+# side groups: phases that run in a process of their own beside the main
+# sequence
+# ----------------------------------------------------------------------
+# name -> (its phases in order, whether it yields the CPU to the main
+# sequence).  `rllib` needs none of the port's kernels and starts with the
+# run; the others start once the main path's kernels are timed
+SIDES = {
+    "rllib": ((rllib_phases, rllib_algo_phases, examples_phases), True),
+    "rllib_last": ((rllib_last_phases, data_tune_phases), True),
+    "graph": ((graph_phases, compiled_dag_phase), False),
+}
+# the nice value of a group that yields: the main sequence's phases, on
+# the way to the groups' end, take the CPU first
+SIDE_NICE = 10
+
+
+def run_side(name: str, out_path: str) -> int:
+    """One side group's phases in order (this process: `--side`); each
+    emits its lines, which the main sequence relays.  A group that
+    yields lowers its priority, and that of every process it starts."""
+    phases, yields = SIDES[name]
+    if yields:
+        os.nice(SIDE_NICE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    smi = card_line()
+    t0 = time.perf_counter()
+    for phase in phases:
+        phase(device, smi)
+    with open(out_path, "w") as f:
+        json.dump({"wall_s": time.perf_counter() - t0}, f)
+    return 0
+
+
+class Side:
+    """A side group started now in a process of its own (it inherits
+    the run's tag); its standard output is relayed line by line."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.out = os.path.join(tempfile.mkdtemp(prefix="rtt_side_"),
+                                "side.json")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--side", name,
+             self.out], stdout=subprocess.PIPE, text=True,
+            env={**os.environ, T0_ENV: repr(_T0), GROUP_ENV: name})
+        self.relay = threading.Thread(target=self._relay, daemon=True)
+        self.relay.start()
+
+    def _relay(self) -> None:
+        for line in self.proc.stdout:
+            with _OUT_LOCK:
+                sys.stdout.write(line)
+                sys.stdout.flush()
+
+    def join(self, timeout: float) -> dict:
+        """Waits for the group's end; its readings, or raises if one of
+        its phases failed (its traceback is on stderr)."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            raise AssertionError(f"side group {self.name} outlived "
+                                 f"{timeout} s")
+        self.relay.join()
+        if rc != 0:
+            raise AssertionError(f"side group {self.name} exited {rc}")
+        with open(self.out) as f:
+            got = json.load(f)
+        shutil.rmtree(os.path.dirname(self.out), ignore_errors=True)
+        return got
+
+
+class CardMemory:
+    """`nvidia-smi` reads the card's used MiB every 0.5 s until `stop`."""
+
+    def __init__(self):
+        self.samples = []  # (elapsed s, used MiB)
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=memory.used,memory.total",
+             "--format=csv,noheader,nounits", "-lms", "500"],
+            stdout=subprocess.PIPE, text=True)
+        self.total_mib = None
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            try:
+                used, total = (float(v) for v in line.split(","))
+            except ValueError:
+                continue
+            self.total_mib = total
+            self.samples.append((time.perf_counter() - _T0, used))
+
+    def stop(self) -> dict:
+        self.proc.terminate()
+        self.proc.wait(timeout=30)
+        self.thread.join(timeout=30)
+        if not self.samples:
+            raise AssertionError("nvidia-smi read no used memory")
+        t_peak, peak = max(self.samples, key=lambda s: s[1])
+        # the most a 10 s window held, window by window
+        windows = {}
+        for t, used in self.samples:
+            k = int(t // 10) * 10
+            windows[k] = max(windows.get(k, 0.0), used)
+        return {"samples": len(self.samples), "total_mib": self.total_mib,
+                "peak_used_mib": peak, "peak_at_elapsed_s": t_peak,
+                "used_mib_max_per_10s": sorted(windows.items())}
+
+
+# a side group's processes, and every process those start, carry its
+# name here; the main sequence's carry none
+GROUP_ENV = "CHIP_SMOKE_GROUP"
+
+
+def _proc_kind(cmd: str) -> str:
+    for key, kind in (("--shard-rank", "shard_rank"),
+                      ("--moe-rank", "moe_rank"), ("--side", "side"),
+                      ("chip_smoke.py", "main"), ("noded", "noded"),
+                      ("worker_main", "worker"), ("scripts.cli", "cli"),
+                      ("scripts.perf", "perf"), ("nvidia-smi", "nvidia-smi")):
+        if key in cmd:
+            return kind
+    return "other"
+
+
+class HostCpu:
+    """Every second: the CPU seconds of each process this run started
+    (utime + stime, by group and by kind of process), until `stop`.  A
+    process that ends between two reads loses at most its last second."""
+
+    def __init__(self):
+        self.tag = f"{RUN_TAG}={os.environ.get(RUN_TAG, '')}".encode()
+        self.hz = os.sysconf("SC_CLK_TCK")
+        self.last = {}  # pid -> (group, kind, cpu s)
+        self.per_10s = {}  # window -> {group: cpu s}
+        self.threads = {}  # group/kind -> the most threads one process had
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _read(self, window: int) -> None:
+        for name in os.listdir("/proc"):
+            if not name.isdigit():
+                continue
+            try:
+                with open(f"/proc/{name}/environ", "rb") as f:
+                    env = f.read().split(b"\0")
+                if self.tag not in env and int(name) != os.getpid():
+                    continue
+                with open(f"/proc/{name}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+                with open(f"/proc/{name}/cmdline", "rb") as f:
+                    cmd = f.read().replace(b"\0", b" ").decode(
+                        errors="replace")
+            except OSError:
+                continue
+            group = "main"
+            for e in env:
+                if e.startswith(GROUP_ENV.encode() + b"="):
+                    group = e.split(b"=", 1)[1].decode()
+            cpu = (int(fields[11]) + int(fields[12])) / self.hz
+            pid = int(name)
+            kind = _proc_kind(cmd)
+            before = self.last.get(pid, (group, None, 0.0))[2]
+            self.last[pid] = (group, kind, cpu)
+            key = f"{group}/{kind}"
+            self.threads[key] = max(self.threads.get(key, 0),
+                                    int(fields[17]))
+            w = self.per_10s.setdefault(window, {})
+            w[group] = w.get(group, 0.0) + cpu - before
+
+    def _run(self) -> None:
+        while not self.done.wait(1.0):
+            self._read(int((time.perf_counter() - _T0) // 10) * 10)
+
+    def stop(self) -> dict:
+        self.done.set()
+        self.thread.join(timeout=30)
+        by_group, by_kind = {}, {}
+        for group, kind, cpu in self.last.values():
+            by_group[group] = by_group.get(group, 0.0) + cpu
+            key = f"{group}/{kind}"
+            by_kind[key] = by_kind.get(key, 0.0) + cpu
+        return {"cpus": os.cpu_count(), "processes": len(self.last),
+                "cpu_s_by_group": by_group, "cpu_s_by_group_kind": by_kind,
+                "max_threads_by_group_kind": self.threads,
+                "cpu_s_per_10s_by_group": sorted(self.per_10s.items())}
+
+
+def card_line() -> str:
+    """`nvidia-smi`'s name and power limit of the card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def run_parallel_phases(device, smi: str) -> dict:
     """The train plane's main path and its NCCL mode, then the sharded
     step over four ranks with ring and Ulysses attention on the same
@@ -7780,10 +8326,12 @@ def run_parallel_phases(device, smi: str) -> dict:
     emit({**plane, "wall_s": time.perf_counter() - t0})
     emit(nccl)
     torch.cuda.empty_cache()
-    sharded, sp, sp_train_, launches = sharded_train(smi)
-    emit(sharded)
+    with card_lease() as waited_s:
+        sharded, sp, sp_train_, moe_, launches = sharded_train(smi)
+    emit({**sharded, "lease_wait_s": waited_s})
     emit(sp)
     emit(sp_train_)
+    emit(moe_)
     return launches
 
 

@@ -17,6 +17,17 @@ becomes a loop over the stacked leaves, each block under
 recorded, as `llama.forward`.  GQA repeats each kv head
 (`repeat_interleave` on the head dim).  The optimizer is the caller's
 (`gpt2.AdamW` where the reference takes optax); params update in place.
+
+On DTensor params (`shard_params` with `logical_axes`, a sharded step
+over dp / fsdp / ep / sp / tp) each rank computes on its compute
+blocks, as `llama.py` does (`parallel.sharding.LocalShards`): the heads
+and the vocabulary split over tp (`_apply` places the tp collectives,
+`lse_and_target` reads the loss), RoPE from the rank's sequence offset,
+and the MoE layer on the rank's ep chunk of the batch with its resident
+experts (`moe.moe_forward(..., shards=)`).  The loss is the mean over
+the ranks of each one's CE plus the aux coefficient times its chunk's
+load-balance loss: the reference's CE over the batch plus the mean over
+the ep chunks of each chunk's aux value.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models.gpt2 import _leaves
 from ray_tpu_torch.models.llama import _apply, _layers, _rms_norm, _rope
+from ray_tpu_torch.parallel import sharding as _sh
 from ray_tpu_torch.parallel.moe import MoEConfig, init_moe, moe_forward
 from ray_tpu_torch.parallel.ring_attention import select_attention
 
@@ -149,28 +161,68 @@ def logical_axes(cfg: MixtralConfig) -> Dict:
 # ----------------------------------------------------------------------
 # forward
 # ----------------------------------------------------------------------
-def _block(cfg: MixtralConfig, layer: Dict, x: torch.Tensor, mesh=None):
-    """One block over x [B, T, dim]: (x out, the layer's aux loss)."""
+def _block(cfg: MixtralConfig, layer: Dict, x: torch.Tensor, mesh=None,
+           shards=_sh.UNSHARDED):
+    """One block over x [B, T, dim]: (x out, the layer's aux loss); under
+    a sharded step, this tp rank's heads and this rank's rows and
+    sequence chunk."""
     B, T, _ = x.shape
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     group = H // KV
+    t0 = shards.seq_offset(T)  # this rank's chunk of the sequence
     h = _rms_norm(x, layer["attn_norm"].to(cfg.dtype), cfg.norm_eps)
-    q = _apply(h, layer["wq"], cfg.dtype)
-    k = _apply(h, layer["wk"], cfg.dtype)
-    v = _apply(h, layer["wv"], cfg.dtype)
-    q = _rope(q.reshape(B, T, H, hd), cfg.rope_theta)
-    k = _rope(k.reshape(B, T, KV, hd), cfg.rope_theta)
-    v = v.reshape(B, T, KV, hd)
+    q, k, v = (_apply(h, layer[n], cfg.dtype, name=n, shards=shards)
+               for n in ("wq", "wk", "wv"))
+    q = _rope(q.reshape(B, T, -1, hd), cfg.rope_theta, t0)
+    k = _rope(k.reshape(B, T, -1, hd), cfg.rope_theta, t0)
+    v = v.reshape(B, T, -1, hd)
     if group > 1:
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
-    o = select_attention(cfg.attention, q, k, v, mesh, causal=True)
-    x1 = x + _apply(o.reshape(B, T, H * hd), layer["wo"], cfg.dtype)
+    o = select_attention(cfg.attention, q, k, v, mesh, causal=True,
+                         shards=shards)
+    x1 = x + _apply(o.reshape(B, T, -1), layer["wo"], cfg.dtype, name="wo",
+                    shards=shards)
     h2 = _rms_norm(x1, layer["moe_norm"].to(cfg.dtype), cfg.norm_eps)
     moe_params = {"router": layer["moe_router"], "w_in": layer["moe_w_in"],
                   "w_out": layer["moe_w_out"]}
-    moe_out, aux = moe_forward(cfg.moe, moe_params, h2, mesh)
+    moe_out, aux = moe_forward(cfg.moe, moe_params, h2, mesh, shards=shards)
     return x1 + moe_out, aux["load_balance_loss"]
+
+
+def _localize(cfg: MixtralConfig, params: Dict, tokens):
+    """(shards, params, tokens) for the arithmetic: plain params as they
+    are; DTensor params as this rank's compute blocks (gathered over the
+    data axes; tp's blocks and ep's experts kept) and this rank's rows
+    of the batch, whole over the sequence (the caller cuts its sp
+    chunk)."""
+    shards = _sh.local_shards(params)
+    if shards is _sh.UNSHARDED:
+        return shards, params, tokens
+    if cfg.n_kv_heads % shards.tp:
+        raise ValueError(f"{cfg.n_kv_heads} kv heads do not split over tp "
+                         f"{shards.tp}")
+    return shards, _sh.unshard_tree(shards, params), shards.rows(tokens)
+
+
+def _forward(cfg: MixtralConfig, params: Dict, tokens, mesh, shards):
+    """(logits [B, T, vocab] f32, the layers' mean aux loss) over this
+    rank's tokens: under a sharded step its rows, sequence chunk and tp
+    block of the vocabulary, and its ep chunk's aux loss."""
+    x = _sh.embed(shards, params["tok_emb"], tokens.long(),
+                  cfg.vocab_size).to(cfg.dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux_losses = []
+    for layer in _layers(params):
+        if remat:
+            x, aux = checkpoint(_block, cfg, layer, x, mesh, shards,
+                                use_reentrant=False)
+        else:
+            x, aux = _block(cfg, layer, x, mesh, shards)
+        aux_losses.append(aux)
+    x = _rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
+    logits = (shards.enter(x) @ params["lm_head"].to(cfg.dtype)).float()
+    return logits, torch.stack(aux_losses).mean()
 
 
 def forward(cfg: MixtralConfig, params: Dict, tokens: torch.Tensor,
@@ -179,34 +231,35 @@ def forward(cfg: MixtralConfig, params: Dict, tokens: torch.Tensor,
     aux {load_balance_loss} averaged over layers).  `mesh` (a
     `DeviceMesh`, every rank passing the same tokens) reaches the
     attention and the experts: with an `ep` axis the experts run
-    expert-parallel."""
-    x = params["tok_emb"][tokens.long()].to(cfg.dtype)
-    remat = cfg.remat and torch.is_grad_enabled()
-    aux_losses = []
-    for layer in _layers(params):
-        if remat:
-            x, aux = checkpoint(_block, cfg, layer, x, mesh,
-                                use_reentrant=False)
-        else:
-            x, aux = _block(cfg, layer, x, mesh)
-        aux_losses.append(aux)
-    x = _rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
-    logits = (x @ params["lm_head"].to(cfg.dtype)).float()
-    return logits, {"load_balance_loss": torch.stack(aux_losses).mean()}
+    expert-parallel.  With DTensor params (`shard_params`) the logits
+    are this rank's rows, sequence chunk and tp block of the vocabulary,
+    and the aux loss the global one."""
+    shards, params, tokens = _localize(cfg, params, tokens)
+    logits, aux = _forward(cfg, params, shards.seq_chunk(tokens), mesh,
+                           shards)
+    if shards is not _sh.UNSHARDED:
+        aux = shards.data_mean(aux)
+    return logits, {"load_balance_loss": aux}
 
 
 def loss_fn(cfg: MixtralConfig, params: Dict, tokens: torch.Tensor,
             mesh=None) -> Tuple[torch.Tensor, Dict]:
     """Next-token CE + router load-balance aux (the reference's lse
-    form); tokens [B, T+1]."""
+    form); tokens [B, T+1].  With DTensor params each rank takes the CE
+    over its rows and sequence chunk (cut after the shift) and its ep
+    chunk's aux value, and both are averaged over the ranks (the same
+    values on every rank)."""
+    shards, params, tokens = _localize(cfg, params, tokens)
     tokens = tokens.long()
-    inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits, aux = forward(cfg, params, inputs, mesh)
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, targets[..., None])[..., 0]
+    inputs = shards.seq_chunk(tokens[:, :-1])
+    targets = shards.seq_chunk(tokens[:, 1:])
+    logits, aux = _forward(cfg, params, inputs, mesh, shards)
+    lse, tgt = _sh.lse_and_target(shards, logits, targets, cfg.vocab_size)
     ce = (lse - tgt).mean()
-    total = ce + cfg.router_aux_coef * aux["load_balance_loss"]
-    return total, {"ce_loss": ce, **aux}
+    if shards is not _sh.UNSHARDED:
+        ce, aux = shards.data_mean(ce), shards.data_mean(aux)
+    total = ce + cfg.router_aux_coef * aux
+    return total, {"ce_loss": ce, "load_balance_loss": aux}
 
 
 def num_params(params: Dict) -> int:
@@ -231,10 +284,12 @@ def active_params_per_token(cfg: MixtralConfig, params: Dict) -> int:
 # ----------------------------------------------------------------------
 def make_train_step(cfg: MixtralConfig, optimizer, mesh=None):
     """step(params, opt_state, tokens) -> (params, opt_state, {"loss",
-    "ce_loss", "load_balance_loss"}).  `optimizer` is a `gpt2.AdamW` (or
-    anything with its `init` / `update`); unlike the reference, which
-    returns new arrays, the params are updated IN PLACE and the same
-    dict comes back."""
+    "ce_loss", "load_balance_loss", "grad_norm"}), the last the pre-clip
+    global norm.  `optimizer` is a `gpt2.AdamW` (or anything with its
+    `init` / `update`); unlike the reference, which returns new arrays,
+    the params are updated IN PLACE and the same dict comes back.  The
+    sharded step is this one on DTensor params (`shard_params`), moments
+    placed by `optimizer_shardings` and the batch by `prepare_batch`."""
 
     def step(params, opt_state, tokens):
         leaves = _leaves(params)
@@ -242,9 +297,10 @@ def make_train_step(cfg: MixtralConfig, optimizer, mesh=None):
             p.requires_grad_(True)
         loss, metrics = loss_fn(cfg, params, tokens, mesh)
         grads = torch.autograd.grad(loss, leaves)
-        opt_state, _ = optimizer.update(grads, opt_state, params)
+        opt_state, gnorm = optimizer.update(grads, opt_state, params)
         return params, opt_state, {
             "loss": loss.detach(),
-            **{k: v.detach() for k, v in metrics.items()}}
+            **{k: v.detach() for k, v in metrics.items()},
+            "grad_norm": gnorm}
 
     return step

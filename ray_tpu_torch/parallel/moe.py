@@ -20,6 +20,28 @@ gradient summed over the axis), routes its tokens, exchanges the slots
 with `collectives.all_to_all(..., tiled=False)` there and back, and the
 blocks are gathered into the global output; the aux loss is the mean of
 the ranks' values.
+
+Inside a sharded step (`moe_forward(..., shards=)`, the params this
+rank's compute blocks from `sharding.LocalShards`) the layer computes
+the reference's function on the step's own layout.  The reference's
+`shard_map` routes chunk k of the global batch (B / ep contiguous rows,
+the whole sequence) on ep rank k with that chunk's capacity, whatever
+the data axes did to the rows.  The step splits the rows over ep
+outermost (`LocalShards.rows`), so the ranks of one ep rank hold that
+chunk between them: each gathers it over sp and the data axes
+(`moe_chunk`), routes it, exchanges the slots over the ep group with
+`collectives.all_to_all`, runs its resident experts, exchanges back,
+combines and keeps its own rows and sequence chunk (`moe_rows`).  The
+data ranks of one chunk compute it alike, each carrying the gradient of
+its own rows, so the gather's backward is a reduce-scatter and the
+router's and the experts' gradients are summed over the data axes like
+any other leaf's (and the router's over ep too).  Over tp the experts
+split Megatron's way: `w_in` by its hidden columns, `w_out` by its
+hidden rows, `enter` before the first product and `exit` (the sum over
+tp) after the second.  GELU is elementwise over the hidden units, so
+this is the reference's function, and it spares the gather over tp of
+each rank's experts (0.94 GB of f32 a layer at Mixtral-8x7B's widths)
+that the reference's way (the experts whole inside `shard_map`) takes.
 """
 
 from __future__ import annotations
@@ -32,6 +54,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel import sharding as _sh
 from ray_tpu_torch.parallel.mesh import axis_size
 from ray_tpu_torch.parallel.ring_attention import _Replicated, _spmd
 
@@ -84,14 +107,19 @@ def _capacity(tokens_per_device: int, cfg: MoEConfig, ep: int) -> int:
 
 
 def moe_forward(cfg: MoEConfig, params: Dict, x: torch.Tensor,
-                mesh=None) -> Tuple[torch.Tensor, Dict]:
+                mesh=None, shards=None) -> Tuple[torch.Tensor, Dict]:
     """x [B, T, D] -> (out [B, T, D], aux {load_balance_loss}).
 
     Without a mesh (or ep=1) this is the single-device dense-dispatch
     path; with an `ep` axis (a `DeviceMesh` every rank passes with the
     same global x) the same math runs per rank with all_to_all token
-    exchange.
+    exchange.  Inside a sharded step (`shards` a `LocalShards`, `params`
+    its compute blocks, x this rank's rows and sequence chunk) the
+    layer of the module's docstring; the aux loss is then this rank's
+    ep chunk's.
     """
+    if isinstance(shards, _sh.LocalShards):
+        return _moe_forward_sharded(cfg, params, x, shards)
     if (mesh is not None and "ep" in (mesh.mesh_dim_names or ())
             and axis_size(mesh, "ep") > 1):
         return _moe_forward_ep(cfg, params, x, mesh)
@@ -121,12 +149,13 @@ def _gate(cfg: MoEConfig, probs, top_i):
     return top_p, top_i, aux
 
 
-def _expert_ffn(cfg: MoEConfig, w_in, w_out, slots):
+def _expert_ffn(cfg: MoEConfig, w_in, w_out, slots, shards=_sh.UNSHARDED):
     """slots [E_local, C, D] -> [E_local, C, D]; one batched matmul per
-    projection."""
-    h = torch.bmm(slots.to(cfg.dtype), w_in.to(cfg.dtype))
+    projection (under a sharded step, this tp rank's hidden units of
+    each expert, the second product summed over tp)."""
+    h = torch.bmm(shards.enter(slots.to(cfg.dtype)), w_in.to(cfg.dtype))
     h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
-    return torch.bmm(h, w_out.to(cfg.dtype))
+    return shards.exit(torch.bmm(h, w_out.to(cfg.dtype)))
 
 
 def _dispatch(cfg: MoEConfig, x2d, top_p, top_i, capacity: int):
@@ -164,15 +193,44 @@ def _combine(cfg: MoEConfig, out_slots, top_p, top_i, slot_pos, keep, N):
     return weighted.reshape(N, cfg.top_k, -1).sum(dim=1)
 
 
-def _moe_forward_local(cfg: MoEConfig, params: Dict, x: torch.Tensor):
-    B, T, D = x.shape
-    x2d = x.reshape(B * T, D)
-    top_p, top_i, aux = _route(cfg, params["router"], x2d)
-    cap = _capacity(B * T, cfg, ep=1)
+def _routed(cfg: MoEConfig, router_w, w_in, w_out, xs, group=None,
+            shards=_sh.UNSHARDED):
+    """xs [b, T, D], the tokens routed together with their own capacity
+    -> (out [b, T, D] in xs's dtype, the load-balance loss).  Over an ep
+    `group` (w_in / w_out this rank's experts) slot block j goes to rank
+    j and back with `collectives.all_to_all`; `shards` splits the
+    experts' hidden units over tp."""
+    b, T, D = xs.shape
+    x2d = xs.reshape(b * T, D)
+    top_p, top_i, aux = _route(cfg, router_w, x2d)
+    ep = 1 if group is None else group.size()
+    cap = _capacity(b * T, cfg, ep)
     slots, slot_pos, keep = _dispatch(cfg, x2d, top_p, top_i, cap)
-    out_slots = _expert_ffn(cfg, params["w_in"], params["w_out"], slots)
-    out = _combine(cfg, out_slots, top_p, top_i, slot_pos, keep, B * T)
-    return out.reshape(B, T, D).to(x.dtype), {"load_balance_loss": aux}
+    if ep > 1:
+        # slots [E, C, D] -> [ep, e_local, C, D]: block j goes to rank j,
+        # and what arrives stacks on a new leading axis of peers; each
+        # resident expert runs ONE matmul over peer*C rows (the peer dim
+        # folded into capacity) — no weight replication
+        e_local = cfg.num_experts // ep
+        recv = collectives.all_to_all(slots.reshape(ep, e_local, cap, D),
+                                      group, split_axis=0, concat_axis=0,
+                                      tiled=False)
+        slots = recv.transpose(0, 1).reshape(e_local, ep * cap, D)
+    out = _expert_ffn(cfg, w_in, w_out, slots, shards)
+    if ep > 1:
+        # return to owners: inverse all_to_all
+        out = out.reshape(e_local, ep, cap, D).transpose(0, 1)
+        out = collectives.all_to_all(out.contiguous(), group, split_axis=0,
+                                     concat_axis=0, tiled=False).reshape(
+            cfg.num_experts, cap, D)
+    combined = _combine(cfg, out, top_p, top_i, slot_pos, keep, b * T)
+    return combined.reshape(b, T, D).to(xs.dtype), aux
+
+
+def _moe_forward_local(cfg: MoEConfig, params: Dict, x: torch.Tensor):
+    out, aux = _routed(cfg, params["router"], params["w_in"],
+                       params["w_out"], x)
+    return out, {"load_balance_loss": aux}
 
 
 def _moe_forward_ep(cfg: MoEConfig, params: Dict, x: torch.Tensor, mesh):
@@ -181,37 +239,27 @@ def _moe_forward_ep(cfg: MoEConfig, params: Dict, x: torch.Tensor, mesh):
     if cfg.num_experts % ep:
         raise ValueError(f"num_experts {cfg.num_experts} must divide over "
                          f"ep {ep}")
-    e_local = cfg.num_experts // ep
 
     def body(router_w, w_in, w_out, xs):
         # xs: this rank's token shard [b, T, D]
-        b, T, D = xs.shape
-        x2d = xs.reshape(b * T, D)
-        top_p, top_i, aux = _route(cfg, router_w, x2d)
-        cap = _capacity(b * T, cfg, ep)
-        slots, slot_pos, keep = _dispatch(cfg, x2d, top_p, top_i, cap)
-        # slots [E, C, D] -> [ep, e_local, C, D]: block j goes to rank j,
-        # and what arrives stacks on a new leading axis of peers
-        slots = slots.reshape(ep, e_local, cap, D)
-        recv = collectives.all_to_all(slots, group, split_axis=0,
-                                      concat_axis=0, tiled=False)
-        # run resident experts over all peers' tokens: fold the peer dim
-        # into capacity so each resident expert runs ONE matmul over
-        # peer*C rows — no weight replication
-        peer, el = recv.shape[0], recv.shape[1]
-        stacked = recv.transpose(0, 1).reshape(el, peer * cap, D)
-        out = _expert_ffn(cfg, w_in, w_out, stacked)
-        out = out.reshape(el, peer, cap, D).transpose(0, 1)
-        # return to owners: inverse all_to_all
-        back = collectives.all_to_all(out.contiguous(), group, split_axis=0,
-                                      concat_axis=0, tiled=False)
-        out_slots = back.reshape(cfg.num_experts, cap, D)
-        combined = _combine(cfg, out_slots, top_p, top_i, slot_pos, keep,
-                            b * T)
-        return combined.reshape(b, T, D).to(xs.dtype), aux.reshape(1)
+        out, aux = _routed(cfg, router_w, w_in, w_out, xs, group)
+        return out, aux.reshape(1)
 
     shard = [(0, group)]  # P("ep"): experts, and the batch
     router = _Replicated.apply(params["router"], group)  # P()
     out, aux = _spmd(body, [[], shard, shard, shard], (shard, shard),
                      router, params["w_in"], params["w_out"], x)
     return out, {"load_balance_loss": aux.mean()}
+
+
+def _moe_forward_sharded(cfg: MoEConfig, params: Dict, x: torch.Tensor,
+                         shards):
+    ep, E = shards.ep, cfg.num_experts
+    if E % ep or params["w_in"].shape[0] != E // ep:
+        raise ValueError(f"{E} experts split over ep {ep} leave "
+                         f"{params['w_in'].shape[0]} on this rank")
+    # chunk ep_rank of the batch [B / ep, T, D], routed with its capacity
+    y, aux = _routed(cfg, params["router"], params["w_in"],
+                     params["w_out"], shards.moe_chunk(x),
+                     shards.ep_group if ep > 1 else None, shards)
+    return shards.moe_rows(y), {"load_balance_loss": aux}

@@ -199,20 +199,26 @@ def optimizer_shardings(mesh, opt, params: Any, param_shardings: Any) -> Any:
 # (ZeRO-3), its tp block kept, and the model splits its heads, MLP
 # columns and vocabulary over tp Megatron-style (`enter` before a
 # column-parallel product, `exit` after a row-parallel one, the
-# vocabulary-parallel embedding and loss).  Every collective goes
-# through `collectives`, so each is counted by (op, backend, route) in
-# `collectives.TRANSPORTS` and a CUDA tensor crosses a gloo group through
-# the host explicitly.  DTensor's own propagation is not asked to carry
-# the model: its strategies walk every mesh dim on every op, and its
-# collectives would hand CUDA tensors to gloo itself (torch 2.11's gloo
-# crashes on a CUDA `all_gather_into_tensor`: `scripts/gloo_cuda_probe`).
+# vocabulary-parallel embedding and loss); over ep each rank keeps its
+# experts and the MoE layer exchanges slots (`parallel/moe.py`).  Every
+# collective goes through `collectives`, so each is counted by (op,
+# backend, route) in `collectives.TRANSPORTS` and a CUDA tensor crosses a
+# gloo group through the host explicitly.  DTensor's own propagation is
+# not asked to carry the model: its strategies walk every mesh dim on
+# every op, and its collectives would hand CUDA tensors to gloo itself
+# (torch 2.11's gloo crashes on a CUDA `all_gather_into_tensor`:
+# `scripts/gloo_cuda_probe`).
 
 DATA_AXES = ("dp", "fsdp")
 # sp is a data axis for the parameters (replicated over it, their
 # gradients summed over it) and a sequence axis for the activations
 # (each rank computes on its contiguous chunk of the sequence)
 PARAM_DATA_AXES = DATA_AXES + ("sp",)
-STEP_AXES = PARAM_DATA_AXES + ("tp",)
+# ep splits the experts (a leaf on Shard over ep keeps its block) and,
+# outside the MoE layer, the rows: a leaf replicated over ep has its
+# gradient summed over it, as over a data axis
+GRAD_SUM_AXES = PARAM_DATA_AXES + ("ep",)
+STEP_AXES = GRAD_SUM_AXES + ("tp",)
 
 
 def _autograd():
@@ -223,7 +229,8 @@ def _autograd():
         (tensor dim, group) all-gathered, innermost mesh dim first.
         Backward: the gradient summed over every data rank and cut back
         to this rank's block (a reduce-scatter over each gathered group,
-        a sum over each of `sums`)."""
+        a sum over each of `sums`).  The MoE layer gathers its
+        activations so too (`LocalShards.moe_chunk`)."""
 
         @staticmethod
         def forward(ctx, x, gathers, sums):
@@ -324,11 +331,19 @@ class LocalShards(Unsharded):
     """How a sharded step's DTensor leaves become each rank's compute
     blocks, and the tp collectives of the model around them.  Built from
     the mesh the leaves live on (`compute_mesh`), whose dims must be
-    among dp, fsdp, sp and tp.  Over sp each rank computes on its
+    among dp, fsdp, ep, sp and tp.  Over sp each rank computes on its
     contiguous chunk of the sequence (`seq_chunk`), the attention
     crosses the chunks (`ring_attention.select_attention`), and the
     parameters, replicated over sp, have their gradients summed over
-    it."""
+    it.
+
+    Over ep the experts split (a leaf on Shard over ep keeps its
+    block) and so do the rows: ep is the outermost split of the batch,
+    so the ranks of one ep rank hold together chunk `ep_rank` of it, the
+    chunk the reference's MoE layer routes there (`moe_chunk`); outside
+    the MoE layer ep is one more data axis (the leaves replicated over
+    it have their gradients summed over it, and the loss is a mean over
+    it)."""
 
     def __init__(self, mesh):
         import torch.distributed as dist
@@ -343,19 +358,30 @@ class LocalShards(Unsharded):
         self.mesh = mesh
         self.names = names
         self.groups = {n: mesh.get_group(n) for n in names}
-        # the loss is a mean over rows and sequence chunks alike
-        self.data = [n for n in names if n in PARAM_DATA_AXES]
+        # the loss is a mean over rows and sequence chunks alike: every
+        # rank holds rows and a sequence chunk of its own
+        self.data = [n for n in names if n in GRAD_SUM_AXES]
         self.n_data = 1
         for n in self.data:
             self.n_data *= sizes[n]
-        self.tp = sizes.get("tp", 1)
-        self.tp_group = self.groups.get("tp")
-        self.tp_rank = (dist.get_rank(self.tp_group) if self.tp > 1
-                        else 0)
-        self.sp = sizes.get("sp", 1)
-        self.sp_group = self.groups.get("sp")
-        self.sp_rank = (dist.get_rank(self.sp_group) if self.sp > 1
-                        else 0)
+
+        def size_group_rank(name):
+            n = sizes.get(name, 1)
+            group = self.groups.get(name)
+            return n, group, dist.get_rank(group) if n > 1 else 0
+
+        self.tp, self.tp_group, self.tp_rank = size_group_rank("tp")
+        self.sp, self.sp_group, self.sp_rank = size_group_rank("sp")
+        self.ep, self.ep_group, self.ep_rank = size_group_rank("ep")
+        # the batch inside an ep chunk splits over dp and fsdp in mesh
+        # order: this rank's block `row_index` of `n_rows`
+        self.row_axes = [n for n in names if n in DATA_AXES
+                         and sizes[n] > 1]
+        self.n_rows, self.row_index = 1, 0
+        for n in self.row_axes:
+            self.n_rows *= sizes[n]
+            self.row_index = (self.row_index * sizes[n]
+                              + dist.get_rank(self.groups[n]))
 
     # -- leaves ---------------------------------------------------------
     def unshard(self, p, over_tp: bool = False):
@@ -378,15 +404,17 @@ class LocalShards(Unsharded):
                         f"{tuple(p.shape)} leaf does not gather evenly "
                         f"over {name} {n}")
                 gathers.append((pl.dim, self.groups[name]))
-            elif pl.is_shard() or name not in PARAM_DATA_AXES:
-                continue
-            else:
+            elif not pl.is_shard() and name in GRAD_SUM_AXES:
                 sums.append(self.groups[name])
+            # else a tp or ep block, kept
         return _fns()[0].apply(p.to_local(), gathers, sums)
 
     def rows(self, t):
         """This rank's rows of a batch placed by `prepare_batch` (the
-        whole sequence: `seq_chunk` cuts it after the shift)."""
+        whole sequence: `seq_chunk` cuts it after the shift).  Over ep
+        the rows of chunk `ep_rank` of the batch, block `row_index` of
+        them: the batch (its block over dp / fsdp a rank) is gathered
+        first, a few ints a row."""
         if not isinstance(t, dtensor().DTensor):
             raise TypeError("a sharded step takes its batch as a DTensor "
                             "(train.cuda_utils.prepare_batch)")
@@ -395,7 +423,45 @@ class LocalShards(Unsharded):
             raise ValueError("a sharded step takes its batch whole over "
                              "sp (prepare_batch's data_sharding); the "
                              "model cuts each rank's chunk")
-        return t.to_local()
+        local = t.to_local()
+        if self.ep == 1:
+            return local
+        whole = local
+        for i in reversed(range(len(self.names))):
+            pl = t.placements[i]
+            if pl.is_shard():
+                if pl.dim != 0:
+                    raise ValueError("a sharded step's batch splits its "
+                                     "rows alone")
+                whole = collectives.all_gather(
+                    whole, self.groups[self.names[i]], axis=0)
+        n = self.ep * self.n_rows
+        if whole.shape[0] % n:
+            raise ValueError(f"a batch of {whole.shape[0]} rows does not "
+                             f"split over ep {self.ep} x {self.n_rows} "
+                             "data ranks")
+        b = whole.shape[0] // n
+        i = self.ep_rank * self.n_rows + self.row_index
+        return whole[i * b:(i + 1) * b]
+
+    # -- the MoE layer's chunk of the batch over ep ---------------------
+    def moe_chunk(self, x):
+        """This rank's activations [b, t, D] (its rows, its chunk of the
+        sequence) -> chunk `ep_rank` of the batch, whole over the
+        sequence [n_rows b, sp t, D]: gathered over sp and the data axes
+        of the rows (differentiable: the backward is their
+        reduce-scatter, each data rank's gradient being its own rows'
+        part)."""
+        gathers = [(1, self.sp_group)] if self.sp > 1 else []
+        gathers += [(0, self.groups[n]) for n in reversed(self.row_axes)]
+        return _fns()[0].apply(x, gathers, []) if gathers else x
+
+    def moe_rows(self, y):
+        """`moe_chunk`'s inverse: this rank's rows and sequence chunk of
+        its ep chunk's [B / ep, T, D]."""
+        b = y.shape[0] // self.n_rows
+        return self.seq_chunk(y[self.row_index * b:(self.row_index + 1)
+                                * b])
 
     # -- the sequence over sp -------------------------------------------
     def seq_chunk(self, x):
@@ -428,21 +494,33 @@ class LocalShards(Unsharded):
                 _chunk_start(vocab, self.tp, self.tp_rank + 1))
 
     def data_mean(self, x):
-        """The mean over the data ranks and the sequence chunks (all of
-        one size) of a mean each rank took over its own: the global
-        mean."""
+        """The mean over the data ranks (ep's included) and the sequence
+        chunks (all of one size) of a mean each rank took over its own:
+        the global mean."""
         return _fns()[3].apply(x, [self.groups[n] for n in self.data],
                                self.n_data)
 
 
 def local_shards(tree) -> Unsharded:
     """`LocalShards` for a tree whose tensor leaves are DTensors (the mesh
-    of its first), `UNSHARDED` for plain tensors."""
+    of its first), `UNSHARDED` for plain tensors.  A mesh that splits ep
+    takes a tree with experts (a leaf on Shard over ep): ep splits the
+    experts and the rows between them, and a model without experts
+    splits its rows over dp."""
     DTensor = dtensor().DTensor
-    for _, leaf in tree_paths(tree):
-        if isinstance(leaf, DTensor):
-            return LocalShards(leaf.device_mesh)
-    return UNSHARDED
+    leaves = [leaf for _, leaf in tree_paths(tree)
+              if isinstance(leaf, DTensor)]
+    if not leaves:
+        return UNSHARDED
+    shards = LocalShards(leaves[0].device_mesh)
+    if shards.ep > 1:
+        i = shards.names.index("ep")
+        if not any(leaf.placements[i].is_shard() for leaf in leaves):
+            raise NotImplementedError(
+                f"a sharded step splits over ep only a tree with experts; "
+                f"no leaf of this one splits over ep {shards.ep} (split "
+                f"its rows over dp)")
+    return shards
 
 
 def unshard_tree(shards: Unsharded, tree, over_tp=()):
